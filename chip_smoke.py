@@ -8,12 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper GPU:
 Phases, in order; any failure raises and exits non-zero:
 
 1. device  -- requires torch.cuda; prints nvidia-smi's name and power limit.
-2. build   -- compiles csrc/*.cu with nvcc (sm_90a) and prints ptxas' report.
+2. build   -- compiles csrc/*.cu with nvcc (sm_90a, one nvcc per source,
+              all started together) and prints ptxas' report; times a
+              1 GiB device copy (the card's reachable memory rate).
 3. kernels -- each CUDA kernel against its plain-torch twin on the card, at
-              the 256^3 main-path shapes and at a small shape; deterministic
+              the main paths' shapes and coefficients (every level) and at a
+              small shape; deterministic
               outputs to 1e-5, noisy outputs and partial sums to 1e-4
               (relative max-norm); kernel and twin device times per call
-              from torch.profiler.
+              from torch.profiler.  The full sweep runs in both modes (FD
+              diagonal, #7; streamed diagonal, #6, with the FD diagonal
+              times a smooth field in [1, 2]), forward and backward, noise
+              on and off, b given and None.
 4. moments -- bench.py's selftest problem (16x16x128, b = 50): the keyed
               kernel chain against the explicit-noise plain chain over 40000
               steps after 200 burn-in (max |z| < 10, mean |z| < 2.5, max
@@ -26,9 +32,27 @@ Phases, in order; any failure raises and exits non-zero:
               the exact law of the QOI: mean(x) ~ N(0, 1/(kappa^2 N)),
               the device time of a step by kernel, and the same keyed
               cycle with the twins in place of the kernels.
+7. moments V(2,2) and Gibbs -- the keyed V(2,2) chain on the phase-4
+              problem (10000 steps), and the keyed Gibbs chain on a
+              16x16x32 problem with kappa^2 = 900 (10000 steps; FD
+              symmetric sweeps, and forward sweeps of the streamed
+              diagonal), each against its explicit-noise chain with the
+              gates of phase 4.
+8. V(2,2)  -- gmrf_3d(256), MGMC V(2,2), the same hierarchy, the general
+              keyed cycle through sample_chain with the mean as QOI:
+              ms/cycle over 512 steps, tau and ESS/sec from 4096 steps,
+              var(QOI) N in (0.8, 1.25), exactly 20 FD-sweep launches per
+              step (5 smoothed levels x 4 sweeps) and no other kernel, the
+              device time of a step by kernel, and the cycle on the twins.
+9. Gibbs   -- the keyed Gibbs chain at 256^3 (b = None), forward and
+              symmetric, FD (#7) and streamed diagonal (#6): wall ms per
+              sweep and the launches of each mode.
 
-The last lines are the kernels' JSON record, the card as nvidia-smi prints
-it, and {"ok": true, "device": {...}}.
+The last lines are the kernels' JSON record (launches from the main path
+that runs each kernel: phase 6 for the chain and tail kernels, phase 8
+for the FD sweep, phase 9 for the streamed sweep; bound_ms from this
+run's shapes at the card's published peaks), the card as nvidia-smi
+prints it, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -43,6 +67,20 @@ N_MAIN = 256
 N_TIME = 512
 N_IACT = 4096
 N_MOMENTS = 40_000
+N_MOMENTS_V22 = 10_000
+N_MOMENTS_GIBBS = 10_000
+N_GIBBS_TIME = 256
+
+# the card's peaks (NVIDIA's H100 SXM data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# float operations per grid cell, counted from each twin's arithmetic
+# (noise: Box-Muller 26 + scaling 4; sweep: neighbour sum 11 + update 5;
+# A v: 13; link-count diagonal: 2)
+FLOPS_CHAIN = 79  # A x + residual 15, noise 30, sweep 15, A y 13, adds/sums/D 6
+FLOPS_TAIL = 62  # noise 30, sweep 15, A y 13, residual/restriction/D 4
+FLOPS_SWEEP = {"fd": 48, "streamed": 46}  # noise 30, sweep 16, D 2 (FD only)
 
 
 class SmokeFailure(RuntimeError):
@@ -57,6 +95,46 @@ def check(cond, msg):
 def rel_err(got, want):
     d = (got.double() - want.double()).abs().max().item()
     return d / max(want.double().abs().max().item(), 1e-30), d
+
+
+def bound(nbytes, nflops):
+    """(ms, what bounds it): the least time the card could take to move
+    nbytes once and do nflops float32 operations."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, nflops / F32_FLOPS_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def smooth_field(torch, shape, dev):
+    """A smooth positive field in [1, 2] on the grid."""
+    n0, n1, n2 = shape
+    i = torch.arange(n0, device=dev).reshape(n0, 1, 1) / n0
+    j = torch.arange(n1, device=dev).reshape(1, n1, 1) / n1
+    k = torch.arange(n2, device=dev).reshape(1, 1, n2) / n2
+    return 1.5 + 0.5 * torch.sin(2 * math.pi * (i + 0.5 * j)) * torch.cos(2 * math.pi * k)
+
+
+def field_operator(torch, op):
+    """op with its diagonal times smooth_field: a 3D star stencil with
+    scalar off-diagonals that is not link-count FD (the streamed-diagonal
+    sweep's operator)."""
+    from parmgmc_tpu_torch.operators.stencil import StencilOperator
+
+    diag = (op.diag * smooth_field(torch, op.grid_shape, op.diag.device)).contiguous()
+    return StencilOperator(offsets=op.offsets, coeffs=op.coeffs, diag=diag)
+
+
+def copy_rate(torch, dev):
+    """Bytes/s of a 1 GiB device-to-device copy (read + write), CUDA events."""
+    x = torch.empty(2**28, dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    y.copy_(x)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        y.copy_(x)
+    end.record()
+    torch.cuda.synchronize()
+    return 2 * x.numel() * 4 / (start.elapsed_time(end) / 10 * 1e-3)
 
 
 def device_ms(torch, fn, n):
@@ -81,7 +159,7 @@ def device_ms(torch, fn, n):
     return total, per
 
 
-def phase_kernels(torch, dev, main_smp):
+def phase_kernels(torch, dev, main_smp, v22_smp):
     from parmgmc_tpu_torch.kernels import mg_sweep, mg_tail
 
     rec = {}
@@ -118,7 +196,11 @@ def phase_kernels(torch, dev, main_smp):
             plain, _ = device_ms(
                 torch, lambda: mg_sweep.fused_chain_down_fd_reference(x, None, *args, **kw), 5
             )
-            rec["chain"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+            n = x.numel()
+            nblk = math.prod(-(-d // t) for d, t in zip(shape, mg_sweep.CHAIN_TILE))
+            bms, by = bound(4 * (n + n // 8 + n + n // 8 + 2 * nblk), FLOPS_CHAIN * n)
+            rec["chain"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
+                                bound_by=by, library_ms=None)
             print(f"  chain kernel at {shape} (b=None, z, sums, noise): {ms:.4f} ms, twin {plain:.4f} ms")
         del x, b, z
 
@@ -147,34 +229,96 @@ def phase_kernels(torch, dev, main_smp):
         if main:
             ms, _ = device_ms(torch, lambda: mg_tail.fused_tail_down(bl, prm, 99, 5, 0, shp), 50)
             plain, _ = device_ms(torch, lambda: mg_tail.tail_down_reference(bl, prm, 99, 5, 0, shp), 5)
-            rec["tail"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+            sizes = [math.prod(sh) for sh in shp[:-1]]
+            bms, by = bound(sum(4 * (2 * m + m // 8) for m in sizes), FLOPS_TAIL * sum(sizes))
+            rec["tail"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
+                               bound_by=by, library_ms=None)
             print(f"  tail kernels over {len(shp) - 1} levels from {shp[0]}: {ms:.4f} ms, twin {plain:.4f} ms")
+
+    # the full sweep in FD mode (#7) and with the diagonal streamed (#6): at
+    # every smoothed level of the V(2,2) path with that level's coefficients
+    # (256^3 first), plus a small ragged-tile shape
+    from parmgmc_tpu_torch.kernels import rb_gibbs
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+
+    cases = [(o, s.fd_params, s._coeff6(), s.omega) for o, s in zip(v22_smp.ops, v22_smp.smoothers)]
+    hinv2 = 15.0**2
+    cases.append((shifted_laplace_fd((16, 24, 96), 1.0, device=dev), (1.0, hinv2), [-hinv2] * 6, 1.3))
+    for li, (op, (kappa2, hinv2), coeffs, omega) in enumerate(cases):
+        main, shape = li == 0, tuple(op.grid_shape)
+        x, b = randn(*shape), randn(*shape)
+        diag = field_operator(torch, op).diag
+        calls = {
+            "fd": (rb_gibbs.fused_rb_gibbs_sweep_fd, rb_gibbs.fused_rb_gibbs_sweep_fd_reference,
+                   (coeffs, kappa2, hinv2, omega, 1234, 77)),
+            "streamed": (rb_gibbs.fused_rb_gibbs_sweep, rb_gibbs.fused_rb_gibbs_sweep_reference,
+                         (diag, coeffs, omega, 1234, 77)),
+        }
+        for mode, (kern, twin, args) in calls.items():
+            worst, rels = 0.0, {False: 0.0, True: 0.0}
+            for sweep in ("forward", "backward"):
+                for noise in (False, True):
+                    for bb in (b, None):
+                        kw = dict(sweep=sweep, with_noise=noise)
+                        got, want = kern(x, bb, *args, **kw), twin(x, bb, *args, **kw)
+                        torch.cuda.synchronize()
+                        check(got.shape == want.shape, f"sweep {mode} shape {got.shape} != {want.shape}")
+                        r, d = rel_err(got, want)
+                        tol = 1e-4 if noise else 1e-5
+                        check(r <= tol, f"sweep kernel ({mode}, {sweep}, noise={noise}, "
+                                        f"b={'yes' if bb is not None else 'None'}) disagrees with "
+                                        f"its twin: {r:.3e} > {tol:g}")
+                        rels[noise] = max(rels[noise], r)
+                        worst = max(worst, d)
+            print(f"  sweep {mode} {shape} omega {omega:g} kappa2 {kappa2:g} hinv2 {hinv2:g} "
+                  f"forward/backward, b given/None: worst rel "
+                  f"{rels[False]:.2e} noise off (tol 1e-05), {rels[True]:.2e} noise on (tol 0.0001)")
+            if main:
+                # what the main paths run: V(2,2) level 0 sweeps with b (FD);
+                # the streamed Gibbs chain on the prior (b = None)
+                bb = b if mode == "fd" else None
+                ms, _ = device_ms(torch, lambda: kern(x, bb, *args), 50)
+                plain, _ = device_ms(torch, lambda: twin(x, bb, *args), 5)
+                n = x.numel()
+                bms, by = bound(4 * 3 * n, FLOPS_SWEEP[mode] * n)
+                rec[f"sweep_{mode}"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
+                                            bound_by=by, library_ms=None)
+                print(f"  sweep {mode} kernel at {shape} (b={'yes' if bb is not None else 'None'}, "
+                      f"noise): {ms:.4f} ms, twin {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        del x, b, diag
     return rec
 
 
-def phase_moments(torch, dev):
+def moments_gate(torch, label, smp, b, n):
+    """The keyed chain of smp against its explicit-noise chain: n steps
+    after 200 burn-in each, per-cell mean z-scores and variance gaps."""
     from parmgmc_tpu_torch.chain import ExplicitNoise, init_chain, sample_moments
+
+    out = {}
+    for tag, s in (("kernel", smp), ("plain", ExplicitNoise(smp))):
+        t0 = time.perf_counter()
+        _, mean, var = sample_moments(s, init_chain(smp, 7), b, n, burnin=200)
+        torch.cuda.synchronize()
+        out[tag] = (mean.double(), var.double())
+        print(f"  {label} {tag} chain: {n} steps in {time.perf_counter() - t0:.1f} s")
+    (mk, vk), (mp, vp) = out["kernel"], out["plain"]
+    se = torch.sqrt((vk + vp) / n)
+    z = (mk - mp).abs() / se.clamp(min=1e-12)
+    rvar = (vk - vp).abs() / vp.clamp(min=1e-12)
+    zmax, zmean, rmax = z.max().item(), z.mean().item(), rvar.max().item()
+    print(f"  {label}: max |z| {zmax:.3f} (gate 10), mean |z| {zmean:.3f} (gate 2.5), "
+          f"max relative var gap {rmax:.4f} (gate 0.2)")
+    check(zmax < 10.0 and zmean < 2.5 and rmax < 0.2, f"{label}: kernel chain moments drifted from the plain chain")
+
+
+def phase_moments(torch, dev):
     from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
     op = shifted_laplace_fd((16, 16, 128), 1.0, device=dev)
     b = torch.full(op.grid_shape, 50.0, device=dev)
     smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128)
-    out = {}
-    for tag, s in (("kernel", smp), ("plain", ExplicitNoise(smp))):
-        t0 = time.perf_counter()
-        _, mean, var = sample_moments(s, init_chain(smp, 7), b, N_MOMENTS, burnin=200)
-        torch.cuda.synchronize()
-        out[tag] = (mean.double(), var.double())
-        print(f"  {tag} chain: {N_MOMENTS} steps in {time.perf_counter() - t0:.1f} s")
-    (mk, vk), (mp, vp) = out["kernel"], out["plain"]
-    se = torch.sqrt((vk + vp) / N_MOMENTS)
-    z = (mk - mp).abs() / se.clamp(min=1e-12)
-    rvar = (vk - vp).abs() / vp.clamp(min=1e-12)
-    zmax, zmean, rmax = z.max().item(), z.mean().item(), rvar.max().item()
-    print(f"  max |z| {zmax:.3f} (gate 10), mean |z| {zmean:.3f} (gate 2.5), "
-          f"max relative var gap {rmax:.4f} (gate 0.2)")
-    check(zmax < 10.0 and zmean < 2.5 and rmax < 0.2, "kernel chain moments drifted from the plain chain")
+    moments_gate(torch, "V(1,0)", smp, b, N_MOMENTS)
     return smp, b
 
 
@@ -262,7 +406,125 @@ def phase_main(torch, dev, smp):
     return counts
 
 
+def phase_moments_general(torch, dev, b):
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+    from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    op = shifted_laplace_fd((16, 16, 128), 1.0, device=dev)
+    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128)
+    check(not smp.deferred_eligible(), "V(2,2) must run the general keyed cycle")
+    moments_gate(torch, "V(2,2)", smp, b, N_MOMENTS_V22)
+    # Gibbs: kappa^2 = 900 against h^-2 = 225, so a sweep contracts by ~0.4
+    op = shifted_laplace_fd((16, 16, 32), 30.0, device=dev)
+    bg = torch.full(op.grid_shape, 50.0, device=dev)
+    for label, o, sweep in (("Gibbs FD symmetric", op, "symmetric"),
+                            ("Gibbs streamed forward", field_operator(torch, op), "forward")):
+        smp = GibbsSampler.create(o, sweep=sweep)
+        check(smp.has_kernel and (smp.fd_params is None) == ("streamed" in label),
+              f"{label}: the keyed step does not take the expected kernel")
+        moments_gate(torch, label, smp, bg, N_MOMENTS_GIBBS)
+
+
+def phase_v22(torch, smp):
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+    from parmgmc_tpu_torch.diagnostics.iact import iact
+    from parmgmc_tpu_torch.kernels import rb_gibbs
+    from parmgmc_tpu_torch.samplers import gibbs
+
+    per_step = (smp.n_pre + smp.n_post) * (smp.n_levels - 1)
+    check(per_step == 20 and not smp.deferred_eligible(),
+          f"V(2,2) over {smp.n_levels} levels should run 20 sweeps a step, not {per_step}")
+    st = init_chain(smp, 0)
+    st, _ = sample_chain(smp, st, None, 32, extract=torch.mean)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, _ = sample_chain(smp, st, None, N_TIME, extract=torch.mean)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / N_TIME
+    st, q = sample_chain(smp, st, None, N_IACT, extract=torch.mean)
+    q = q.double().cpu()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"  launches during the V(2,2) path: {counts} over {N_TIME + N_IACT} steps")
+    check(counts["rb_gibbs_fd"] == per_step * (N_TIME + N_IACT),
+          f"expected exactly {per_step} FD-sweep launches per step: {counts}")
+    check(counts["chain_down"] == counts["tail_down"] == counts["rb_gibbs"] == 0,
+          f"the V(2,2) path launched another kernel: {counts}")
+
+    x = st.x
+    check(tuple(x.shape) == (N_MAIN,) * 3 and bool(torch.isfinite(x).all()),
+          "final state has the wrong shape or non-finite values")
+    check(bool(torch.isfinite(q).all()) and q.shape == (N_IACT,), "QOI chain not finite")
+    npts = N_MAIN**3
+    var_ratio = q.var().item() * npts
+    zmean = q.mean().item() * math.sqrt(npts * N_IACT)
+    tau, valid = iact(q)
+    tau_c = max(tau, 1.0)
+    print(f"  QOI: var * N = {var_ratio:.4f} (exact 1), mean / SE = {zmean:.3f}, "
+          f"tau {tau:.4f} (valid {valid})")
+    check(0.8 < var_ratio < 1.25, "QOI variance is off the prior's exact value")
+    check(abs(zmean) < 5.0 * math.sqrt(tau_c), "QOI mean is off zero")
+    ess = 1.0 / (tau_c * dt)
+    print(f"  V(2,2) path: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f}, ESS/sec {ess:.2f}")
+
+    holder, n_win = [st], 16
+
+    def window():
+        holder[0], _ = sample_chain(smp, holder[0], None, n_win, extract=torch.mean)
+
+    busy, per = device_ms(torch, window, 1)
+    busy, per = busy / n_win, {k: v / n_win for k, v in per.items()}
+    for name, t in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  device per step: {t:.4f} ms  {name}")
+    idle = max(0.0, 1.0 - busy / (dt * 1e3))
+    print(f"  device busy {busy:.4f} ms/step of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f}")
+
+    with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
+        st2, _ = sample_chain(smp, st, None, 1, extract=torch.mean)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_chain(smp, st2, None, 3, extract=torch.mean)
+        torch.cuda.synchronize()
+        dt_twin = (time.perf_counter() - t0) / 3
+    print(f"  twin path: {dt_twin * 1e3:.4f} ms/cycle")
+    return counts
+
+
+def phase_gibbs(torch, op):
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+    from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
+
+    field = field_operator(torch, op)
+    want = {"chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0}
+    kernels.reset_launch_counts()
+    for mode, o, counter in (("FD", op, "rb_gibbs_fd"), ("streamed", field, "rb_gibbs")):
+        for sweep in ("forward", "symmetric"):
+            smp = GibbsSampler.create(o, sweep=sweep)
+            halves = 2 if sweep == "symmetric" else 1
+            st, _ = sample_chain(smp, init_chain(smp, 1), None, 4, extract=torch.mean)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, q = sample_chain(smp, st, None, N_GIBBS_TIME, extract=torch.mean)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / (N_GIBBS_TIME * halves)
+            want[counter] += (4 + N_GIBBS_TIME) * halves
+            check(bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all()),
+                  f"Gibbs {mode} {sweep} chain is not finite")
+            print(f"  Gibbs {mode} {sweep} at {N_MAIN}^3: {dt * 1e3:.4f} ms/sweep "
+                  f"({N_GIBBS_TIME} steps)")
+    counts = kernels.launch_counts()
+    print(f"  launches during the Gibbs chains: {counts}")
+    check(counts == want, f"Gibbs chains launched {counts}, expected {want}")
+    return counts
+
+
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -292,32 +554,46 @@ def main():
     secs = kernels.build(verbose=True)
     kernels.lib()
     print(f"  nvcc build: {secs:.2f} s")
+    print(f"  1 GiB device copy: {copy_rate(torch, dev) / 1e12:.4f} TB/s (read + write)")
 
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
     t0 = time.perf_counter()
-    main_smp = MGMCSampler.create(
-        gmrf_3d(N_MAIN, kappa=1.0, device=dev), n_pre=1, n_post=0, coarsest_size=128
-    )
+    op = gmrf_3d(N_MAIN, kappa=1.0)
+    main_smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128)
+    v22_smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128, coarsening="aggregate")
+    check(op.device.type == "cuda", f"gmrf_3d with no device argument is on {op.device}")
     print(f"  main sampler levels {[o.grid_shape for o in main_smp.ops]} "
           f"(setup {time.perf_counter() - t0:.2f} s)")
 
     print("== 3. kernels against their twins")
-    rec = phase_kernels(torch, dev, main_smp)
+    rec = phase_kernels(torch, dev, main_smp, v22_smp)
     print("== 4. moments gate")
     smp, b = phase_moments(torch, dev)
     print("== 5. deferred chain")
     phase_deferred(torch, smp, b, main_smp)
     print("== 6. main path")
     counts = phase_main(torch, dev, main_smp)
+    print("== 7. moments gates: V(2,2) and Gibbs")
+    phase_moments_general(torch, dev, b)
+    print("== 8. V(2,2) path")
+    counts.update({k: v for k, v in phase_v22(torch, v22_smp).items() if k == "rb_gibbs_fd"})
+    print("== 9. Gibbs chains")
+    counts.update({k: v for k, v in phase_gibbs(torch, op).items() if k == "rb_gibbs"})
+    print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 
     meta = (
         ("fused_chain_down_fd", "chain", "chain_down", "parmgmc_tpu_torch/csrc/chain_down.cu",
          "parmgmc_tpu/kernels/mg_sweep.py:704"),
         ("fused_tail_down", "tail", "tail_down", "parmgmc_tpu_torch/csrc/tail_down.cu",
          "parmgmc_tpu/kernels/mg_tail.py:175"),
+        ("fused_rb_gibbs_sweep_fd", "sweep_fd", "rb_gibbs_fd", "parmgmc_tpu_torch/csrc/rb_gibbs.cu",
+         "parmgmc_tpu/kernels/rb_gibbs.py:552"),
+        ("fused_rb_gibbs_sweep", "sweep_streamed", "rb_gibbs", "parmgmc_tpu_torch/csrc/rb_gibbs.cu",
+         "parmgmc_tpu/kernels/rb_gibbs.py:285"),
     )
+    check(all(counts[ck] > 0 for _, _, ck, _, _ in meta), f"a kernel was not launched on its path: {counts}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[ck], **rec[rk])
         for name, rk, ck, src, rep in meta

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from parmgmc_tpu_torch import resolve_device
 from parmgmc_tpu_torch.operators.stencil import StencilOperator, fd_stencil
 from parmgmc_tpu_torch.operators.transfer import AggregateTransfer
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
@@ -34,13 +35,14 @@ __all__ = [
 ]
 
 
-def tensor(a, device="cpu", dtype=None) -> torch.Tensor:
-    """A numpy array (or scalar) as a contiguous tensor on ``device``."""
+def tensor(a, device=None, dtype=None) -> torch.Tensor:
+    """A numpy array (or scalar) as a contiguous tensor on ``device`` (the
+    card when None)."""
     t = torch.from_numpy(np.array(a, order="C"))  # a writable copy, 0-d kept
-    return t.to(device=device, dtype=dtype or t.dtype)
+    return t.to(device=resolve_device(device), dtype=dtype or t.dtype)
 
 
-def tree(noises, device="cpu"):
+def tree(noises, device=None):
     """A tree (dicts, lists) of numpy arrays as the same tree of tensors."""
     if isinstance(noises, dict):
         return {k: tree(v, device) for k, v in noises.items()}
@@ -49,12 +51,12 @@ def tree(noises, device="cpu"):
     return tensor(noises, device)
 
 
-def fd_operator(kappa2, hinv2, grid_shape, dtype=torch.float32, device="cpu", lazy="auto"):
+def fd_operator(kappa2, hinv2, grid_shape, dtype=torch.float32, device=None, lazy="auto"):
     """Link-count FD operator from its two scalars."""
     return fd_stencil(grid_shape, float(kappa2), float(hinv2), dtype=dtype, device=device, lazy=lazy)
 
 
-def stencil_operator(offsets, coeffs, diag, device="cpu") -> StencilOperator:
+def stencil_operator(offsets, coeffs, diag, device=None) -> StencilOperator:
     """Operator from a stencil field: coefficients are numpy scalars or
     grid-shaped arrays."""
     d = tensor(diag, device)
@@ -65,14 +67,14 @@ def stencil_operator(offsets, coeffs, diag, device="cpu") -> StencilOperator:
     )
 
 
-def cholesky_sampler(L, Li, grid_shape, device="cpu") -> CholeskySampler:
+def cholesky_sampler(L, Li, grid_shape, device=None) -> CholeskySampler:
     return CholeskySampler.from_factors(
         tensor(L, device), None if Li is None else tensor(Li, device), grid_shape
     )
 
 
 def mgmc_sampler(ops, L, Li, *, omega=1.0, sweep="forward", n_pre=1, n_post=1,
-                 n_coarse=1, gamma=1, device="cpu") -> MGMCSampler:
+                 n_coarse=1, gamma=1, device=None) -> MGMCSampler:
     """MGMC sampler over the given per-level operators (finest first),
     aggregate transfers between them and a Cholesky coarse sampler from
     (L, Li)."""
@@ -85,6 +87,6 @@ def mgmc_sampler(ops, L, Li, *, omega=1.0, sweep="forward", n_pre=1, n_post=1,
     )
 
 
-def compact_carry(zx2, device="cpu") -> torch.Tensor:
+def compact_carry(zx2, device=None) -> torch.Tensor:
     """The port's compact carry z from the JAX lane-duplicated ``zx2``."""
     return tensor(np.asarray(zx2)[..., ::2], device)

@@ -20,13 +20,17 @@ import glob
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
+
+import torch
 
 __all__ = [
     "build",
     "lib",
     "check_launch",
+    "check_input",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -37,16 +41,18 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "parmgmc_tpu_torch")
 _SO = os.path.join(BUILD_DIR, "libparmgmc_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # output tile of one CUDA block per kernel (T0, T1, T2 in csrc/*.cu); the
 # twins' partial sums use the same tiles, so the loader checks them
-TILES = {"chain": (8, 8, 32), "tail": (8, 8, 32)}
+TILES = {"chain": (8, 8, 32), "tail": (8, 8, 32), "rb_gibbs": (8, 8, 32)}
 
 _LOCK = threading.Lock()
 _LIB = None
-_LAUNCHES = {"chain_down": 0, "tail_down": 0}
+# one count per wrapper: fused_chain_down_fd, fused_tail_down (per level),
+# fused_rb_gibbs_sweep_fd and fused_rb_gibbs_sweep
+_LAUNCHES = {"chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,8 +63,10 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I,
     ),
     "pmg_tail_down": ([_P] * 3 + [_I] * 3 + [_F] * 4 + [_U, _I, _I, _P], _I),
+    "pmg_rb_gibbs": ([_P] * 4 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I),
     "pmg_chain_tile": ([ctypes.POINTER(_I)], None),
     "pmg_tail_tile": ([ctypes.POINTER(_I)], None),
+    "pmg_rb_gibbs_tile": ([ctypes.POINTER(_I)], None),
 }
 
 
@@ -79,27 +87,40 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> float:
     """Compile ``csrc/*.cu`` into the shared library if it is missing or
     older than a source; returns the seconds spent (0.0 when current).
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report of
-    registers, shared memory and spills."""
+    Each source gets its own ``nvcc``, all started together, and one more
+    links the objects.  ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report of registers, shared memory and spills."""
     deps = _sources() + glob.glob(os.path.join(_CSRC, "*.cuh"))
     if os.path.exists(_SO) and os.path.getmtime(_SO) >= max(
         os.path.getmtime(p) for p in deps
     ):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *_sources()]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
+    nvcc = _nvcc()
+    extra = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *extra, *NVCC_FLAGS, "-I", _CSRC, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for obj, src in zip(objs, _sources())
+        ]
+        report = "".join(p.communicate()[0] for p in procs)
+        so = os.path.join(tmp, os.path.basename(_SO))
+        ok = all(p.returncode == 0 for p in procs)
+        if ok:
+            res = subprocess.run([nvcc, "-shared", "-o", so, *objs],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            report += res.stdout
+            ok = res.returncode == 0
+        if not ok:
+            raise RuntimeError(f"nvcc failed:\n{report}")
+        os.replace(so, _SO)
     if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, _SO)
+        print(report)
     return time.perf_counter() - t0
 
 
@@ -121,6 +142,17 @@ def lib() -> ctypes.CDLL:
                     raise RuntimeError(f"csrc {name} kernel tile {tuple(out)} != {tile}")
             _LIB = so
         return _LIB
+
+
+def check_input(name: str, t, like) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor on ``like``'s
+    device: what every kernel takes."""
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, x on {like.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def check_launch(err: int, name: str) -> None:

@@ -11,7 +11,8 @@ true DOF): a halo cell recomputed by a neighbouring tile regenerates the
 same draw, and the kernel and its twin draw the same numbers.  The tail
 levels use the domain ``0xA511E9B3 + li`` of ``_eta_hash`` (so the twin
 matches the JAX tail reference with the noise on); the level-0 chain
-kernel uses :data:`CHAIN_DOMAIN`.
+kernel uses :data:`CHAIN_DOMAIN` and the full red/black sweep kernels
+:data:`SWEEP_DOMAIN`.
 
 torch has no ``>>`` for ``uint32`` on the CPU, so the integer arithmetic
 runs in ``int64`` with every product and sum reduced mod 2^32.  A 32x32
@@ -29,6 +30,7 @@ import torch
 __all__ = [
     "CHAIN_DOMAIN",
     "TAIL_DOMAIN",
+    "SWEEP_DOMAIN",
     "mix",
     "hash_prefix",
     "sin2pi_poly",
@@ -40,6 +42,8 @@ _M32 = 0xFFFFFFFF
 # level 0's key domain; the tail uses TAIL_DOMAIN + level (as _eta_hash)
 CHAIN_DOMAIN = 0x5851F42D
 TAIL_DOMAIN = 0xA511E9B3
+# the full sweeps (kernels.rb_gibbs); keyed by (seed, half-sweep step)
+SWEEP_DOMAIN = 0x2545F491
 _H2_SALT = 0x63D83595
 
 _TWO_PI = 6.283185307179586

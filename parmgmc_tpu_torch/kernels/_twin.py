@@ -10,8 +10,8 @@ import torch
 from parmgmc_tpu_torch.operators.stencil import link_count
 
 __all__ = [
-    "shift", "parity", "restrict2", "tile_sums", "scalar", "fd_diag", "flat_index",
-    "noise_factor", "f32",
+    "shift", "star_neigh", "parity", "restrict2", "tile_sums", "scalar", "fd_diag",
+    "flat_index", "noise_factor", "f32",
 ]
 
 
@@ -24,6 +24,17 @@ def shift(v: torch.Tensor, axis: int, by: int) -> torch.Tensor:
     if by > 0:
         return torch.cat([v.narrow(axis, by, n - by), zeros], dim=axis)
     return torch.cat([zeros, v.narrow(axis, 0, n + by)], dim=axis)
+
+
+def star_neigh(v: torch.Tensor, c) -> torch.Tensor:
+    """Off-diagonal star sum with the scalar tensors ``c`` ordered
+    (-e0, +e0, -e1, +e1, -e2, +e2), summed left to right as the kernels
+    do; zero outside the grid."""
+    return (
+        c[0] * shift(v, 0, -1) + c[1] * shift(v, 0, 1)
+        + c[2] * shift(v, 1, -1) + c[3] * shift(v, 1, 1)
+        + c[4] * shift(v, 2, -1) + c[5] * shift(v, 2, 1)
+    )
 
 
 def parity(shape, device) -> torch.Tensor:

@@ -61,11 +61,7 @@ def fused_chain_down_fd_reference(
     c = [_twin.scalar(v, dt, dev) for v in coeffs]
 
     def neigh(v):
-        return (
-            c[0] * _twin.shift(v, 0, -1) + c[1] * _twin.shift(v, 0, 1)
-            + c[2] * _twin.shift(v, 1, -1) + c[3] * _twin.shift(v, 1, 1)
-            + c[4] * _twin.shift(v, 2, -1) + c[5] * _twin.shift(v, 2, 1)
-        )
+        return _twin.star_neigh(v, c)
 
     xt = x
     if z is not None:
@@ -95,15 +91,6 @@ def fused_chain_down_fd_reference(
     return tuple(out)
 
 
-def _check_cuda(name, t, like):
-    if t.device != like.device:
-        raise ValueError(f"{name} is on {t.device}, x on {like.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def fused_chain_down_fd(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
@@ -124,7 +111,7 @@ def fused_chain_down_fd(
     _check_args(x, b, z, with_zsum)
     for name, t in (("x", x), ("b", b), ("z", z)):
         if t is not None:
-            _check_cuda(name, t, x)
+            kernels.check_input(name, t, x)
     lib = kernels.lib()
     n0, n1, n2 = x.shape
     nblk = 1

@@ -1,0 +1,160 @@
+"""Full stochastic red/black Gibbs sweep: CUDA kernel wrappers and twins.
+
+Port of ``parmgmc_tpu/kernels/rb_gibbs.py::fused_rb_gibbs_sweep_fd`` (the
+diagonal rebuilt from (kappa2, hinv2) and the in-grid link count) and
+``fused_rb_gibbs_sweep`` (the diagonal read from a tensor).  For a 3D
+star stencil with the six scalar off-diagonals ``coeffs`` ordered
+(-e0, +e0, -e1, +e1, -e2, +e2) one launch maps x to x' out of place:
+
+    b~ = b + noise_mult sqrt((2 - omega)/omega) D^{1/2} eta   (b = None: 0)
+    colour c0, then colour 1 - c0:
+        x_r <- (1 - omega) x_r + (omega / D_r) (b~_r - sum_nbr c x_nbr)
+
+with parity (i + j + k) % 2 and c0 = 0 for ``sweep="forward"``, 1 for
+``"backward"``.  eta is the counter-hash draw of :mod:`._noise` keyed by
+(seed, step, :data:`~._noise.SWEEP_DOMAIN`, flat index); the TPU kernels'
+row-keyed hardware PRNG has no counterpart.
+
+Both wrappers launch one source, ``csrc/rb_gibbs.cu`` (a template flag
+picks the diagonal's source); its note gives the byte bound and the tile
+design.  The TPU's plane-size dispatch to the 2D-tiled kernels and its
+Mosaic tile gates are not copied: the CUDA tiles take any 3D shape.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parmgmc_tpu_torch import kernels
+from parmgmc_tpu_torch.kernels import _noise, _twin
+
+__all__ = [
+    "fused_rb_gibbs_sweep_fd",
+    "fused_rb_gibbs_sweep_fd_reference",
+    "fused_rb_gibbs_sweep",
+    "fused_rb_gibbs_sweep_reference",
+]
+
+
+def _color0(sweep: str) -> int:
+    if sweep not in ("forward", "backward"):
+        raise ValueError(f"a sweep kernel runs one forward/backward sweep, got {sweep!r}")
+    return 0 if sweep == "forward" else 1
+
+
+def _check_args(x, b, diag):
+    if x.ndim != 3:
+        raise ValueError(f"sweep kernel needs a 3D grid, got {tuple(x.shape)}")
+    if x.numel() >= 2**32:
+        raise ValueError("the noise counter is 32-bit: grids need fewer than 2^32 points")
+    for name, t in (("b", b), ("diag", diag)):
+        if t is not None and t.shape != x.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != x shape {tuple(x.shape)}")
+
+
+def _nscale(omega, noise_mult, dtype=torch.float32) -> float:
+    """noise_mult * sqrt((2 - omega)/omega) rounded as the device rounds it."""
+    if dtype != torch.float32:
+        return _twin.noise_factor(omega, dtype) * float(noise_mult)
+    return _twin.f32(_twin.noise_factor(omega, dtype) * _twin.f32(noise_mult))
+
+
+def _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise):
+    color0 = _color0(sweep)
+    dt, dev = x.dtype, x.device
+    shape = tuple(x.shape)
+    c = [_twin.scalar(v, dt, dev) for v in coeffs]
+    bt = torch.zeros_like(x) if b is None else b
+    if with_noise:
+        prefix = _noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN)
+        eta = _noise.eta_hash(prefix, _twin.flat_index(shape, dev), dt)
+        bt = bt + (_nscale(omega, noise_mult, dt) * torch.sqrt(D)) * eta
+    par = _twin.parity(shape, dev)
+    om = _twin.scalar(omega, dt, dev)
+    for color in (color0, 1 - color0):
+        upd = (1.0 - om) * x + (om / D) * (bt - _twin.star_neigh(x, c))
+        x = torch.where(par == color, upd, x)
+    return x
+
+
+def fused_rb_gibbs_sweep_fd_reference(
+    x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True,
+):
+    """Plain-torch twin of :func:`fused_rb_gibbs_sweep_fd` (any device)."""
+    _check_args(x, b, None)
+    D = _twin.fd_diag(tuple(x.shape), kappa2, hinv2, x.dtype, x.device)
+    return _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise)
+
+
+def fused_rb_gibbs_sweep_reference(
+    x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True,
+):
+    """Plain-torch twin of :func:`fused_rb_gibbs_sweep` (any device)."""
+    _check_args(x, b, diag)
+    return _sweep_reference(x, b, diag, coeffs, omega, seed, step, noise_mult, sweep, with_noise)
+
+
+def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sweep,
+            with_noise, counter):
+    if x.device.type != "cuda":
+        raise ValueError(f"no sweep kernel for device {x.device}")
+    color0 = _color0(sweep)
+    _check_args(x, b, diag)
+    for name, t in (("x", x), ("b", b), ("diag", diag)):
+        if t is not None:
+            kernels.check_input(name, t, x)
+    lib = kernels.lib()
+    out = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = lib.pmg_rb_gibbs(
+            ptr(x), ptr(b), ptr(diag), ptr(out), *x.shape,
+            *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
+            _nscale(omega, noise_mult),
+            _noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN),
+            color0, int(with_noise), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    kernels.check_launch(err, counter)
+    return out
+
+
+def fused_rb_gibbs_sweep_fd(
+    x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True,
+):
+    """x': one stochastic red/black sweep of the link-count FD operator
+    (kappa2, hinv2) with off-diagonals ``coeffs``.
+
+    CPU tensors run :func:`fused_rb_gibbs_sweep_fd_reference`; CUDA
+    tensors launch ``csrc/rb_gibbs.cu`` in FD mode (float32, contiguous)
+    or raise."""
+    if x.device.type == "cpu":
+        return fused_rb_gibbs_sweep_fd_reference(
+            x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
+            sweep=sweep, with_noise=with_noise,
+        )
+    return _launch(x, b, None, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
+                   sweep, with_noise, "rb_gibbs_fd")
+
+
+def fused_rb_gibbs_sweep(
+    x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True,
+):
+    """x': one stochastic red/black sweep of the star stencil with the
+    diagonal field ``diag`` and off-diagonals ``coeffs``.
+
+    CPU tensors run :func:`fused_rb_gibbs_sweep_reference`; CUDA tensors
+    launch ``csrc/rb_gibbs.cu`` in streamed-diagonal mode (float32,
+    contiguous) or raise."""
+    if x.device.type == "cpu":
+        return fused_rb_gibbs_sweep_reference(
+            x, b, diag, coeffs, omega, seed, step, noise_mult,
+            sweep=sweep, with_noise=with_noise,
+        )
+    if diag is None:
+        raise ValueError("fused_rb_gibbs_sweep streams the diagonal: diag is required")
+    return _launch(x, b, diag, coeffs, 0.0, 0.0, omega, seed, step, noise_mult,
+                   sweep, with_noise, "rb_gibbs")

@@ -24,6 +24,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from parmgmc_tpu_torch import resolve_device
+
 __all__ = [
     "StencilOperator",
     "FDStencilOperator",
@@ -131,7 +133,7 @@ class FDStencilOperator(StencilOperator):
     ``-hinv2``, diagonal ``kappa2 + hinv2 * #in-grid neighbours``.  Holds
     no grid-sized state, so a large hierarchy costs nothing to build."""
 
-    def __init__(self, kappa2, hinv2, grid_shape, dtype=torch.float32, device="cpu"):
+    def __init__(self, kappa2, hinv2, grid_shape, dtype=torch.float32, device=None):
         # scalars rounded to the operator dtype, as the JAX operator stores them
         k2 = float(torch.tensor(float(kappa2), dtype=dtype))
         h2 = float(torch.tensor(float(hinv2), dtype=dtype))
@@ -139,7 +141,7 @@ class FDStencilOperator(StencilOperator):
         object.__setattr__(self, "hinv2", h2)
         object.__setattr__(self, "_grid_shape", tuple(int(s) for s in grid_shape))
         object.__setattr__(self, "_dtype", dtype)
-        object.__setattr__(self, "_device", torch.device(device))
+        object.__setattr__(self, "_device", resolve_device(device))
         object.__setattr__(self, "offsets", star_offsets(len(self._grid_shape)))
 
     @property
@@ -180,7 +182,7 @@ def fd_stencil(
     kappa2: float,
     hinv2: float,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
     lazy: "bool | str" = "auto",
 ) -> StencilOperator:
     """Link-count-form FD star operator (off-diagonals ``-hinv2``,
@@ -188,6 +190,7 @@ def fd_stencil(
     ``_FD_LAZY_THRESHOLD`` points, or with ``lazy=True``, returns the
     :class:`FDStencilOperator` that holds only the two scalars."""
     grid_shape = tuple(int(s) for s in grid_shape)
+    device = resolve_device(device)
     if lazy is True or (lazy == "auto" and math.prod(grid_shape) >= _FD_LAZY_THRESHOLD):
         return FDStencilOperator(kappa2, hinv2, grid_shape, dtype, device)
     k2 = torch.tensor(float(kappa2), dtype=dtype, device=device)
@@ -199,7 +202,7 @@ def fd_stencil(
 
 
 def shifted_laplace_fd(
-    grid_shape: Sequence[int], kappa: float, dtype=torch.float32, device="cpu"
+    grid_shape: Sequence[int], kappa: float, dtype=torch.float32, device=None
 ) -> StencilOperator:
     """(kappa^2 - Laplace) with the reference FD convention: off-diagonals
     ``-1/h^2`` with ``h = 1/(n0 - 1)`` in every direction, diagonal

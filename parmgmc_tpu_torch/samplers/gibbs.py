@@ -9,10 +9,18 @@ the stochastic right-hand side
 
 ``step_with_noise(x, b, noises)`` is the deterministic affine map given
 explicit standard-normal draws -- the oracle side of the tests and the
-body of the explicit-noise chains.  The keyed on-device path of the MGMC
-chain lives in the kernels (``parmgmc_tpu_torch.kernels``); a sampler
-records here what they need: ``omega``, the sweep direction and the FD
-parameters (kappa2, hinv2) detected at create time.
+body of the explicit-noise chains.  The keyed ``step(key, x, b)`` runs
+one full-sweep kernel launch per half-sweep for 3D radius-1 star stencils
+with scalar off-diagonals in float32 (the JAX ``impl="fused_fd"`` /
+``"fused"`` routes): :func:`~parmgmc_tpu_torch.kernels.rb_gibbs.
+fused_rb_gibbs_sweep_fd` for link-count FD operators,
+:func:`~parmgmc_tpu_torch.kernels.rb_gibbs.fused_rb_gibbs_sweep` with the
+diagonal streamed otherwise.  Every other operator (2D, wider stencils,
+coefficient fields, float64) takes the explicit-noise step with a
+``torch.Generator`` draw, as the JAX ``impl="lax"`` route does.  A
+sampler records at create time what the kernels need: ``omega``, the
+sweep direction, the FD parameters (kappa2, hinv2) and the scalar
+off-diagonals, so a step never reads the device.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from dataclasses import dataclass
 import torch
 
 from parmgmc_tpu_torch import keys
-from parmgmc_tpu_torch.kernels._twin import noise_factor
+from parmgmc_tpu_torch.kernels._twin import f32, noise_factor
+from parmgmc_tpu_torch.kernels.rb_gibbs import fused_rb_gibbs_sweep, fused_rb_gibbs_sweep_fd
 from parmgmc_tpu_torch.operators.stencil import (
     FDStencilOperator,
     StencilOperator,
@@ -54,11 +63,14 @@ class GibbsSampler:
             raise ValueError(f"unknown sweep {sweep!r}")
         if not isinstance(op, StencilOperator):
             raise NotImplementedError(
-                "GibbsSampler on LRC (posterior) operators is ROADMAP.md "
-                "slice 2, item 12"
+                "GibbsSampler on LRC (posterior) operators is ROADMAP.md item 12"
             )
         fd_params = coeff6 = None
-        if op.is_star() and op.radius == 1:
+        if isinstance(op, FDStencilOperator):  # scalars only, nothing on the device
+            fd_params = op.fd_params()
+            if op.ndim == 3:
+                coeff6 = (f32(-op.hinv2),) * 6
+        elif op.is_star() and op.radius == 1:
             fd_params = detect_fd_params(op)
             if set(op.offsets) == set(_STAR3) and all(c.ndim == 0 for c in op.coeffs):
                 m = dict(zip(op.offsets, op.coeffs))
@@ -81,6 +93,10 @@ class GibbsSampler:
     @property
     def dtype(self):
         return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
 
     def noise_shapes(self):
         """Tree of standard-normal shapes consumed by one step."""
@@ -112,6 +128,37 @@ class GibbsSampler:
         if self.coeff6 is None:
             raise ValueError("_coeff6 needs a 3D star stencil with scalar coefficients")
         return self.coeff6
+
+    @property
+    def has_kernel(self) -> bool:
+        """Does the keyed step run the sweep kernels?"""
+        return self.coeff6 is not None and self.dtype == torch.float32
+
+    def _fused_step(self, key: int, x, b):
+        key, k1, k2 = keys.split(key, 3)
+        # 62 bits of per-step keying; the kernel hashes (seed, step, index)
+        seed, extra = keys.randint31(k1), keys.randint31(k2)
+        dirs = ("forward", "backward") if self.sweep == "symmetric" else (self.sweep,)
+        for i, d in enumerate(dirs):
+            if self.fd_params is not None:
+                x = fused_rb_gibbs_sweep_fd(
+                    x, b, self.coeff6, self.fd_params[0], self.fd_params[1], self.omega,
+                    seed, extra * 2 + i, sweep=d,
+                )
+            else:
+                x = fused_rb_gibbs_sweep(
+                    x, b, self.base.diag, self.coeff6, self.omega, seed, extra * 2 + i,
+                    sweep=d,
+                )
+        return key, x
+
+    def step(self, key: int, x, b, aux=None):
+        """(key, x'): one keyed Gibbs iteration.  ``b=None`` declares a
+        zero RHS (the kernels then read no b)."""
+        if self.has_kernel:
+            return self._fused_step(key, x, b)
+        key, sub = keys.split(key)
+        return key, self.step_with_noise(x, b, _draw(sub, self.noise_shapes(), x.dtype, x.device))
 
 
 def _draw(key: int, shapes, dtype, device):

@@ -1,23 +1,32 @@
 """Multigrid Monte Carlo (MGMC) sampler (port of ``parmgmc_tpu.samplers.mgmc``,
 prior path).
 
-A stochastic V-cycle whose level smoothers are Gibbs samplers and whose
+A stochastic V/W-cycle whose level smoothers are Gibbs samplers and whose
 coarsest level is an exact Cholesky sample, driven as the chain
 
     x <- x + M_mg(b - A x).
 
-Two routes through the same sampler:
+Three routes through the same sampler:
 
 * ``step_with_noise(x, b, noises)`` -- the general explicit-noise cycle
   (any n_pre/n_post/gamma/sweep), plain torch; the oracle side of the
   tests and the body of the explicit-noise chains.
-* ``step(key, x, b)`` / ``step_deferred`` -- the keyed V(1,0) chain on the
-  kernels: level 0 in one :func:`~parmgmc_tpu_torch.kernels.mg_sweep.
-  fused_chain_down_fd` launch, levels 1 .. L-2 in
-  :func:`~parmgmc_tpu_torch.kernels.mg_tail.fused_tail_down`, the coarse
-  Cholesky sample and the up-phase adds in plain torch.  Configurations
-  outside that slice raise ``NotImplementedError`` naming their
-  ``ROADMAP.md`` item; they are never emulated.
+* ``step(key, x, b)`` / ``step_deferred`` on a V(1,0) cycle of link-count
+  FD levels in float32 -- the chain kernels: level 0 in one
+  :func:`~parmgmc_tpu_torch.kernels.mg_sweep.fused_chain_down_fd` launch,
+  levels 1 .. L-2 in :func:`~parmgmc_tpu_torch.kernels.mg_tail.
+  fused_tail_down`, the coarse Cholesky sample and the up-phase adds in
+  plain torch.
+* ``step(key, x, b)`` on every other cycle -- the general keyed cycle:
+  each pre- and post-sweep is the level smoother's keyed ``step`` (one
+  full-sweep kernel launch per half-sweep, see
+  :class:`~parmgmc_tpu_torch.samplers.gibbs.GibbsSampler`), residuals,
+  transfers and the coarse sample in plain torch, gamma coarse
+  iterations per level.
+
+Keyed configurations outside the port's slices (2D grids, odd extents)
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item; they are
+never emulated.
 
 The hierarchy is the closed-form aggregate Galerkin one: P^T A P of a
 link-count FD operator under 2^d block aggregation is again link-count
@@ -52,11 +61,11 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="aggregate"
     if coarsening != "aggregate":
         raise NotImplementedError(
             f"coarsening={coarsening!r} needs the comb-probed Galerkin product "
-            "and the diag-streaming sweep (ROADMAP.md slice 3, item 18)"
+            "(ROADMAP.md item 18)"
         )
     if not isinstance(op, StencilOperator):
         raise NotImplementedError(
-            "MGMC on LRC or graph operators is ROADMAP.md slices 2 and 4"
+            "MGMC on LRC or graph operators is ROADMAP.md items 13 and 20"
         )
     ops, transfers = [op], []
     while True:
@@ -72,8 +81,7 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="aggregate"
         if fd is None:
             raise NotImplementedError(
                 f"aggregate coarsening of {gshape} needs the comb-probed Galerkin "
-                "product for odd extents or non-FD stencils (ROADMAP.md slice 3, "
-                "item 18)"
+                "product for odd extents or non-FD stencils (ROADMAP.md item 18)"
             )
         d = len(gshape)
         transfers.append(AggregateTransfer(fine_shape=tuple(gshape)))
@@ -201,44 +209,38 @@ class MGMCSampler:
 
     # -- keyed cycle on the kernels -------------------------------------------
     def _keyed_unsupported(self) -> "str | None":
-        """Why the keyed kernel path cannot run this sampler, or None."""
+        """Why no keyed path can run this sampler, or None."""
         if self.n_levels < 2:
             return "a one-level MGMC sampler has no cycle; use CholeskySampler"
-        if self.n_pre != 1 or self.n_post != 0:
-            return (
-                f"V({self.n_pre},{self.n_post}) cycles need the full Gibbs sweep "
-                "kernel fused_rb_gibbs_sweep_fd (ROADMAP.md kernel #7)"
-            )
-        if self.gamma != 1:
-            return (
-                "W-cycles (gamma > 1) need the per-level down kernel "
-                "fused_zero_gibbs_restrict_fd (ROADMAP.md kernel #3)"
-            )
-        for l, s in enumerate(self.smoothers):
-            if s.sweep not in ("forward", "backward"):
-                return (
-                    "symmetric sweeps need the full Gibbs sweep kernel "
-                    "fused_rb_gibbs_sweep_fd (ROADMAP.md kernel #7)"
-                )
+        for l in range(self.n_levels - 1):
             gs = self.ops[l].grid_shape
             if len(gs) != 3 or any(d % 2 for d in gs):
                 return (
                     f"level {l} grid {gs} is not 3D with even extents "
-                    "(ROADMAP.md slice 3, item 18)"
+                    "(ROADMAP.md item 18)"
                 )
-            if s.fd_params is None:
-                return (
-                    f"level {l} is not a link-count FD stencil; it needs the "
-                    "diag-streaming sweep fused_rb_gibbs_sweep (ROADMAP.md kernel #6)"
-                )
-        if self.dtype != torch.float32:
-            return f"the kernels run float32, the sampler is {self.dtype}"
         return None
 
     def _require_keyed(self):
         why = self._keyed_unsupported()
         if why is not None:
             raise NotImplementedError(why)
+
+    def deferred_eligible(self) -> bool:
+        """Does the keyed step run the V(1,0) chain kernels (and so admit
+        the deferred chain)?  One forward or backward pre-sweep, no
+        post-sweep, gamma = 1, every smoothed level link-count FD in
+        float32 (the JAX ``_down_fused_eligible`` / ``deferred_eligible``
+        shape, without the Mosaic gates)."""
+        if self.n_pre != 1 or self.n_post != 0 or self.gamma != 1:
+            return False
+        if self._keyed_unsupported() is not None:
+            return False
+        sweep = self.smoothers[0].sweep
+        return sweep in ("forward", "backward") and all(
+            s.sweep == sweep and s.fd_params is not None and s.has_kernel
+            for s in self.smoothers
+        )
 
     def _fused_chain_down(self, x, b, key, z=None, with_xsum=False, with_zsum=False):
         """(xpy, rc, key, *partials): the level-0 chain kernel.  This is the
@@ -279,8 +281,31 @@ class MGMCSampler:
             x = self.transfers[l + m].prolong_add(ys[m], x)
         return x
 
+    def _cycle_general(self, l: int, bl, key):
+        """Keyed cycle from zero at level l through the smoothers' keyed
+        steps (``parmgmc_tpu`` ``_cycle_keyed``, general branch)."""
+        if l == self.n_levels - 1:
+            return self._cycle_keyed(l, bl, key)  # the coarse sample
+        op = self.ops[l]
+        smoother = self.smoothers[l]
+        x = torch.zeros_like(bl)
+        for _ in range(self.n_pre):
+            key, x = smoother.step(key, x, bl)
+        key, sub = keys.split(key)
+        r = self.transfers[l].restrict(bl - op.apply(x))
+        xc = self._cycle_general(l + 1, r, sub)
+        for _ in range(1, self.gamma):  # W-cycle: iterate the coarse chain
+            key, sub = keys.split(key)
+            rc = r - self.ops[l + 1].apply(xc)
+            xc = xc + self._cycle_general(l + 1, rc, sub)
+        x = self.transfers[l].prolong_add(x, xc)
+        for _ in range(self.n_post):
+            key, x = smoother.step(key, x, bl)
+        return x
+
     def _cycle_keyed(self, l: int, bl, key):
-        """Keyed V(1,0) cycle from zero at level l (kernels throughout)."""
+        """Keyed V(1,0) cycle from zero at level l (kernels throughout;
+        only where :meth:`deferred_eligible`)."""
         if l == self.n_levels - 1:
             x = torch.zeros_like(bl)
             for _ in range(self.n_coarse):
@@ -295,9 +320,13 @@ class MGMCSampler:
 
     def step(self, key: int, x, b, aux=None):
         """(key, x'): one keyed chain step.  ``b=None`` declares a zero RHS:
-        the chain kernel then reads no b at all."""
-        self._require_keyed()
+        the chain kernel then reads no b at all, the general cycle
+        substitutes zeros for the fine residual."""
         key, sub = keys.split(key)
+        if not self.deferred_eligible():
+            self._require_keyed()
+            bz = torch.zeros_like(x) if b is None else b
+            return key, x + self._cycle_general(0, bz - self.fine_op.apply(x), sub)
         xpy, rc, sub = self._fused_chain_down(x, b, sub)
         sub, sub2 = keys.split(sub)
         z1 = self._cycle_keyed(1, rc, sub2)
@@ -318,7 +347,13 @@ class MGMCSampler:
         same adds.  ``sum_xpy'`` is the sum of xpy' (from the kernel's
         partial sums); ``zprev_sum`` = sum(P0 z) of the carry it consumed,
         i.e. the rest of the PREVIOUS sample's sum."""
-        self._require_keyed()
+        if not self.deferred_eligible():
+            self._require_keyed()
+            raise NotImplementedError(
+                "the deferred chain runs the V(1,0) chain kernels only (one "
+                "forward/backward pre-sweep, no post-sweep, gamma = 1, FD float32 "
+                "levels), as the JAX deferred_eligible; use sample_chain"
+            )
         key, sub = keys.split(key)
         xpy2, rc, sub, xsum, zsum = self._fused_chain_down(
             xpy, b, sub, z=z, with_xsum=True, with_zsum=True
@@ -347,10 +382,11 @@ class MGMCSampler:
         x = torch.zeros_like(bs[-1])
         for _ in range(max(self.n_coarse, 1)):
             key, x = self.coarse.step(key, x, bs[-1])
+        cycle = self._cycle_keyed if self.deferred_eligible() else self._cycle_general
         for l in reversed(range(self.n_levels - 1)):
             x = self.transfers[l].prolong(x)
             for _ in range(n_cycles):
                 key, sub = keys.split(key)
                 r = bs[l] - self.ops[l].apply(x)
-                x = x + self._cycle_keyed(l, r, sub)
+                x = x + cycle(l, r, sub)
         return key, x

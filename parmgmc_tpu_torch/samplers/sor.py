@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from parmgmc_tpu_torch import resolve_device
 from parmgmc_tpu_torch.operators.stencil import StencilOperator
 
 __all__ = ["num_colors", "color_masks", "sor_sweep"]
@@ -27,9 +28,11 @@ def _iota(grid_shape, ax, device):
     return torch.arange(grid_shape[ax], device=device).reshape(view)
 
 
-def color_masks(grid_shape, ncolors: int, op: StencilOperator = None, device="cpu"):
-    """Boolean masks, one per colour, tiling the grid."""
+def color_masks(grid_shape, ncolors: int, op: StencilOperator = None, device=None):
+    """Boolean masks, one per colour, tiling the grid (on the card unless
+    ``device`` says otherwise)."""
     grid_shape = tuple(grid_shape)
+    device = resolve_device(device)
     d = len(grid_shape)
     r = op.radius if op is not None else 1
     base = r + 1

@@ -19,6 +19,10 @@ from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
 
+# the entry points default to the card; these tests run on the host
+DEV = "cpu"
+
+
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
@@ -65,7 +69,7 @@ def test_keys_split_and_draw_deterministically():
 
 
 def test_sample_chain_burnin_and_explicit_noise():
-    op = shifted_laplace_fd((6, 6, 6), 3.0, torch.float64)
+    op = shifted_laplace_fd((6, 6, 6), 3.0, torch.float64, device=DEV)
     smp = ExplicitNoise(GibbsSampler.create(op, omega=1.0, sweep="symmetric"))
     st = init_chain(MGMCSampler.create(op, n_levels=1), 4)
     assert st.x.shape == (6, 6, 6)

@@ -7,7 +7,8 @@ without them; ``tests/conftest.py`` imports JAX, so run it there with
 
 Each kernel against its plain twin at small shapes with ragged tiles
 (deterministic 1e-5, noisy 1e-4, relative max-norm), the keyed chain's
-deferred form bit for bit against the plain form, and the wrappers'
+deferred form bit for bit against the plain form, the launches of the
+general keyed cycle and the keyed Gibbs step, and the wrappers'
 refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
@@ -22,7 +23,14 @@ from parmgmc_tpu_torch.kernels.mg_sweep import (
     fused_chain_down_fd_reference,
 )
 from parmgmc_tpu_torch.kernels.mg_tail import fused_tail_down, tail_down_reference
-from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+from parmgmc_tpu_torch.kernels.rb_gibbs import (
+    fused_rb_gibbs_sweep,
+    fused_rb_gibbs_sweep_fd,
+    fused_rb_gibbs_sweep_fd_reference,
+    fused_rb_gibbs_sweep_reference,
+)
+from parmgmc_tpu_torch.operators.stencil import StencilOperator, shifted_laplace_fd
+from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
 pytestmark = pytest.mark.cuda
@@ -70,6 +78,51 @@ def test_tail_kernel_matches_twin(dev):
                 assert _rel(a, w) <= (1e-4 if noise else 1e-5)
 
 
+@pytest.mark.parametrize("shape", [(16, 24, 96), (10, 6, 34)])
+def test_sweep_kernels_match_twins(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x, b, f = (torch.randn(*shape, generator=g, device=dev) for _ in range(3))
+    h = float((shape[0] - 1) ** 2)
+    op = shifted_laplace_fd(shape, 1.0, device=dev)
+    diag = (op.diag * (1.5 + 0.5 * torch.tanh(f))).contiguous()  # a non-FD diagonal
+    coeffs = [-h] * 6
+    for sweep in ("forward", "backward"):
+        for noise in (False, True):
+            for bb in (b, None):
+                kw = dict(sweep=sweep, with_noise=noise)
+                kernels.reset_launch_counts()
+                got_fd = fused_rb_gibbs_sweep_fd(x, bb, coeffs, 1.0, h, 1.3, 3, 5, **kw)
+                got_st = fused_rb_gibbs_sweep(x, bb, diag, coeffs, 1.3, 3, 5, **kw)
+                counts = kernels.launch_counts()
+                assert counts["rb_gibbs_fd"] == 1 and counts["rb_gibbs"] == 1
+                want_fd = fused_rb_gibbs_sweep_fd_reference(x, bb, coeffs, 1.0, h, 1.3, 3, 5, **kw)
+                want_st = fused_rb_gibbs_sweep_reference(x, bb, diag, coeffs, 1.3, 3, 5, **kw)
+                tol = 1e-4 if noise else 1e-5
+                assert _rel(got_fd, want_fd) <= tol, (sweep, noise, bb is None)
+                assert _rel(got_st, want_st) <= tol, (sweep, noise, bb is None)
+    zeros = torch.zeros_like(x)
+    assert torch.equal(fused_rb_gibbs_sweep_fd(x, None, coeffs, 1.0, h, 1.3, 3, 5),
+                       fused_rb_gibbs_sweep_fd(x, zeros, coeffs, 1.0, h, 1.3, 3, 5))
+
+
+def test_keyed_general_cycle_and_gibbs_launch_the_sweep_kernel(dev):
+    op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
+    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=64)
+    assert len(smp.ops) == 3 and not smp.deferred_eligible()
+    kernels.reset_launch_counts()
+    st, q = sample_chain(smp, init_chain(smp, 2), None, 5, extract=torch.mean)
+    counts = kernels.launch_counts()
+    assert counts["rb_gibbs_fd"] == 5 * 4 * 2 and counts["chain_down"] == counts["rb_gibbs"] == 0
+    assert bool(torch.isfinite(st.x).all())
+    field = StencilOperator(op.offsets, op.coeffs, (op.diag * 1.25).contiguous())
+    for o, counter in ((op, "rb_gibbs_fd"), (field, "rb_gibbs")):
+        gs = GibbsSampler.create(o, sweep="symmetric")
+        kernels.reset_launch_counts()
+        st, _ = sample_chain(gs, init_chain(gs, 3), None, 4, extract=torch.mean)
+        assert kernels.launch_counts()[counter] == 8
+        assert bool(torch.isfinite(st.x).all())
+
+
 def test_keyed_chain_deferred_is_bitwise(dev):
     op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
     smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=64)
@@ -92,3 +145,10 @@ def test_wrappers_refuse_bad_cuda_input(dev):
         fused_chain_down_fd(x.transpose(0, 1), None, *args)
     with pytest.raises(ValueError):
         fused_chain_down_fd(x, torch.zeros(8, 8, 32), *args)
+    h = [-49.0] * 6
+    with pytest.raises(TypeError):
+        fused_rb_gibbs_sweep_fd(x.double(), None, h, 1.0, 49.0, 1.0, 1, 2)
+    with pytest.raises(ValueError):
+        fused_rb_gibbs_sweep_fd(x.transpose(0, 1), None, h, 1.0, 49.0, 1.0, 1, 2)
+    with pytest.raises(ValueError):
+        fused_rb_gibbs_sweep(x, None, torch.ones(8, 8, 32), h, 1.0, 1, 2)

@@ -32,6 +32,10 @@ from parmgmc_tpu_torch.kernels.mg_sweep import (
 from parmgmc_tpu_torch.kernels.mg_tail import fused_tail_down, tail_down_reference
 
 
+# the entry points default to the card; these tests run on the host
+DEV = "cpu"
+
+
 @pytest.fixture(autouse=True)
 def _one_thread():
     torch.set_num_threads(1)
@@ -86,7 +90,7 @@ def test_chain_twin_matches_jax_kernel(shape, sweep):
     b = rs.randn(*shape).astype(np.float32)
     z = rs.randn(*(s // 2 for s in shape)).astype(np.float32)
     zx2 = np.repeat(z, 2, axis=-1)  # the JAX lane-duplicated carry
-    assert np.array_equal(convert.compact_carry(zx2).numpy(), z)
+    assert np.array_equal(convert.compact_carry(zx2, DEV).numpy(), z)
     kappa2, hinv2, omega = 1.7**2, float((shape[0] - 1) ** 2), 1.3
     coeffs = [-hinv2] * 6
     args = (kappa2, hinv2, omega, 3, 5)
@@ -172,7 +176,7 @@ def test_wrappers_run_the_twins_on_cpu():
     ys, rhs = fused_tail_down(torch.from_numpy(bl), params, 1, 2, 0, _TAIL_SHAPES)
     ys_r, rhs_r = tail_down_reference(torch.from_numpy(bl), params, 1, 2, 0, _TAIL_SHAPES)
     assert all(torch.equal(a, b) for a, b in zip(ys, ys_r)) and torch.equal(rhs, rhs_r)
-    assert kernels.launch_counts() == {"chain_down": 0, "tail_down": 0}
+    assert kernels.launch_counts() == {"chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0}
     # partial sums are per CHAIN_TILE block and add up to the totals
     assert got[2].shape == (1,) and torch.allclose(got[2].sum(), got[0].sum(), rtol=1e-5)
     with pytest.raises(ValueError):

@@ -31,6 +31,8 @@ from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 from parmgmc_tpu_torch.testing import invariance_error
 
 F64 = torch.float64
+# the entry points default to the card; these tests run on the host
+DEV = "cpu"
 _MAIN = dict(n_pre=1, n_post=0, sweep="forward", omega=1.0, gamma=1)
 _GENERAL = dict(n_pre=1, n_post=1, sweep="symmetric", omega=1.2, gamma=2)
 
@@ -57,10 +59,12 @@ def test_step_with_noise_matches_jax(cfg, with_b):
         impl="lax", **kw,
     )
     ops = [
-        convert.stencil_operator(o.offsets, [np.asarray(c) for c in o.coeffs], np.asarray(o.diag))
+        convert.stencil_operator(o.offsets, [np.asarray(c) for c in o.coeffs], np.asarray(o.diag),
+                                 device=DEV)
         for o in jsmp.ops
     ]
-    smp = convert.mgmc_sampler(ops, np.asarray(jsmp.coarse.L), np.asarray(jsmp.coarse.Li), **kw)
+    smp = convert.mgmc_sampler(ops, np.asarray(jsmp.coarse.L), np.asarray(jsmp.coarse.Li), device=DEV,
+                              **kw)
     assert smp.n_levels == jsmp.n_levels == 2
     assert smp.noise_shapes() == jsmp.noise_shapes()
     rs = np.random.RandomState(5)
@@ -68,7 +72,7 @@ def test_step_with_noise_matches_jax(cfg, with_b):
     b = rs.randn(8, 8, 8) if with_b else None
     noises = _numpy_noises(smp.noise_shapes(), rs)
     got = smp.step_with_noise(torch.from_numpy(x), None if b is None else torch.from_numpy(b),
-                              convert.tree(noises))
+                              convert.tree(noises, DEV))
     want = np.asarray(jsmp.step_with_noise(
         jnp.asarray(x), None if b is None else jnp.asarray(b), jax.tree_util.tree_map(jnp.asarray, noises)))
     assert np.abs(got.numpy() - want).max() <= 1e-12 * np.abs(want).max()
@@ -76,7 +80,7 @@ def test_step_with_noise_matches_jax(cfg, with_b):
 
 @pytest.mark.parametrize("cfg", ["main", "general"])
 def test_invariance(cfg):
-    op = gmrf_3d(8, 1.0, F64)
+    op = gmrf_3d(8, 1.0, F64, device=DEV)
     smp = MGMCSampler.create(op, coarsest_size=16, **(_MAIN if cfg == "main" else _GENERAL))
     b = torch.from_numpy(np.random.RandomState(6).randn(8, 8, 8))
     for rhs in (None, b):
@@ -87,7 +91,7 @@ def test_invariance(cfg):
 def _tiny_sampler():
     # (8, 8, 16) -> (4, 4, 8) -> (2, 2, 4): level 0 on the chain kernel,
     # level 1 on the tail kernel, a 16-DOF Cholesky coarsest level
-    op = shifted_laplace_fd((8, 8, 16), 1.0)
+    op = shifted_laplace_fd((8, 8, 16), 1.0, device=DEV)
     smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=16)
     assert [o.grid_shape for o in smp.ops] == [(8, 8, 16), (4, 4, 8), (2, 2, 4)]
     return op, smp
@@ -130,14 +134,25 @@ def test_keyed_chain_moments_and_tau():
 
 
 def test_keyed_path_refuses_out_of_slice_configs():
-    op = shifted_laplace_fd((8, 8, 16), 1.0)
+    op = shifted_laplace_fd((8, 8, 16), 1.0, device=DEV)
     x = torch.zeros(op.grid_shape)
+    # cycles other than V(1,0) run the general keyed cycle; the deferred
+    # chain stays the V(1,0) chain kernels' alone
     for kw in (dict(n_post=1), dict(n_post=0, gamma=2), dict(n_post=0, sweep="symmetric")):
         smp = MGMCSampler.create(op, coarsest_size=16, **kw)
-        with pytest.raises(NotImplementedError):
-            smp.step(0, x, None)
+        assert not smp.deferred_eligible()
+        _, x1 = smp.step(0, x, None)
+        assert x1.shape == op.grid_shape and bool(torch.isfinite(x1).all())
+        _, x0 = smp.fmg_init(1, None)  # fmg_init runs the general cycle too
+        assert x0.shape == op.grid_shape and bool(torch.isfinite(x0).all())
         with pytest.raises(NotImplementedError):
             smp.step_deferred(0, x, smp.deferred_init(x.dtype), None)
-    smp64 = MGMCSampler.create(shifted_laplace_fd((8, 8, 16), 1.0, F64), n_post=0, coarsest_size=16)
+    # float64 levels have no kernel: the smoothers take explicit-noise steps
+    smp64 = MGMCSampler.create(shifted_laplace_fd((8, 8, 16), 1.0, F64, device=DEV), n_post=0, coarsest_size=16)
+    assert not smp64.deferred_eligible() and not smp64.smoothers[0].has_kernel
+    _, x64 = smp64.step(0, x.double(), None)
+    assert x64.dtype == F64 and bool(torch.isfinite(x64).all())
+    # 2D grids stay out of slice (ROADMAP item 18)
+    smp2d = MGMCSampler.create(shifted_laplace_fd((8, 16), 1.0, device=DEV), n_post=0, coarsest_size=8)
     with pytest.raises(NotImplementedError):
-        smp64.step(0, x.double(), None)
+        smp2d.step(0, torch.zeros(8, 16), None)
