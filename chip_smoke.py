@@ -21,7 +21,7 @@ Phases, in order; any failure raises and exits non-zero:
               times a smooth field in [1, 2]), forward and backward, noise
               on and off, b given and None.
 4. moments -- bench.py's selftest problem (16x16x128, b = 50): the keyed
-              kernel chain against the explicit-noise plain chain over 40000
+              kernel chain against the explicit-noise plain chain over 20000
               steps after 200 burn-in (max |z| < 10, mean |z| < 2.5, max
               relative variance gap < 0.2).
 5. deferred-- sample_chain_deferred bit-identical to sample_chain (8 steps).
@@ -33,7 +33,7 @@ Phases, in order; any failure raises and exits non-zero:
               the device time of a step by kernel, and the same keyed
               cycle with the twins in place of the kernels.
 7. moments V(2,2) and Gibbs -- the keyed V(2,2) chain on the phase-4
-              problem (10000 steps), and the keyed Gibbs chain on a
+              problem (6000 steps), and the keyed Gibbs chain on a
               16x16x32 problem with kappa^2 = 900 (10000 steps; FD
               symmetric sweeps, and forward sweeps of the streamed
               diagonal), each against its explicit-noise chain with the
@@ -47,12 +47,29 @@ Phases, in order; any failure raises and exits non-zero:
 9. Gibbs   -- the keyed Gibbs chain at 256^3 (b = None), forward and
               symmetric, FD (#7) and streamed diagonal (#6): wall ms per
               sweep and the launches of each mode.
+10. patch kernels -- the patch sweep kernels, whole-sweep cooperative
+              (#10) and per colour (#11), against their twin on the squared
+              prior (kappa = 1) at 128^3 and 256^3 and at (11, 12, 13),
+              noise on and off, b given and None (1e-4 relative max-norm
+              either way), #10 and #11 bit for bit against each other;
+              device times per call.
+11. patch moments -- bench.py's patch problem (16x10x128, kappa = 40,
+              b = 5): the keyed chain through #10 and again through #11
+              (the size rule patched), 4000 steps each, against one
+              explicit-noise chain of 1000 steps (50 burn-in each),
+              two-sample SE (max |z| < 10, mean |z| < 2.5, max relative
+              variance gap < 0.35).
+12. patch path -- squared_shifted_laplace_fd at 256^3 (route #11) and
+              128^3 (route #10), PatchGibbsSampler, sample_chain with the
+              mean as QOI, b = None: wall ms per sweep, device time per
+              sweep (CUDA events) and idle share, host enqueue time per
+              sweep, exact launch counts, a finite chain.
 
 The last lines are the kernels' JSON record (launches from the main path
 that runs each kernel: phase 6 for the chain and tail kernels, phase 8
-for the FD sweep, phase 9 for the streamed sweep; bound_ms from this
-run's shapes at the card's published peaks), the card as nvidia-smi
-prints it, and {"ok": true, "device": {...}}.
+for the FD sweep, phase 9 for the streamed sweep, phase 12 for the patch
+sweeps; bound_ms from this run's shapes at the card's published peaks),
+the card as nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 
 import json
@@ -66,10 +83,13 @@ from unittest import mock
 N_MAIN = 256
 N_TIME = 512
 N_IACT = 4096
-N_MOMENTS = 40_000
-N_MOMENTS_V22 = 10_000
+N_MOMENTS = 20_000
+N_MOMENTS_V22 = 6_000
 N_MOMENTS_GIBBS = 10_000
 N_GIBBS_TIME = 256
+N_PATCH_MOMENTS = 4000
+N_PATCH_PLAIN = 1000
+N_PATCH_TIME = 32
 
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
@@ -81,6 +101,10 @@ F32_FLOPS_PER_S = 67e12
 FLOPS_CHAIN = 79  # A x + residual 15, noise 30, sweep 15, A y 13, adds/sums/D 6
 FLOPS_TAIL = 62  # noise 30, sweep 15, A y 13, residual/restriction/D 4
 FLOPS_SWEEP = {"fd": 48, "streamed": 46}  # noise 30, sweep 16, D 2 (FD only)
+# one patch, and so one grid point, per sweep: F x on 25 points 250, F(F x)
+# and the residual at 7 members 77, A_SS 46, rhs 98, Cholesky 140, the two
+# solves 105, 7 Box-Muller draws 182
+FLOPS_PATCH = 898
 
 
 class SmokeFailure(RuntimeError):
@@ -289,26 +313,55 @@ def phase_kernels(torch, dev, main_smp, v22_smp):
     return rec
 
 
-def moments_gate(torch, label, smp, b, n):
-    """The keyed chain of smp against its explicit-noise chain: n steps
-    after 200 burn-in each, per-cell mean z-scores and variance gaps."""
-    from parmgmc_tpu_torch.chain import ExplicitNoise, init_chain, sample_moments
+def event_ms(torch, fn, n):
+    """Device ms per call of fn over n calls after one warm-up, from CUDA
+    events around the run.  For the patch kernels: torch.profiler drops
+    some records of cooperative launches on this card, so its device
+    times and launch counts under-read them."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
-    out = {}
-    for tag, s in (("kernel", smp), ("plain", ExplicitNoise(smp))):
-        t0 = time.perf_counter()
-        _, mean, var = sample_moments(s, init_chain(smp, 7), b, n, burnin=200)
-        torch.cuda.synchronize()
-        out[tag] = (mean.double(), var.double())
-        print(f"  {label} {tag} chain: {n} steps in {time.perf_counter() - t0:.1f} s")
-    (mk, vk), (mp, vp) = out["kernel"], out["plain"]
-    se = torch.sqrt((vk + vp) / n)
+
+def chain_moments(torch, label, smp, b, n, burnin=200):
+    """(mean, var, n) of smp's chain over n steps after burn-in, timed."""
+    from parmgmc_tpu_torch.chain import init_chain, sample_moments
+
+    t0 = time.perf_counter()
+    _, mean, var = sample_moments(smp, init_chain(smp, 7), b, n, burnin=burnin)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"  {label}: {n} steps in {dt:.1f} s ({dt / (n + burnin) * 1e3:.4f} ms/step)")
+    return mean.double(), var.double(), n
+
+
+def moments_check(torch, label, kern, plain, rgate):
+    """Per-cell mean z-scores (two-sample SE) and variance gaps of the
+    kernel chain's moments against the plain chain's."""
+    (mk, vk, nk), (mp, vp, n_p) = kern, plain
+    se = torch.sqrt(vk / nk + vp / n_p)
     z = (mk - mp).abs() / se.clamp(min=1e-12)
     rvar = (vk - vp).abs() / vp.clamp(min=1e-12)
     zmax, zmean, rmax = z.max().item(), z.mean().item(), rvar.max().item()
     print(f"  {label}: max |z| {zmax:.3f} (gate 10), mean |z| {zmean:.3f} (gate 2.5), "
-          f"max relative var gap {rmax:.4f} (gate 0.2)")
-    check(zmax < 10.0 and zmean < 2.5 and rmax < 0.2, f"{label}: kernel chain moments drifted from the plain chain")
+          f"max relative var gap {rmax:.4f} (gate {rgate})")
+    check(zmax < 10.0 and zmean < 2.5 and rmax < rgate, f"{label}: kernel chain moments drifted from the plain chain")
+
+
+def moments_gate(torch, label, smp, b, n):
+    """The keyed chain of smp against its explicit-noise chain: n steps
+    after 200 burn-in each, per-cell mean z-scores and variance gaps."""
+    from parmgmc_tpu_torch.chain import ExplicitNoise
+
+    kern = chain_moments(torch, f"{label} kernel chain", smp, b, n)
+    plain = chain_moments(torch, f"{label} plain chain", ExplicitNoise(smp), b, n)
+    moments_check(torch, label, kern, plain, 0.2)
 
 
 def phase_moments(torch, dev):
@@ -500,8 +553,8 @@ def phase_gibbs(torch, op):
     from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 
     field = field_operator(torch, op)
-    want = {"chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0}
     kernels.reset_launch_counts()
+    want = kernels.launch_counts()
     for mode, o, counter in (("FD", op, "rb_gibbs_fd"), ("streamed", field, "rb_gibbs")):
         for sweep in ("forward", "symmetric"):
             smp = GibbsSampler.create(o, sweep=sweep)
@@ -520,6 +573,140 @@ def phase_gibbs(torch, op):
     counts = kernels.launch_counts()
     print(f"  launches during the Gibbs chains: {counts}")
     check(counts == want, f"Gibbs chains launched {counts}, expected {want}")
+    return counts
+
+
+def phase_patch_kernels(torch, dev, smps):
+    """#10 and #11 against the twin (noise on and off, b given and None)
+    on the main paths' squared operators and a small odd shape, and bit
+    for bit against each other; device times of the paths' calls."""
+    from parmgmc_tpu_torch.kernels import patch_sweep as ps
+
+    rec = {}
+    gen = torch.Generator(device=dev).manual_seed(321)
+    cases = [(tuple(s.grid_shape), s.sq_fd_params) for s in smps]
+    cases.append(((11, 12, 13), (1.69, 100.0)))  # extents not multiples of 5
+
+    def whole(*a, **kw):  # #10 at any size: the size rule patched
+        with mock.patch.object(ps, "patch_sweep_resident", lambda shape, with_b: True):
+            return ps.fused_patch_sweep_sqfd(*a, **kw)
+
+    for shape, (k2, h2) in cases:
+        x = torch.randn(*shape, generator=gen, device=dev)
+        b = torch.randn(*shape, generator=gen, device=dev)
+        worst, rels = 0.0, []
+        for noise in (False, True):
+            for bb in (b, None):
+                args, kw = (x, bb, k2, h2, 1234, 77), dict(with_noise=noise)
+                g10 = whole(*args, **kw)
+                g11 = ps.fused_patch_sweep_sqfd_streamed(*args, **kw)
+                want = ps.fused_patch_sweep_sqfd_reference(*args, **kw)
+                torch.cuda.synchronize()
+                check(g10.shape == want.shape == g11.shape, f"patch sweep shape {g10.shape} != {want.shape}")
+                check(torch.equal(g10, g11), f"#10 and #11 differ at {shape} (noise={noise}, "
+                                             f"b={'yes' if bb is not None else 'None'})")
+                r, d = rel_err(g10, want)
+                check(r <= 1e-4, f"patch sweep kernel ({shape}, noise={noise}, b="
+                                 f"{'yes' if bb is not None else 'None'}) disagrees with its twin: {r:.3e} > 1e-4")
+                check(bool(torch.isfinite(g10).all()), f"patch sweep at {shape} is not finite")
+                rels.append(r)
+                worst = max(worst, d)
+        print(f"  patch {shape} kappa2 {k2:g} hinv2 {h2:g}: #10 == #11 bit for bit; worst rel "
+              f"against the twin {max(rels):.2e} (tol 1e-4), noise on/off, b given/None")
+        n = x.numel()
+        bms, by = bound(4 * 2 * n, FLOPS_PATCH * n)
+        routes = (("patch", whole, shape == (128,) * 3),
+                  ("patch_streamed", ps.fused_patch_sweep_sqfd_streamed, shape == (256,) * 3))
+        for route, fn, main in routes if shape != (11, 12, 13) else ():
+            ms = event_ms(torch, lambda: fn(x, None, k2, h2, 1234, 77), 10)
+            line = f"  {route} kernel at {shape} (b=None, noise): {ms:.4f} ms, bound {bms:.4f} ms ({by})"
+            if main:  # the shape phase 12 runs through this route
+                plain, _ = device_ms(torch, lambda: ps.fused_patch_sweep_sqfd_reference(
+                    x, None, k2, h2, 1234, 77), 1)
+                rec[route] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
+                                  bound_by=by, library_ms=None)
+                line += f", twin {plain:.4f} ms"
+            print(line)
+        del x, b
+    return rec
+
+
+def phase_patch_moments(torch, dev):
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import ExplicitNoise
+    from parmgmc_tpu_torch.kernels import patch_sweep as ps
+    from parmgmc_tpu_torch.models.problems import squared_shifted_laplace_fd
+    from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler
+
+    op = squared_shifted_laplace_fd((16, 10, 128), 40.0, device=dev)
+    b = torch.full(op.grid_shape, 5.0, device=dev)
+    smp = PatchGibbsSampler.create(op)
+    check(smp.sq_fd_params is not None, "the patch sampler did not detect the squared FD operator")
+    print(f"  detected (kappa2, hinv2) = {smp.sq_fd_params} (exact 1600, 225)")
+    plain = chain_moments(torch, "patch plain chain", ExplicitNoise(smp), b, N_PATCH_PLAIN, burnin=50)
+    for route, resident in (("#10", True), ("#11", False)):
+        kernels.reset_launch_counts()
+        with mock.patch.object(ps, "patch_sweep_resident", lambda shape, with_b: resident):
+            kern = chain_moments(torch, f"patch {route} kernel chain", smp, b, N_PATCH_MOMENTS, burnin=50)
+        counts = kernels.launch_counts()
+        steps = N_PATCH_MOMENTS + 50
+        want = {"patch_sweep": steps if resident else 0, "patch_sweep_streamed": 0 if resident else steps}
+        check(all(counts[k] == v for k, v in want.items()), f"patch {route} chain launched {counts}")
+        moments_check(torch, f"patch {route}", kern, plain, 0.35)
+
+
+def phase_patch_path(torch, smps):
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+
+    counts = {}
+    for smp in smps:
+        shape = tuple(smp.grid_shape)
+        route = "patch_sweep" if shape == (128,) * 3 else "patch_sweep_streamed"
+        st, _ = sample_chain(smp, init_chain(smp, 0), None, 4, extract=torch.mean)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, q = sample_chain(smp, st, None, N_PATCH_TIME, extract=torch.mean)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / N_PATCH_TIME
+        c = kernels.launch_counts()
+        print(f"  {shape}: launches {c} over {N_PATCH_TIME} sweeps")
+        check(c[route] == N_PATCH_TIME and sum(c.values()) == N_PATCH_TIME,
+              f"the {shape} patch chain should make exactly one {route} call a sweep: {c}")
+        counts[route] = c[route]
+        check(tuple(st.x.shape) == shape and bool(torch.isfinite(st.x).all())
+              and bool(torch.isfinite(q).all()) and q.shape == (N_PATCH_TIME,),
+              f"the {shape} patch chain is not finite")
+        # device time of a sweep: CUDA events around each step and its QOI
+        # (one C call enqueues the copy and the kernel launches of a step)
+        evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+               for _ in range(N_PATCH_TIME)]
+        key, x = st.key, st.x
+        for e0, e1 in evs:
+            e0.record()
+            key, x = smp.step(key, x, None)
+            torch.mean(x)
+            e1.record()
+        torch.cuda.synchronize()
+        busy = sum(e0.elapsed_time(e1) for e0, e1 in evs) / N_PATCH_TIME
+        # host time of a step: the Python and C call up to its return, the
+        # card idle at the start (median of 8)
+        host = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            key, x = smp.step(key, x, None)
+            host.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        host_ms = sorted(host)[4] * 1e3
+        per_call = 1 if route == "patch_sweep" else sum(
+            1 for c_ in range(125) if all(n > a for n, a in zip(shape, (c_ // 25, c_ // 5 % 5, c_ % 5))))
+        idle = max(0.0, 1.0 - busy / (dt * 1e3))
+        print(f"  patch path {shape}: {dt * 1e3:.4f} ms/sweep wall ({N_PATCH_TIME} sweeps), device "
+              f"{busy:.4f} ms/sweep, idle share ~{idle:.3f}, host {host_ms:.4f} ms/sweep to "
+              f"enqueue; one {route} call a sweep, "
+              f"{per_call} kernel launch(es) each; last QOI {q[-1].item():.4e}")
     return counts
 
 
@@ -581,6 +768,25 @@ def main():
     counts.update({k: v for k, v in phase_v22(torch, v22_smp).items() if k == "rb_gibbs_fd"})
     print("== 9. Gibbs chains")
     counts.update({k: v for k, v in phase_gibbs(torch, op).items() if k == "rb_gibbs"})
+    del op, main_smp, v22_smp
+
+    from parmgmc_tpu_torch.models.problems import squared_shifted_laplace_fd
+    from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler
+
+    t0 = time.perf_counter()
+    patch_smps = [PatchGibbsSampler.create(squared_shifted_laplace_fd((n,) * 3, 1.0)) for n in (128, N_MAIN)]
+    for s in patch_smps:
+        check(s.sq_fd_params is not None, f"no squared FD operator detected at {s.grid_shape}")
+        print(f"  patch sampler {s.grid_shape}: detected (kappa2, hinv2) = {s.sq_fd_params} "
+              f"(exact 1, {(s.grid_shape[0] - 1) ** 2}); {len(s.base.offsets)} offsets, "
+              f"{sum(c.ndim > 0 for c in s.base.coeffs)} coefficient fields")
+    print(f"  patch set-up {time.perf_counter() - t0:.2f} s")
+    print("== 10. patch kernels against their twin")
+    rec.update(phase_patch_kernels(torch, dev, patch_smps))
+    print("== 11. patch moments gate")
+    phase_patch_moments(torch, dev)
+    print("== 12. patch path")
+    counts.update(phase_patch_path(torch, patch_smps))
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 
     meta = (
@@ -592,6 +798,10 @@ def main():
          "parmgmc_tpu/kernels/rb_gibbs.py:552"),
         ("fused_rb_gibbs_sweep", "sweep_streamed", "rb_gibbs", "parmgmc_tpu_torch/csrc/rb_gibbs.cu",
          "parmgmc_tpu/kernels/rb_gibbs.py:285"),
+        ("fused_patch_sweep_sqfd", "patch", "patch_sweep", "parmgmc_tpu_torch/csrc/patch_sweep.cu",
+         "parmgmc_tpu/kernels/patch_sweep.py:582"),
+        ("fused_patch_sweep_sqfd_streamed", "patch_streamed", "patch_sweep_streamed",
+         "parmgmc_tpu_torch/csrc/patch_sweep.cu", "parmgmc_tpu/kernels/patch_sweep.py:502"),
     )
     check(all(counts[ck] > 0 for _, _, ck, _, _ in meta), f"a kernel was not launched on its path: {counts}")
     print(json.dumps({"kernels": [

@@ -8,6 +8,7 @@ so both packages can run on the very same numbers:
 * an operator from (kappa2, hinv2) or from (offsets, coeffs, diag),
 * a Cholesky coarse sampler from its factor ``L`` and inverse ``Li``,
 * an MGMC sampler from its per-level operators and the coarse factors,
+* a patch-Gibbs sampler from its operator and squared-FD parameters,
 * the deferred chain carry ``z`` in the port's compact layout (the JAX
   lane-duplicated ``zx2`` compacts as ``zx2[..., ::2]``),
 * noise trees of numpy arrays.
@@ -23,6 +24,7 @@ from parmgmc_tpu_torch.operators.stencil import StencilOperator, fd_stencil
 from parmgmc_tpu_torch.operators.transfer import AggregateTransfer
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler, star_patch
 
 __all__ = [
     "tensor",
@@ -31,6 +33,7 @@ __all__ = [
     "stencil_operator",
     "cholesky_sampler",
     "mgmc_sampler",
+    "patch_gibbs_sampler",
     "compact_carry",
 ]
 
@@ -84,6 +87,17 @@ def mgmc_sampler(ops, L, Li, *, omega=1.0, sweep="forward", n_pre=1, n_post=1,
     return MGMCSampler.from_levels(
         ops, transfers, coarse, omega=omega, sweep=sweep, n_pre=n_pre,
         n_post=n_post, n_coarse=n_coarse, gamma=gamma,
+    )
+
+
+def patch_gibbs_sampler(offsets, coeffs, diag, sq_fd_params, device=None) -> PatchGibbsSampler:
+    """Patch-Gibbs sampler over the stencil operator (offsets, coeffs,
+    diag); ``sq_fd_params`` is the JAX sampler's (kappa2, hinv2) of F, or
+    None for the explicit-noise step."""
+    op = stencil_operator(offsets, coeffs, diag, device)
+    sq = None if sq_fd_params is None else tuple(float(np.float32(v)) for v in np.asarray(sq_fd_params))
+    return PatchGibbsSampler(
+        base=op, patch_offsets=star_patch(op.ndim), ncolor_base=op.radius + 3, sq_fd_params=sq
     )
 
 

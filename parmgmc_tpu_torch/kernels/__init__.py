@@ -51,8 +51,13 @@ TILES = {"chain": (8, 8, 32), "tail": (8, 8, 32), "rb_gibbs": (8, 8, 32)}
 _LOCK = threading.Lock()
 _LIB = None
 # one count per wrapper: fused_chain_down_fd, fused_tail_down (per level),
-# fused_rb_gibbs_sweep_fd and fused_rb_gibbs_sweep
-_LAUNCHES = {"chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0}
+# fused_rb_gibbs_sweep_fd, fused_rb_gibbs_sweep, fused_patch_sweep_sqfd (one
+# cooperative launch) and fused_patch_sweep_sqfd_streamed (one C call that
+# enqueues a launch per colour)
+_LAUNCHES = {
+    "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
+    "patch_sweep": 0, "patch_sweep_streamed": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,6 +69,8 @@ _SIGNATURES = {
     ),
     "pmg_tail_down": ([_P] * 3 + [_I] * 3 + [_F] * 4 + [_U, _I, _I, _P], _I),
     "pmg_rb_gibbs": ([_P] * 4 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I),
+    "pmg_patch_sweep": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
+    "pmg_patch_sweep_streamed": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
     "pmg_chain_tile": ([ctypes.POINTER(_I)], None),
     "pmg_tail_tile": ([ctypes.POINTER(_I)], None),
     "pmg_rb_gibbs_tile": ([ctypes.POINTER(_I)], None),

@@ -2,14 +2,16 @@
 
 An SPD operator A on an ``(n0, n1[, n2])`` grid is a stencil field:
 
-* ``offsets`` -- tuple of off-diagonal offsets in ``{-1,0,1}^d \\ {0}``,
+* ``offsets`` -- tuple of nonzero integer off-diagonal offsets (``{-1,0,1}^d``
+  for 5/7-point stencils; squared operators reach radius 2),
 * ``coeffs`` -- one coefficient per offset, a 0-d tensor (constant
   coefficient) or a grid-shaped tensor,
 * ``diag`` -- the grid-shaped diagonal.
 
 ``apply`` is a sum of shifted element-wise products; out-of-grid
-neighbours contribute zero through zero padding, which reproduces the
-"links that exist" boundary convention of the reference FD assembly.
+neighbours contribute zero through zero padding (``radius`` wide),
+which reproduces the "links that exist" boundary convention of the
+reference FD assembly.
 Operators accept leading batch dimensions on ``x`` (the grid is always
 the trailing ``ndim`` dimensions), which :meth:`StencilOperator.to_dense`
 uses to apply A to every unit vector at once.
@@ -35,6 +37,7 @@ __all__ = [
     "coarse_shape",
     "star_offsets",
     "link_count",
+    "compress_stencil",
 ]
 
 
@@ -235,3 +238,29 @@ def detect_fd_params(op: StencilOperator):
 
 def coarse_shape(fine_shape: Sequence[int]) -> tuple:
     return tuple((int(s) + 1) // 2 for s in fine_shape)
+
+
+def compress_stencil(op: StencilOperator) -> StencilOperator:
+    """Drop identically-zero offsets and turn coefficient fields that are
+    constant where their neighbour exists into 0-d tensors (set-up time;
+    reads each field to the host once)."""
+    shape = op.grid_shape
+    offsets, coeffs = [], []
+    for off, c in zip(op.offsets, op.coeffs):
+        if c.ndim == 0:
+            if float(c) != 0.0:
+                offsets.append(off)
+                coeffs.append(c)
+            continue
+        # only entries whose neighbour is in the grid matter (the zero
+        # padding nullifies the rest), so compare on that region only
+        region = tuple(slice(max(0, -o), n - max(0, o)) for o, n in zip(off, shape))
+        vals = c[region]
+        if vals.numel() == 0:
+            continue  # the neighbour never exists on this grid
+        lo, hi = float(vals.min()), float(vals.max())
+        if lo == 0.0 and hi == 0.0:
+            continue
+        offsets.append(off)
+        coeffs.append(torch.tensor(lo, dtype=c.dtype, device=c.device) if lo == hi else c)
+    return StencilOperator(offsets=tuple(offsets), coeffs=tuple(coeffs), diag=op.diag)

@@ -6,10 +6,11 @@ without them; ``tests/conftest.py`` imports JAX, so run it there with
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Each kernel against its plain twin at small shapes with ragged tiles
-(deterministic 1e-5, noisy 1e-4, relative max-norm), the keyed chain's
-deferred form bit for bit against the plain form, the launches of the
-general keyed cycle and the keyed Gibbs step, and the wrappers'
-refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+(deterministic 1e-5, noisy 1e-4, relative max-norm; the patch sweeps
+1e-4 either way), the two patch sweep routes bit for bit, the keyed
+chain's deferred form bit for bit against the plain form, the launches
+of the general keyed cycle, the keyed Gibbs step and the keyed patch
+chain, and the wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -23,6 +24,12 @@ from parmgmc_tpu_torch.kernels.mg_sweep import (
     fused_chain_down_fd_reference,
 )
 from parmgmc_tpu_torch.kernels.mg_tail import fused_tail_down, tail_down_reference
+from parmgmc_tpu_torch.kernels.patch_sweep import (
+    fused_patch_sweep_sqfd,
+    fused_patch_sweep_sqfd_reference,
+    fused_patch_sweep_sqfd_streamed,
+)
+from parmgmc_tpu_torch.models.problems import squared_shifted_laplace_fd
 from parmgmc_tpu_torch.kernels.rb_gibbs import (
     fused_rb_gibbs_sweep,
     fused_rb_gibbs_sweep_fd,
@@ -32,6 +39,7 @@ from parmgmc_tpu_torch.kernels.rb_gibbs import (
 from parmgmc_tpu_torch.operators.stencil import StencilOperator, shifted_laplace_fd
 from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler
 
 pytestmark = pytest.mark.cuda
 
@@ -105,6 +113,39 @@ def test_sweep_kernels_match_twins(dev, shape):
                        fused_rb_gibbs_sweep_fd(x, zeros, coeffs, 1.0, h, 1.3, 3, 5))
 
 
+@pytest.mark.parametrize("shape", [(11, 12, 13), (16, 10, 128)])
+def test_patch_kernels_match_twin(dev, shape):
+    """#10 (cooperative) and #11 (per colour) against the twin, and bit
+    for bit against each other."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    x, b = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
+    k2, h2 = 1.69, float((shape[0] - 1) ** 2)
+    for noise in (False, True):
+        for bb in (b, None):
+            kernels.reset_launch_counts()
+            whole = fused_patch_sweep_sqfd(x, bb, k2, h2, 3, 5, with_noise=noise)
+            per_colour = fused_patch_sweep_sqfd_streamed(x, bb, k2, h2, 3, 5, with_noise=noise)
+            counts = kernels.launch_counts()
+            assert counts["patch_sweep"] == 1 and counts["patch_sweep_streamed"] == 1
+            want = fused_patch_sweep_sqfd_reference(x, bb, k2, h2, 3, 5, with_noise=noise)
+            assert _rel(whole, want) <= 1e-4, (noise, bb is None)
+            assert torch.equal(whole, per_colour), (noise, bb is None)
+    zeros = torch.zeros_like(x)
+    assert torch.equal(fused_patch_sweep_sqfd(x, None, k2, h2, 3, 5),
+                       fused_patch_sweep_sqfd(x, zeros, k2, h2, 3, 5))
+
+
+def test_keyed_patch_chain_launches(dev):
+    op = squared_shifted_laplace_fd((16, 10, 128), 40.0, device=dev)
+    smp = PatchGibbsSampler.create(op)
+    assert smp.sq_fd_params is not None
+    kernels.reset_launch_counts()
+    st, q = sample_chain(smp, init_chain(smp, 4), None, 6, extract=torch.mean)
+    counts = kernels.launch_counts()
+    assert counts["patch_sweep"] == 6 and counts["patch_sweep_streamed"] == 0
+    assert bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all())
+
+
 def test_keyed_general_cycle_and_gibbs_launch_the_sweep_kernel(dev):
     op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
     smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=64)
@@ -152,3 +193,10 @@ def test_wrappers_refuse_bad_cuda_input(dev):
         fused_rb_gibbs_sweep_fd(x.transpose(0, 1), None, h, 1.0, 49.0, 1.0, 1, 2)
     with pytest.raises(ValueError):
         fused_rb_gibbs_sweep(x, None, torch.ones(8, 8, 32), h, 1.0, 1, 2)
+    for fn in (fused_patch_sweep_sqfd, fused_patch_sweep_sqfd_streamed):
+        with pytest.raises(TypeError):
+            fn(x.double(), None, 1.0, 49.0, 1, 2)
+        with pytest.raises(ValueError):
+            fn(x.transpose(0, 1), None, 1.0, 49.0, 1, 2)
+        with pytest.raises(ValueError):
+            fn(x, torch.zeros(8, 8, 32), 1.0, 49.0, 1, 2)

@@ -176,7 +176,7 @@ def test_wrappers_run_the_twins_on_cpu():
     ys, rhs = fused_tail_down(torch.from_numpy(bl), params, 1, 2, 0, _TAIL_SHAPES)
     ys_r, rhs_r = tail_down_reference(torch.from_numpy(bl), params, 1, 2, 0, _TAIL_SHAPES)
     assert all(torch.equal(a, b) for a, b in zip(ys, ys_r)) and torch.equal(rhs, rhs_r)
-    assert kernels.launch_counts() == {"chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0}
+    assert all(v == 0 for v in kernels.launch_counts().values())
     # partial sums are per CHAIN_TILE block and add up to the totals
     assert got[2].shape == (1,) and torch.allclose(got[2].sum(), got[0].sum(), rtol=1e-5)
     with pytest.raises(ValueError):
