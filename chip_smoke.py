@@ -21,7 +21,7 @@ Phases, in order; any failure raises and exits non-zero:
               times a smooth field in [1, 2]), forward and backward, noise
               on and off, b given and None.
 4. moments -- bench.py's selftest problem (16x16x128, b = 50): the keyed
-              kernel chain against the explicit-noise plain chain over 20000
+              kernel chain against the explicit-noise plain chain over 12000
               steps after 200 burn-in (max |z| < 10, mean |z| < 2.5, max
               relative variance gap < 0.2).
 5. deferred-- sample_chain_deferred bit-identical to sample_chain (8 steps).
@@ -33,8 +33,8 @@ Phases, in order; any failure raises and exits non-zero:
               the device time of a step by kernel, and the same keyed
               cycle with the twins in place of the kernels.
 7. moments V(2,2) and Gibbs -- the keyed V(2,2) chain on the phase-4
-              problem (6000 steps), and the keyed Gibbs chain on a
-              16x16x32 problem with kappa^2 = 900 (10000 steps; FD
+              problem (4000 steps), and the keyed Gibbs chain on a
+              16x16x32 problem with kappa^2 = 900 (6000 steps; FD
               symmetric sweeps, and forward sweeps of the streamed
               diagonal), each against its explicit-noise chain with the
               gates of phase 4.
@@ -65,10 +65,34 @@ Phases, in order; any failure raises and exits non-zero:
               sweep (CUDA events) and idle share, host enqueue time per
               sweep, exact launch counts, a finite chain.
 
+13. large-plane kernels -- the marching kernel's three modes, #5 staged
+              and #4 windowed against their twins at (32, 768, 768) and
+              (12, 770, 772) (forward and backward, noise on and off, b given
+              and None with z and the sums; tolerances as phase 3) and bit for
+              bit against each other, #3 against its twin at every level of
+              the 768^3 hierarchy below 0 and at (8, 10, 128), #3(b) bit for
+              bit #5(0, b); at 768^3 (the main path's call: b = None, z, sums,
+              noise) #5 and #4 against their twins (1e-4, partial sums
+              elementwise) and against #1 (1e-6); device times (CUDA events)
+              of #5, #4, #1 and the twin at 768^3, of #3 per level and of the
+              tail kernel forced over the same levels.
+14. large-plane moments -- bench.py selftest2d's problem ((32, 768, 768),
+              kappa = 1, b = 50): the keyed chain (#4 at level 0, #3 below,
+              exact launch counts) against the explicit-noise chain, 4000
+              steps after 100 burn-in each (max |z| < 14, mean |z| < 2.5, max
+              relative variance gap < 0.3); sample_chain_deferred (#5) bit for
+              bit sample_chain (#4) over 8 steps.
+15. 768^3 main path -- gmrf_3d(768), MGMC V(1,0), coarsest 128 (6^3), prior
+              through sample_chain_deferred: ms/cycle over 128 steps, tau and
+              ESS/sec from 2048 steps, var(QOI) N in (0.8, 1.25), exactly one
+              #5 and six #3 launches a step and no other kernel, the device
+              time of a step by kernel and the idle share.
+
 The last lines are the kernels' JSON record (launches from the main path
 that runs each kernel: phase 6 for the chain and tail kernels, phase 8
 for the FD sweep, phase 9 for the streamed sweep, phase 12 for the patch
-sweeps; bound_ms from this run's shapes at the card's published peaks),
+sweeps, phase 14 for #4, phase 15 for #5 and #3; bound_ms from this run's
+shapes at the card's published peaks),
 the card as nvidia-smi prints it, and {"ok": true, "device": {...}}.
 """
 
@@ -83,13 +107,18 @@ from unittest import mock
 N_MAIN = 256
 N_TIME = 512
 N_IACT = 4096
-N_MOMENTS = 20_000
-N_MOMENTS_V22 = 6_000
-N_MOMENTS_GIBBS = 10_000
+N_MOMENTS = 12_000
+N_MOMENTS_V22 = 4_000
+N_MOMENTS_GIBBS = 6_000
 N_GIBBS_TIME = 256
 N_PATCH_MOMENTS = 4000
 N_PATCH_PLAIN = 1000
 N_PATCH_TIME = 32
+N_BIG = 768
+N_BIG_TIME = 128
+N_BIG_IACT = 2048
+N_MOMENTS_2D = 4000
+RAGGED_BIG = (12, 770, 772)  # a large plane whose extents the strips do not divide
 
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
@@ -341,7 +370,7 @@ def chain_moments(torch, label, smp, b, n, burnin=200):
     return mean.double(), var.double(), n
 
 
-def moments_check(torch, label, kern, plain, rgate):
+def moments_check(torch, label, kern, plain, rgate, zgate=10.0):
     """Per-cell mean z-scores (two-sample SE) and variance gaps of the
     kernel chain's moments against the plain chain's."""
     (mk, vk, nk), (mp, vp, n_p) = kern, plain
@@ -349,9 +378,10 @@ def moments_check(torch, label, kern, plain, rgate):
     z = (mk - mp).abs() / se.clamp(min=1e-12)
     rvar = (vk - vp).abs() / vp.clamp(min=1e-12)
     zmax, zmean, rmax = z.max().item(), z.mean().item(), rvar.max().item()
-    print(f"  {label}: max |z| {zmax:.3f} (gate 10), mean |z| {zmean:.3f} (gate 2.5), "
+    print(f"  {label}: max |z| {zmax:.3f} (gate {zgate:g}), mean |z| {zmean:.3f} (gate 2.5), "
           f"max relative var gap {rmax:.4f} (gate {rgate})")
-    check(zmax < 10.0 and zmean < 2.5 and rmax < rgate, f"{label}: kernel chain moments drifted from the plain chain")
+    check(zmax < zgate and zmean < 2.5 and rmax < rgate,
+          f"{label}: kernel chain moments drifted from the plain chain")
 
 
 def moments_gate(torch, label, smp, b, n):
@@ -388,40 +418,49 @@ def phase_deferred(torch, smp, b, main_smp):
         check(dq <= 1e-5 * max(qa.abs().max().item(), 1e-3), "deferred QOI disagrees")
 
 
-def phase_main(torch, dev, smp):
+def phase_main(torch, dev, smp, n=N_MAIN, n_time=N_TIME, n_iact=N_IACT, want=None, twin=True):
+    """The prior chain of smp on an n^3 grid through sample_chain_deferred:
+    ms/cycle, tau and ESS/sec, the exact law of the QOI, the launches (each
+    of the chain and tail kernels > 0, or exactly want(steps) when given),
+    the device time of a step by kernel and, with ``twin``, the same keyed
+    cycle with the twins in place of the kernels."""
     from parmgmc_tpu_torch import kernels
     from parmgmc_tpu_torch.chain import init_chain, sample_chain_deferred
     from parmgmc_tpu_torch.diagnostics.iact import iact
     from parmgmc_tpu_torch.kernels import mg_sweep, mg_tail
 
     st = init_chain(smp, 0)
-    st, _ = sample_chain_deferred(smp, st, None, 64)  # warm-up
+    st, _ = sample_chain_deferred(smp, st, None, 64 if twin else 16)  # warm-up
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    st, _ = sample_chain_deferred(smp, st, None, N_TIME)
+    st, _ = sample_chain_deferred(smp, st, None, n_time)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / N_TIME
-    st, q = sample_chain_deferred(smp, st, None, N_IACT)
+    dt = (time.perf_counter() - t0) / n_time
+    st, q = sample_chain_deferred(smp, st, None, n_iact)
     q = q.double().cpu()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    print(f"  launches during the main path: {counts}")
-    check(counts["chain_down"] > 0 and counts["tail_down"] > 0,
-          f"the main path did not run both kernels: {counts}")
+    print(f"  launches during the main path ({n_time + n_iact} steps): {counts}")
+    if want is None:
+        check(counts["chain_down"] > 0 and counts["tail_down"] > 0,
+              f"the main path did not run both kernels: {counts}")
+    else:
+        expect = want(n_time + n_iact)
+        check(counts == expect, f"the {n}^3 path launched {counts}, expected {expect}")
 
     x = st.x
-    check(tuple(x.shape) == (N_MAIN,) * 3 and bool(torch.isfinite(x).all()),
+    check(tuple(x.shape) == (n,) * 3 and bool(torch.isfinite(x).all()),
           "final state has the wrong shape or non-finite values")
-    check(bool(torch.isfinite(q).all()) and q.shape == (N_IACT,), "QOI chain not finite")
+    check(bool(torch.isfinite(q).all()) and q.shape == (n_iact,), "QOI chain not finite")
     # the last QOI is the mean of the materialised final state
     dq = abs(q[-1].item() - x.double().mean().item())
     check(dq < 1e-6, f"last QOI {q[-1].item():.6e} != mean of final state ({dq:.2e})")
     # prior law of the QOI: A 1 = kappa^2 1, so mean(x) ~ N(0, 1/(kappa^2 N))
-    npts = N_MAIN**3
+    npts = n**3
     var_ratio = q.var().item() * npts
-    zmean = q.mean().item() * math.sqrt(npts * N_IACT)
+    zmean = q.mean().item() * math.sqrt(npts * n_iact)
     tau, valid = iact(q)
     tau_c = max(tau, 1.0)
     print(f"  QOI: var * N = {var_ratio:.4f} (exact 1), mean / SE = {zmean:.3f}, "
@@ -429,12 +468,13 @@ def phase_main(torch, dev, smp):
     check(0.8 < var_ratio < 1.25, "QOI variance is off the prior's exact value")
     check(abs(zmean) < 5.0 * math.sqrt(tau_c), "QOI mean is off zero")
     ess = 1.0 / (tau_c * dt)
-    print(f"  main path: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f}, ESS/sec {ess:.2f}")
+    print(f"  {n}^3 path: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f}, ESS/sec {ess:.2f}")
 
     # where the device time of a step goes (a separate, profiled window
     # of 32 steps: the chain's one-off carry set-up and final
     # materialisation spread over them)
     holder, n_win = [st], 32
+    del st, x
 
     def window():
         holder[0], _ = sample_chain_deferred(smp, holder[0], None, n_win)
@@ -445,8 +485,11 @@ def phase_main(torch, dev, smp):
         print(f"  device per step: {t:.4f} ms  {name}")
     idle = max(0.0, 1.0 - busy / (dt * 1e3))
     print(f"  device busy {busy:.4f} ms/step of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f}")
+    if not twin:
+        return counts
 
     # the same keyed cycle with the plain twins in place of the kernels
+    st = holder[0]
     with mock.patch.object(mg_sweep, "fused_chain_down_fd", mg_sweep.fused_chain_down_fd_reference), \
             mock.patch.object(mg_tail, "fused_tail_down", mg_tail.tail_down_reference):
         st2, _ = sample_chain_deferred(smp, st, None, 2)
@@ -710,6 +753,213 @@ def phase_patch_path(torch, smps):
     return counts
 
 
+def march_bytes(n, with_x, with_b, with_z, nblk=0):
+    """Bytes the chain function must move on an n-point grid: each input
+    read once, each output (xpy or y, rc, partial sums) written once."""
+    return 4 * (n * (with_x + with_b + 1) + n // 8 * (1 + with_z) + 2 * nblk)
+
+
+def phase_march_kernels(torch, dev, big_smp):
+    """#5 (staged), #4 (windowed) and #3 (from zero) against their twins
+    and bit for bit against each other; on the full 768^3 grid #5 and #4
+    against #1; device times (CUDA events) of #5, #4 and #1 at 768^3, #3
+    at each level and the tail kernel forced over levels 1 .. L-2."""
+    from parmgmc_tpu_torch.kernels import _twin, mg_tail
+    from parmgmc_tpu_torch.kernels import mg_sweep as ms
+
+    rec = {}
+    gen = torch.Generator(device=dev).manual_seed(456)
+    randn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
+    pairs = ((ms.fused_chain_down_2d_staged, ms.fused_chain_down_2d_staged_reference),
+             (ms.fused_chain_down_2d, ms.fused_chain_down_2d_reference))
+    worst = 0.0
+    for shape in ((32, N_BIG, N_BIG), RAGGED_BIG):
+        x, b, z = randn(*shape), randn(*shape), randn(*(d // 2 for d in shape))
+        hinv2 = float((shape[0] - 1) ** 2)
+        args = ([-hinv2] * 6, 1.0, hinv2, 1.0, 1234, 77)
+        rels = {False: 0.0, True: 0.0}
+        for sweep in ("forward", "backward"):
+            for noise in (False, True):
+                for bb, zz in ((b, None), (None, z)):
+                    kw = dict(sweep=sweep, with_noise=noise, z=zz, with_xsum=True,
+                              with_zsum=zz is not None)
+                    outs = []
+                    for kern, twin in pairs:
+                        got, want = kern(x, bb, *args, **kw), twin(x, bb, *args, **kw)
+                        torch.cuda.synchronize()
+                        for name, g, w in zip(("xpy", "rc", "xsum", "zsum"), got, want):
+                            check(g.shape == w.shape, f"{kern.__name__} {name} shape {g.shape} != {w.shape}")
+                            r, d = rel_err(g, w)
+                            tol = 1e-4 if (noise or name in ("xsum", "zsum")) else 1e-5
+                            check(r <= tol, f"{kern.__name__} {name} ({shape}, {sweep}, noise={noise}, "
+                                            f"b={'yes' if bb is not None else 'None'}) disagrees with its "
+                                            f"twin: {r:.3e} > {tol:g}")
+                            rels[noise] = max(rels[noise], r)
+                            if shape[0] == 32:
+                                worst = max(worst, d)
+                        outs.append(got)
+                    check(torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]),
+                          f"#4 and #5 differ at {shape} ({sweep}, noise={noise})")
+            # #3(b) is #5(x = 0, b) bit for bit
+            y, rc = ms.fused_zero_gibbs_restrict_fd(b, *args, sweep=sweep)
+            y5, rc5 = ms.fused_chain_down_2d_staged(torch.zeros_like(b), b, *args, sweep=sweep)
+            check(torch.equal(y, y5) and torch.equal(rc, rc5), f"#3 is not #5 from zero at {shape}")
+        print(f"  #5 and #4 at {shape}: forward/backward, noise on/off, b given / None with z and sums: "
+              f"worst rel {rels[False]:.2e} noise off (tol 1e-05), {rels[True]:.2e} noise on (tol 0.0001); "
+              f"#4 == #5 bit for bit, #3(b) == #5(0, b) bit for bit")
+        del x, b, z
+
+    # #3 at every smoothed level below 0 of the 768^3 hierarchy, and (8, 10, 128)
+    cases = [(tuple(o.grid_shape), sm) for o, sm in zip(big_smp.ops[1:-1], big_smp.smoothers[1:])]
+    cases.append(((8, 10, 128), None))
+    ms3, plain3, bytes3, flops3, worst3 = 0.0, 0.0, 0, 0, 0.0
+    for shape, sm in cases:
+        bl = randn(*shape)
+        if sm is None:
+            args = ([-49.0] * 6, 1.0, 49.0, 1.3, 99, 5)
+        else:
+            args = (sm._coeff6(), sm.fd_params[0], sm.fd_params[1], sm.omega, 99, 5)
+        rels = []
+        for sweep in ("forward", "backward"):
+            for noise in (False, True):
+                kw = dict(sweep=sweep, with_noise=noise)
+                got = ms.fused_zero_gibbs_restrict_fd(bl, *args, **kw)
+                want = ms.fused_zero_gibbs_restrict_fd_reference(bl, *args, **kw)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    r, d = rel_err(g, w)
+                    check(r <= (1e-4 if noise else 1e-5), f"#3 at {shape} ({sweep}, noise={noise}) "
+                                                          f"disagrees with its twin: {r:.3e}")
+                    rels.append(r)
+                    if sm is not None:
+                        worst3 = max(worst3, d)
+                y5, rc5 = ms.fused_chain_down_2d_staged(torch.zeros_like(bl), bl, *args, **kw)
+                check(torch.equal(got[0], y5) and torch.equal(got[1], rc5), f"#3 is not #5 from zero at {shape}")
+        line = f"  #3 at {shape}: worst rel {max(rels):.2e} against the twin; == #5(0, b) bit for bit"
+        if sm is not None:
+            t = event_ms(torch, lambda: ms.fused_zero_gibbs_restrict_fd(bl, *args), 20)
+            tp = event_ms(torch, lambda: ms.fused_zero_gibbs_restrict_fd_reference(bl, *args), 2)
+            npts = bl.numel()
+            ms3, plain3 = ms3 + t, plain3 + tp
+            bytes3 += march_bytes(npts, False, True, False)
+            flops3 += FLOPS_TAIL * npts
+            line += f"; {t:.4f} ms (twin {tp:.4f} ms)"
+        print(line)
+        del bl
+    bms, by = bound(bytes3, flops3)
+    rec["zero_restrict"] = dict(max_abs_err=worst3, ms=ms3, plain_ms=plain3, bound_ms=bms, bound_by=by,
+                                library_ms=None)
+    print(f"  #3 over levels 1..{len(cases) - 1} (one step's launches): {ms3:.4f} ms, bound {bms:.4f} ms ({by})")
+
+    # the tail kernel forced over the same levels
+    shp = tuple(tuple(o.grid_shape) for o in big_smp.ops[1:])
+    prm = []
+    for sm in big_smp.smoothers[1:]:
+        prm += [sm.omega, sm.fd_params[0], sm.fd_params[1]]
+    bl = randn(*shp[0])
+    t = event_ms(torch, lambda: mg_tail.fused_tail_down(bl, prm, 99, 5, 0, shp), 20)
+    print(f"  tail kernel forced over levels {shp[0]}..{shp[-2]}: {t:.4f} ms (#3 over the same levels {ms3:.4f} ms)")
+    del bl
+
+    # the full 768^3 grid, the main path's call (b = None, z, sums, noise):
+    # #5 and #4 against the twin at phase 3's tolerances, and against #1;
+    # device times of the three kernels and of the twin
+    shape = (N_BIG,) * 3
+    x, z = randn(*shape), randn(*(d // 2 for d in shape))
+    s0 = big_smp.smoothers[0]
+    args = (s0._coeff6(), s0.fd_params[0], s0.fd_params[1], s0.omega, 1234, 77)
+    kw = dict(z=z, with_xsum=True, with_zsum=True)
+    want = ms.fused_chain_down_2d_staged_reference(x, None, *args, **kw)
+    plain = event_ms(torch, lambda: ms.fused_chain_down_2d_staged_reference(x, None, *args, **kw), 1)
+    out5 = ms.fused_chain_down_2d_staged(x, None, *args, **kw)
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, w in zip(("xpy", "rc", "xsum", "zsum"), out5, want):
+        check(g.shape == w.shape, f"#5 {name} shape {g.shape} != {w.shape} at 768^3")
+        r, d = rel_err(g, w)
+        errs.append(d)
+        print(f"  768^3 #5 against its twin {name}: rel {r:.2e} abs {d:.2e} (tol 1e-4)")
+        check(r <= 1e-4, f"#5 disagrees with its twin at 768^3 in {name}: {r:.3e}")
+    # #4's twin is #5's with partial sums per window: the same xpy, re-tiled
+    want4 = (_twin.tile_sums(want[0], ms.MARCH_TILE), _twin.tile_sums(z, tuple(t // 2 for t in ms.MARCH_TILE)))
+    scales = (want[0].double().abs().sum().item(), z.double().abs().sum().item())
+    del want
+    out4 = ms.fused_chain_down_2d(x, None, *args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(out5[0], out4[0]) and torch.equal(out5[1], out4[1]), "#4 and #5 differ at 768^3")
+    for name, g, w in zip(("xsum", "zsum"), out4[2:], want4):
+        check(g.shape == w.shape, f"#4 {name} shape {g.shape} != {w.shape} at 768^3")
+        r, d = rel_err(g, w)
+        errs.append(d)
+        print(f"  768^3 #4 against its twin {name}: rel {r:.2e} abs {d:.2e} (tol 1e-4); xpy, rc == #5's")
+        check(r <= 1e-4, f"#4 disagrees with its twin at 768^3 in {name}: {r:.3e}")
+    del out4, want4
+    ref = ms.fused_chain_down_fd(x, None, *args, **kw)
+    torch.cuda.synchronize()
+    for name, i in (("xpy", 0), ("rc", 1)):
+        r, d = rel_err(out5[i], ref[i])
+        print(f"  768^3 #5 (= #4) against #1 {name}: rel {r:.2e} abs {d:.2e} (tol 1e-6)")
+        check(r <= 1e-6, f"#5 disagrees with #1 at 768^3 in {name}: {r:.3e}")
+    for name, i, scale in (("xsum", 2, scales[0]), ("zsum", 3, scales[1])):
+        d = abs(out5[i].double().sum().item() - ref[i].double().sum().item())
+        check(d <= 1e-5 * scale, f"#5 {name} total disagrees with #1's at 768^3: {d:.3e}")
+    del ref, out5
+    n = x.numel()
+    nblk5 = math.prod(-(-d // t) for d, t in zip(shape, (shape[0], *ms.MARCH_TILE[1:])))
+    nblk4 = math.prod(-(-d // t) for d, t in zip(shape, ms.MARCH_TILE))
+    times = {}
+    for key, fn in (("chain_2d_staged", ms.fused_chain_down_2d_staged), ("chain_2d", ms.fused_chain_down_2d),
+                    ("chain_down", ms.fused_chain_down_fd)):
+        times[key] = event_ms(torch, lambda: fn(x, None, *args, **kw), 10)
+    for key, nblk in (("chain_2d_staged", nblk5), ("chain_2d", nblk4)):
+        bms, by = bound(march_bytes(n, True, False, True, nblk), FLOPS_CHAIN * n)
+        rec[key] = dict(max_abs_err=max(worst, *errs), ms=times[key], plain_ms=plain, bound_ms=bms, bound_by=by,
+                        library_ms=None)
+    print(f"  768^3 (b=None, z, sums, noise): #5 {times['chain_2d_staged']:.4f} ms, "
+          f"#4 {times['chain_2d']:.4f} ms, #1 {times['chain_down']:.4f} ms, twin {plain:.4f} ms, "
+          f"bound {rec['chain_2d_staged']['bound_ms']:.4f} ms ({rec['chain_2d_staged']['bound_by']})")
+    return rec
+
+
+def phase_moments_2d(torch, dev):
+    """bench.py selftest2d's problem: the keyed chain (#4 at level 0, #3
+    below) against the explicit-noise chain; then the deferred chain (#5)
+    bit for bit against sample_chain (#4)."""
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import ExplicitNoise, init_chain, sample_chain, sample_chain_deferred
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    op = shifted_laplace_fd((32, N_BIG, N_BIG), 1.0, device=dev)
+    b = torch.full(op.grid_shape, 50.0, device=dev)
+    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128)
+    levels = [tuple(o.grid_shape) for o in smp.ops]
+    print(f"  levels {levels}")
+    check(smp._chain_level0_2d() and smp.deferred_eligible(),
+          "the large-plane chain does not take the large-plane kernels")
+    kernels.reset_launch_counts()
+    kern = chain_moments(torch, "large-plane kernel chain", smp, b, N_MOMENTS_2D, burnin=100)
+    counts = kernels.launch_counts()
+    steps = N_MOMENTS_2D + 100
+    want = dict.fromkeys(counts, 0)
+    want.update(chain_2d=steps, zero_restrict=(len(levels) - 2) * steps)
+    print(f"  launches during the kernel chain: {counts}")
+    check(counts == want, f"the large-plane chain launched {counts}, expected {want}")
+    plain = chain_moments(torch, "large-plane plain chain", ExplicitNoise(smp), b, N_MOMENTS_2D, burnin=100)
+    moments_check(torch, "large-plane V(1,0)", kern, plain, 0.3, zgate=14.0)
+
+    kernels.reset_launch_counts()
+    st = init_chain(smp, 5)
+    sa, _ = sample_chain(smp, st, b, 8, extract=torch.mean)
+    sb, _ = sample_chain_deferred(smp, st, b, 8)
+    check(torch.equal(sa.x, sb.x), "the deferred chain (#5) diverged bitwise from sample_chain (#4)")
+    c = kernels.launch_counts()
+    check(c["chain_2d"] == 8 and c["chain_2d_staged"] == 8, f"the bitwise check ran {c}")
+    print(f"  (32, {N_BIG}, {N_BIG}) b=50: sample_chain_deferred (#5) bit-identical to sample_chain (#4) "
+          f"over 8 steps")
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -787,6 +1037,29 @@ def main():
     phase_patch_moments(torch, dev)
     print("== 12. patch path")
     counts.update(phase_patch_path(torch, patch_smps))
+    del patch_smps
+
+    t0 = time.perf_counter()
+    big_smp = MGMCSampler.create(gmrf_3d(N_BIG, kappa=1.0), n_pre=1, n_post=0, coarsest_size=128)
+    big_levels = [tuple(o.grid_shape) for o in big_smp.ops]
+    print(f"  {N_BIG}^3 sampler levels {big_levels} (setup {time.perf_counter() - t0:.2f} s)")
+    check(big_smp._chain_level0_2d() and not any(big_smp._tail_fused_eligible(l) for l in range(1, len(big_levels))),
+          f"the {N_BIG}^3 hierarchy does not route level 0 to the large-plane kernels and the rest to #3")
+    print("== 13. large-plane chain kernels against their twins")
+    rec.update(phase_march_kernels(torch, dev, big_smp))
+    print("== 14. large-plane moments gate")
+    counts.update({k: v for k, v in phase_moments_2d(torch, dev).items() if k == "chain_2d"})
+    print(f"== 15. {N_BIG}^3 main path")
+    n_smooth = len(big_levels) - 2  # smoothed levels below 0
+
+    def want_big(steps):
+        w = dict.fromkeys(kernels.launch_counts(), 0)
+        w.update(chain_2d_staged=steps, zero_restrict=n_smooth * steps)
+        return w
+
+    c = phase_main(torch, dev, big_smp, N_BIG, N_BIG_TIME, N_BIG_IACT, want=want_big, twin=False)
+    counts.update({k: c[k] for k in ("chain_2d_staged", "zero_restrict")})
+    del big_smp
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 
     meta = (
@@ -802,6 +1075,12 @@ def main():
          "parmgmc_tpu/kernels/patch_sweep.py:582"),
         ("fused_patch_sweep_sqfd_streamed", "patch_streamed", "patch_sweep_streamed",
          "parmgmc_tpu_torch/csrc/patch_sweep.cu", "parmgmc_tpu/kernels/patch_sweep.py:502"),
+        ("fused_chain_down_2d_staged", "chain_2d_staged", "chain_2d_staged",
+         "parmgmc_tpu_torch/csrc/chain_march.cu", "parmgmc_tpu/kernels/mg_sweep.py:1949"),
+        ("fused_chain_down_2d", "chain_2d", "chain_2d", "parmgmc_tpu_torch/csrc/chain_march.cu",
+         "parmgmc_tpu/kernels/mg_sweep.py:1235"),
+        ("fused_zero_gibbs_restrict_fd", "zero_restrict", "zero_restrict",
+         "parmgmc_tpu_torch/csrc/chain_march.cu", "parmgmc_tpu/kernels/mg_sweep.py:256"),
     )
     check(all(counts[ck] > 0 for _, _, ck, _, _ in meta), f"a kernel was not launched on its path: {counts}")
     print(json.dumps({"kernels": [

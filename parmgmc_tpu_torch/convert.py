@@ -9,8 +9,8 @@ so both packages can run on the very same numbers:
 * a Cholesky coarse sampler from its factor ``L`` and inverse ``Li``,
 * an MGMC sampler from its per-level operators and the coarse factors,
 * a patch-Gibbs sampler from its operator and squared-FD parameters,
-* the deferred chain carry ``z`` in the port's compact layout (the JAX
-  lane-duplicated ``zx2`` compacts as ``zx2[..., ::2]``),
+* the deferred chain carry ``z`` in the port's compact layout from
+  either JAX layout (``zx2`` and ``zf``),
 * noise trees of numpy arrays.
 """
 
@@ -34,7 +34,7 @@ __all__ = [
     "cholesky_sampler",
     "mgmc_sampler",
     "patch_gibbs_sampler",
-    "compact_carry",
+    "deferred_carry_from_jax",
 ]
 
 
@@ -101,6 +101,14 @@ def patch_gibbs_sampler(offsets, coeffs, diag, sq_fd_params, device=None) -> Pat
     )
 
 
-def compact_carry(zx2, device=None) -> torch.Tensor:
-    """The port's compact carry z from the JAX lane-duplicated ``zx2``."""
-    return tensor(np.asarray(zx2)[..., ::2], device)
+def deferred_carry_from_jax(z, layout, device=None) -> torch.Tensor:
+    """The port's compact carry (N0/2, N1/2, N2/2) from a JAX deferred
+    carry: ``layout="zx2"`` (N0/2, N1/2, N2), lanes duplicated, as the
+    whole-plane and staged kernels take it; ``layout="zf"`` (N0/2, N1,
+    N2), only axis 0 compressed, as the 2D kernels take it."""
+    z = np.asarray(z)
+    if layout == "zx2":
+        return tensor(z[..., ::2], device)
+    if layout == "zf":
+        return tensor(z[:, ::2, ::2], device)
+    raise ValueError(f"unknown deferred carry layout {layout!r} (zx2 or zf)")

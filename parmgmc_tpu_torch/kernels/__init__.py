@@ -45,18 +45,25 @@ NVCC_FLAGS = (
 )
 
 # output tile of one CUDA block per kernel (T0, T1, T2 in csrc/*.cu); the
-# twins' partial sums use the same tiles, so the loader checks them
-TILES = {"chain": (8, 8, 32), "tail": (8, 8, 32), "rb_gibbs": (8, 8, 32)}
+# twins' partial sums use the same tiles, so the loader checks them.  The
+# marching kernel's T0 is its windowed mode's; a staged block takes all
+# of axis 0
+TILES = {
+    "chain": (8, 8, 32), "tail": (8, 8, 32), "rb_gibbs": (8, 8, 32),
+    "chain_march": (16, 32, 32),
+}
 
 _LOCK = threading.Lock()
 _LIB = None
 # one count per wrapper: fused_chain_down_fd, fused_tail_down (per level),
 # fused_rb_gibbs_sweep_fd, fused_rb_gibbs_sweep, fused_patch_sweep_sqfd (one
-# cooperative launch) and fused_patch_sweep_sqfd_streamed (one C call that
-# enqueues a launch per colour)
+# cooperative launch), fused_patch_sweep_sqfd_streamed (one C call that
+# enqueues a launch per colour), fused_chain_down_2d_staged,
+# fused_chain_down_2d and fused_zero_gibbs_restrict_fd
 _LAUNCHES = {
     "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
     "patch_sweep": 0, "patch_sweep_streamed": 0,
+    "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
 }
 
 _P = ctypes.c_void_p
@@ -67,6 +74,9 @@ _SIGNATURES = {
     "pmg_chain_down": (
         [_P] * 7 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I,
     ),
+    "pmg_chain_march": (
+        [_P] * 7 + [_I] * 4 + [_F] * 10 + [_U, _I, _I, _P], _I,
+    ),
     "pmg_tail_down": ([_P] * 3 + [_I] * 3 + [_F] * 4 + [_U, _I, _I, _P], _I),
     "pmg_rb_gibbs": ([_P] * 4 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I),
     "pmg_patch_sweep": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
@@ -74,6 +84,7 @@ _SIGNATURES = {
     "pmg_chain_tile": ([ctypes.POINTER(_I)], None),
     "pmg_tail_tile": ([ctypes.POINTER(_I)], None),
     "pmg_rb_gibbs_tile": ([ctypes.POINTER(_I)], None),
+    "pmg_chain_march_tile": ([ctypes.POINTER(_I)], None),
 }
 
 

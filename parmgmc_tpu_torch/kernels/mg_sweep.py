@@ -1,4 +1,4 @@
-"""Level-0 MGMC chain down-phase: CUDA kernel wrapper and plain twin.
+"""MGMC chain down-phase and from-zero level: CUDA kernel wrappers and twins.
 
 Port of ``parmgmc_tpu/kernels/mg_sweep.py::fused_chain_down_fd``.  For the
 chain state x_true = x + P z (``z`` optional, compact at (N0/2, N1/2,
@@ -21,16 +21,38 @@ eta is the counter-hash draw of :mod:`._noise` keyed by (seed, step,
 The TPU kernel's lane pair-sum of ``rq`` is not copied: ``rc`` comes out
 restricted.  The CUDA source is ``csrc/chain_down.cu``; its note gives the
 byte bound and the tile design.
+
+Large planes take the same function from ``csrc/chain_march.cu``, a
+kernel that marches column strips down axis 0, in three wrappers with
+the JAX names: :func:`fused_chain_down_2d_staged` (one block per strip
+over all of axis 0), :func:`fused_chain_down_2d` (windows of
+``MARCH_TILE[0]`` planes) and :func:`fused_zero_gibbs_restrict_fd` (a
+level from zero: x = 0, no z, b required).  Each has its own twin and
+launch counter; their xpy/y and rc agree bit for bit.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from parmgmc_tpu_torch import kernels
 from parmgmc_tpu_torch.kernels import _noise, _twin
 
-__all__ = ["CHAIN_TILE", "fused_chain_down_fd", "fused_chain_down_fd_reference"]
+__all__ = [
+    "CHAIN_TILE",
+    "MARCH_TILE",
+    "chain_down_2d_supported",
+    "fused_chain_down_fd",
+    "fused_chain_down_fd_reference",
+    "fused_chain_down_2d",
+    "fused_chain_down_2d_reference",
+    "fused_chain_down_2d_staged",
+    "fused_chain_down_2d_staged_reference",
+    "fused_zero_gibbs_restrict_fd",
+    "fused_zero_gibbs_restrict_fd_reference",
+]
 
 # output tile of one CUDA block; the partial sums are per tile
 CHAIN_TILE = kernels.TILES["chain"]
@@ -50,22 +72,20 @@ def _check_args(x, b, z, with_zsum):
         raise ValueError("with_zsum requires z")
 
 
-def fused_chain_down_fd_reference(
-    x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
-    sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
-):
-    """Plain-torch twin of :func:`fused_chain_down_fd` (any device)."""
-    _check_args(x, b, z, with_zsum)
-    dt, dev = x.dtype, x.device
-    shape = tuple(x.shape)
+def _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z):
+    """(xpy, rc) of the chain down-phase in plain torch; x = None is the
+    zero state (the from-zero level of :func:`fused_zero_gibbs_restrict_fd`)."""
+    like = b if x is None else x
+    dt, dev = like.dtype, like.device
+    shape = tuple(like.shape)
     c = [_twin.scalar(v, dt, dev) for v in coeffs]
 
     def neigh(v):
         return _twin.star_neigh(v, c)
 
-    xt = x
+    xt = torch.zeros_like(like) if x is None else x
     if z is not None:
-        xt = x + z[:, None, :, None, :, None].expand(
+        xt = xt + z[:, None, :, None, :, None].expand(
             shape[0] // 2, 2, shape[1] // 2, 2, shape[2] // 2, 2
         ).reshape(shape)
     D = _twin.fd_diag(shape, kappa2, hinv2, dt, dev)
@@ -81,14 +101,26 @@ def fused_chain_down_fd_reference(
     winv = _twin.scalar(omega, dt, dev) / D
     v0 = torch.where(par == color0, winv * rt, rt)
     y = torch.where(par != color0, winv * (v0 - neigh(v0)), v0)
-    xpy = xt + y
-    rc = _twin.restrict2(r - (D * y + neigh(y)))
+    return xt + y, _twin.restrict2(r - (D * y + neigh(y)))
+
+
+def _with_sums(xpy, rc, z, tile, with_xsum, with_zsum):
     out = [xpy, rc]
     if with_xsum:
-        out.append(_twin.tile_sums(xpy, CHAIN_TILE))
+        out.append(_twin.tile_sums(xpy, tile))
     if with_zsum:
-        out.append(_twin.tile_sums(z, tuple(t // 2 for t in CHAIN_TILE)))
+        out.append(_twin.tile_sums(z, tuple(t // 2 for t in tile)))
     return tuple(out)
+
+
+def fused_chain_down_fd_reference(
+    x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
+    sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+):
+    """Plain-torch twin of :func:`fused_chain_down_fd` (any device)."""
+    _check_args(x, b, z, with_zsum)
+    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
+    return _with_sums(xpy, rc, z, CHAIN_TILE, with_xsum, with_zsum)
 
 
 def fused_chain_down_fd(
@@ -138,3 +170,157 @@ def fused_chain_down_fd(
     if with_zsum:
         out.append(zsum)
     return tuple(out)
+
+
+# -- large planes: the marching kernel (csrc/chain_march.cu) ------------------
+
+# (T0 of the windowed mode, T1, T2): a staged block owns a (T1, T2) strip of
+# every plane; a windowed block (#4, #3) the same strip over T0 planes
+MARCH_TILE = kernels.TILES["chain_march"]
+
+
+def chain_down_2d_supported(shape) -> bool:
+    """Can the marching kernel (#3, #4, #5) take this grid?  3D, even
+    extents (the restriction), fewer than 2^32 points (the noise counter)."""
+    return (
+        len(shape) == 3
+        and all(int(s) > 0 and int(s) % 2 == 0 for s in shape)
+        and math.prod(int(s) for s in shape) < 2**32
+    )
+
+
+def fused_chain_down_2d_staged_reference(
+    x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
+    sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+):
+    """Plain-torch twin of :func:`fused_chain_down_2d_staged` (any device):
+    partial sums per column strip."""
+    _check_args(x, b, z, with_zsum)
+    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
+    return _with_sums(xpy, rc, z, (x.shape[0], *MARCH_TILE[1:]), with_xsum, with_zsum)
+
+
+def fused_chain_down_2d_reference(
+    x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
+    sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+):
+    """Plain-torch twin of :func:`fused_chain_down_2d` (any device): partial
+    sums per (T0, T1, T2) window."""
+    _check_args(x, b, z, with_zsum)
+    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
+    return _with_sums(xpy, rc, z, MARCH_TILE, with_xsum, with_zsum)
+
+
+def fused_zero_gibbs_restrict_fd_reference(
+    b, coeffs, kappa2, hinv2, omega, seed, step, *, sweep="forward", with_noise=True,
+):
+    """Plain-torch twin of :func:`fused_zero_gibbs_restrict_fd` (any device)."""
+    _check_args(b, b, None, False)
+    return _chain_math(None, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, None)
+
+
+def _march(counter, t0, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
+           with_noise, z, with_xsum, with_zsum):
+    """Launch ``csrc/chain_march.cu`` with ``t0`` planes per block (0: the
+    windowed T0) on CUDA tensors; count it under ``counter``."""
+    like = b if x is None else x
+    if sweep not in ("forward", "backward"):
+        raise ValueError(f"chain kernel runs one forward/backward sweep, got {sweep!r}")
+    for name, t in (("x", x), ("b", b), ("z", z)):
+        if t is not None:
+            kernels.check_input(name, t, like)
+    lib = kernels.lib()
+    n0, n1, n2 = like.shape
+    tile = (t0 or MARCH_TILE[0], *MARCH_TILE[1:])
+    nblk = math.prod(-(-s // t) for s, t in zip(like.shape, tile))
+    xpy = torch.empty_like(like)
+    rc = torch.empty((n0 // 2, n1 // 2, n2 // 2), dtype=like.dtype, device=like.device)
+    xsum = torch.empty(nblk, dtype=like.dtype, device=like.device) if with_xsum else None
+    zsum = torch.empty(nblk, dtype=like.dtype, device=like.device) if with_zsum else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(like.device):
+        err = lib.pmg_chain_march(
+            ptr(x), ptr(b), ptr(z), ptr(xpy), ptr(rc), ptr(xsum), ptr(zsum),
+            n0, n1, n2, t0, *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
+            _twin.noise_factor(omega),
+            _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN),
+            0 if sweep == "forward" else 1, int(with_noise),
+            torch.cuda.current_stream(like.device).cuda_stream,
+        )
+    kernels.check_launch(err, counter)
+    out = [xpy, rc]
+    if with_xsum:
+        out.append(xsum)
+    if with_zsum:
+        out.append(zsum)
+    return tuple(out)
+
+
+def fused_chain_down_2d_staged(
+    x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
+    sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+):
+    """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase of
+    :func:`fused_chain_down_fd` for large planes, one block per column
+    strip walking all of axis 0 (partial sums per strip).
+
+    Port of ``parmgmc_tpu/kernels/mg_sweep.py::fused_chain_down_2d_staged``
+    with the port's compact carry ``z`` in place of ``zf``/``zx2``.  CPU
+    tensors run the twin; CUDA tensors launch ``csrc/chain_march.cu``
+    (float32, contiguous) or raise."""
+    if x.device.type == "cpu":
+        return fused_chain_down_2d_staged_reference(
+            x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
+            with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"no chain kernel for device {x.device}")
+    _check_args(x, b, z, with_zsum)
+    return _march("chain_2d_staged", x.shape[0], x, b, coeffs, kappa2, hinv2, omega, seed,
+                  step, sweep, with_noise, z, with_xsum, with_zsum)
+
+
+def fused_chain_down_2d(
+    x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
+    sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+):
+    """(xpy, rc[, xsum_partials][, zsum_partials]): as
+    :func:`fused_chain_down_2d_staged`, with axis 0 cut into windows of
+    ``MARCH_TILE[0]`` planes that each recompute a 3-plane halo (partial
+    sums per window); bit for bit the staged outputs xpy and rc.
+
+    Port of ``parmgmc_tpu/kernels/mg_sweep.py::fused_chain_down_2d``.  CPU
+    tensors run the twin; CUDA tensors launch ``csrc/chain_march.cu`` or
+    raise."""
+    if x.device.type == "cpu":
+        return fused_chain_down_2d_reference(
+            x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
+            with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"no chain kernel for device {x.device}")
+    _check_args(x, b, z, with_zsum)
+    return _march("chain_2d", 0, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
+                  with_noise, z, with_xsum, with_zsum)
+
+
+def fused_zero_gibbs_restrict_fd(
+    b, coeffs, kappa2, hinv2, omega, seed, step, *, sweep="forward", with_noise=True,
+):
+    """(y, rc): one level's down-phase from zero -- y the red/black sweep
+    from zero of b~ = b + noise, rc = R(b - A y) -- the chain down-phase
+    with x = 0; bit for bit :func:`fused_chain_down_2d_staged` with a zero
+    x.
+
+    Port of ``parmgmc_tpu/kernels/mg_sweep.py::fused_zero_gibbs_restrict_fd``
+    (``rc`` restricted, no lane pair-sum).  CPU tensors run the twin; CUDA
+    tensors launch ``csrc/chain_march.cu`` without an x stream, or raise."""
+    if b.device.type == "cpu":
+        return fused_zero_gibbs_restrict_fd_reference(
+            b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep, with_noise=with_noise,
+        )
+    if b.device.type != "cuda":
+        raise ValueError(f"no zero-start level kernel for device {b.device}")
+    _check_args(b, b, None, False)
+    return _march("zero_restrict", 0, None, b, coeffs, kappa2, hinv2, omega, seed, step,
+                  sweep, with_noise, None, False, False)

@@ -12,11 +12,16 @@ Three routes through the same sampler:
   (any n_pre/n_post/gamma/sweep), plain torch; the oracle side of the
   tests and the body of the explicit-noise chains.
 * ``step(key, x, b)`` / ``step_deferred`` on a V(1,0) cycle of link-count
-  FD levels in float32 -- the chain kernels: level 0 in one
+  FD levels in float32 -- the chain kernels, routed as the JAX package
+  routes its own: level 0 in one
   :func:`~parmgmc_tpu_torch.kernels.mg_sweep.fused_chain_down_fd` launch,
-  levels 1 .. L-2 in :func:`~parmgmc_tpu_torch.kernels.mg_tail.
-  fused_tail_down`, the coarse Cholesky sample and the up-phase adds in
-  plain torch.
+  or, for planes over ``_PLANE_LIMIT`` points, in
+  ``fused_chain_down_2d_staged`` (``step_deferred``) or
+  ``fused_chain_down_2d`` (``step``); levels 1 .. L-2 in
+  :func:`~parmgmc_tpu_torch.kernels.mg_tail.fused_tail_down` from the
+  first level the JAX tail's shape rule admits, and one
+  ``fused_zero_gibbs_restrict_fd`` launch for each level above it; the
+  coarse Cholesky sample and the up-phase adds in plain torch.
 * ``step(key, x, b)`` on every other cycle -- the general keyed cycle:
   each pre- and post-sweep is the level smoother's keyed ``step`` (one
   full-sweep kernel launch per half-sweep, see
@@ -53,6 +58,12 @@ from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 
 __all__ = ["MGMCSampler", "build_hierarchy"]
+
+# planes above this many points take the large-plane chain kernels at
+# level 0 (the JAX package's rb_gibbs._PLANE_LIMIT, the line where its
+# whole-plane kernels leave VMEM); both routes compute the same function.
+# A TPU limit, not measured on the H100 (ROADMAP.md slice 2c)
+_PLANE_LIMIT = 448 * 1024
 
 
 def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="aggregate"):
@@ -242,21 +253,67 @@ class MGMCSampler:
             for s in self.smoothers
         )
 
-    def _fused_chain_down(self, x, b, key, z=None, with_xsum=False, with_zsum=False):
-        """(xpy, rc, key, *partials): the level-0 chain kernel.  This is the
-        ONLY place its seed and step are derived from the key -- step and
-        step_deferred both come through here, which keeps their sample
-        sequences bit-identical."""
-        from parmgmc_tpu_torch.kernels.mg_sweep import fused_chain_down_fd
+    def _chain_level0_2d(self) -> bool:
+        """Does level 0 take the large-plane chain kernels?  A 3D grid the
+        marching kernel takes whose plane is above ``_PLANE_LIMIT`` points
+        (the JAX ``_chain_level0_2d`` without its VMEM probe).  It depends
+        on the shape alone, so step and step_deferred agree."""
+        from parmgmc_tpu_torch.kernels.mg_sweep import chain_down_2d_supported
 
+        gs = self.grid_shape
+        return chain_down_2d_supported(gs) and gs[1] * gs[2] > _PLANE_LIMIT
+
+    def _fused_chain_down(self, x, b, key, z=None, with_xsum=False, with_zsum=False):
+        """(xpy, rc, key, *partials): the level-0 chain kernel -- #1 up to
+        ``_PLANE_LIMIT`` points a plane; above it the staged kernel when
+        the deferred carry ``z`` is given (step_deferred), the windowed
+        one when not (step).  This is the ONLY place its seed and step are
+        derived from the key -- step and step_deferred both come through
+        here, which keeps their sample sequences bit-identical (the three
+        kernels compute the same function with the same draws)."""
+        from parmgmc_tpu_torch.kernels import mg_sweep
+
+        if not self._chain_level0_2d():
+            fn = mg_sweep.fused_chain_down_fd
+        elif z is not None:
+            fn = mg_sweep.fused_chain_down_2d_staged
+        else:
+            fn = mg_sweep.fused_chain_down_2d
         s = self.smoothers[0]
         key, k1, k2 = keys.split(key, 3)
-        out = fused_chain_down_fd(
+        out = fn(
             x, b, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
             keys.randint31(k1), keys.randint31(k2), sweep=s.sweep, z=z,
             with_xsum=with_xsum, with_zsum=with_zsum,
         )
         return (out[0], out[1], key, *out[2:])
+
+    def _fused_down(self, l: int, bl, key):
+        """(y, rc, key): level l's down-phase from zero in one
+        ``fused_zero_gibbs_restrict_fd`` launch."""
+        from parmgmc_tpu_torch.kernels.mg_sweep import fused_zero_gibbs_restrict_fd
+
+        s = self.smoothers[l]
+        key, k1, k2 = keys.split(key, 3)
+        y, rc = fused_zero_gibbs_restrict_fd(
+            bl, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
+            keys.randint31(k1), keys.randint31(k2), sweep=s.sweep,
+        )
+        return y, rc, key
+
+    def _tail_fused_eligible(self, l: int) -> bool:
+        """Do levels l .. L-2 run on the tail kernel?  The JAX
+        ``_tail_fused_eligible`` shape rule (1 <= l <= L-2, level l's n2
+        divides 128, n0 n1 128 <= 128^3 at level l; the cycle and level
+        checks are :meth:`deferred_eligible`'s).  Here it only picks
+        between two ported kernels: levels it refuses take
+        :meth:`_fused_down`.  The rule is the TPU kernel's lane and
+        compile-volume gate, not measured on the H100 (ROADMAP.md slice
+        2c)."""
+        if l < 1 or l > self.n_levels - 2:
+            return False
+        n0, n1, n2 = self.ops[l].grid_shape
+        return n2 <= 128 and 128 % n2 == 0 and n0 * n1 * 128 <= 128**3
 
     def _fused_tail_cycle(self, l: int, bl, key):
         """One keyed cycle over levels l .. coarsest: the smoothed levels'
@@ -311,12 +368,12 @@ class MGMCSampler:
             for _ in range(self.n_coarse):
                 key, x = self.coarse.step(key, x, bl)
             return x
-        if l >= 1:
+        if self._tail_fused_eligible(l):
             return self._fused_tail_cycle(l, bl, key)
-        # level 0 from zero: the chain kernel with x = 0 is the down-phase
-        y0, rc, key = self._fused_chain_down(torch.zeros_like(bl), bl, key)
+        # any other level from zero, level 0 too (fmg_init)
+        y, rc, key = self._fused_down(l, bl, key)
         key, sub = keys.split(key)
-        return self.transfers[0].prolong_add(y0, self._cycle_keyed(1, rc, sub))
+        return self.transfers[l].prolong_add(y, self._cycle_keyed(l + 1, rc, sub))
 
     def step(self, key: int, x, b, aux=None):
         """(key, x'): one keyed chain step.  ``b=None`` declares a zero RHS:

@@ -10,7 +10,8 @@ Each kernel against its plain twin at small shapes with ragged tiles
 1e-4 either way), the two patch sweep routes bit for bit, the keyed
 chain's deferred form bit for bit against the plain form, the launches
 of the general keyed cycle, the keyed Gibbs step and the keyed patch
-chain, and the wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+chain, the marching kernel's three modes (#5 staged, #4 windowed, #3
+from zero) and their bitwise identities, and the wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -20,8 +21,14 @@ import torch
 from parmgmc_tpu_torch import kernels
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
 from parmgmc_tpu_torch.kernels.mg_sweep import (
+    fused_chain_down_2d,
+    fused_chain_down_2d_reference,
+    fused_chain_down_2d_staged,
+    fused_chain_down_2d_staged_reference,
     fused_chain_down_fd,
     fused_chain_down_fd_reference,
+    fused_zero_gibbs_restrict_fd,
+    fused_zero_gibbs_restrict_fd_reference,
 )
 from parmgmc_tpu_torch.kernels.mg_tail import fused_tail_down, tail_down_reference
 from parmgmc_tpu_torch.kernels.patch_sweep import (
@@ -72,6 +79,58 @@ def test_chain_kernel_matches_twin(dev, shape):
             for i, (a, w) in enumerate(zip(got, want)):
                 tol = 1e-4 if (noise or i >= 2) else 1e-5
                 assert _rel(a, w) <= tol, (noise, bb is None, i)
+
+
+@pytest.mark.parametrize("shape", [(36, 40, 70), (12, 66, 34)])
+def test_march_kernel_modes_match_twins(dev, shape):
+    """#5 and #4 against their twins and bit for bit against each other;
+    #3 against its twin and bit for bit #5 with x = 0."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    x, b = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
+    z = torch.randn(*(s // 2 for s in shape), generator=g, device=dev)
+    h = float((shape[0] - 1) ** 2)
+    args = ([-h] * 6, 1.0, h, 1.3, 3, 5)
+    zero = torch.zeros_like(x)
+    for sweep in ("forward", "backward"):
+        for noise in (False, True):
+            for bb, zz in ((b, None), (None, z)):
+                kw = dict(sweep=sweep, with_noise=noise, z=zz, with_xsum=True, with_zsum=zz is not None)
+                kernels.reset_launch_counts()
+                st = fused_chain_down_2d_staged(x, bb, *args, **kw)
+                wi = fused_chain_down_2d(x, bb, *args, **kw)
+                counts = kernels.launch_counts()
+                assert counts["chain_2d_staged"] == 1 and counts["chain_2d"] == 1
+                for got, twin in ((st, fused_chain_down_2d_staged_reference),
+                                  (wi, fused_chain_down_2d_reference)):
+                    want = twin(x, bb, *args, **kw)
+                    for i, (a, w) in enumerate(zip(got, want)):
+                        assert a.shape == w.shape
+                        tol = 1e-4 if (noise or i >= 2) else 1e-5
+                        assert _rel(a, w) <= tol, (sweep, noise, bb is None, i)
+                assert torch.equal(st[0], wi[0]) and torch.equal(st[1], wi[1])
+            kw = dict(sweep=sweep, with_noise=noise)
+            y, rc = fused_zero_gibbs_restrict_fd(b, *args, **kw)
+            assert kernels.launch_counts()["zero_restrict"] == 1
+            y_r, rc_r = fused_zero_gibbs_restrict_fd_reference(b, *args, **kw)
+            tol = 1e-4 if noise else 1e-5
+            assert _rel(y, y_r) <= tol and _rel(rc, rc_r) <= tol
+            xpy0, rc0 = fused_chain_down_2d_staged(zero, b, *args, **kw)
+            assert torch.equal(y, xpy0) and torch.equal(rc, rc0)
+    # b = None streams no b: bit for bit an explicit zero b
+    assert torch.equal(fused_chain_down_2d_staged(x, None, *args)[0],
+                       fused_chain_down_2d_staged(x, zero, *args)[0])
+
+
+def test_march_kernel_matches_chain_kernel(dev):
+    """On the same inputs the marching kernel computes #1's function."""
+    shape = (16, 24, 96)
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn(*shape, generator=g, device=dev)
+    z = torch.randn(*(s // 2 for s in shape), generator=g, device=dev)
+    args = ([-225.0] * 6, 1.0, 225.0, 1.0, 3, 5)
+    a = fused_chain_down_fd(x, None, *args, z=z)
+    c = fused_chain_down_2d_staged(x, None, *args, z=z)
+    assert _rel(c[0], a[0]) <= 1e-6 and _rel(c[1], a[1]) <= 1e-5
 
 
 def test_tail_kernel_matches_twin(dev):
@@ -193,6 +252,15 @@ def test_wrappers_refuse_bad_cuda_input(dev):
         fused_rb_gibbs_sweep_fd(x.transpose(0, 1), None, h, 1.0, 49.0, 1.0, 1, 2)
     with pytest.raises(ValueError):
         fused_rb_gibbs_sweep(x, None, torch.ones(8, 8, 32), h, 1.0, 1, 2)
+    for fn in (fused_chain_down_2d, fused_chain_down_2d_staged):
+        with pytest.raises(TypeError):
+            fn(x.double(), None, *args)
+        with pytest.raises(ValueError):
+            fn(x.transpose(0, 1), None, *args)
+    with pytest.raises(ValueError):
+        fused_zero_gibbs_restrict_fd(x[:, :, :31].contiguous(), *args)
+    with pytest.raises(ValueError):
+        fused_zero_gibbs_restrict_fd(x.transpose(0, 1), *args)
     for fn in (fused_patch_sweep_sqfd, fused_patch_sweep_sqfd_streamed):
         with pytest.raises(TypeError):
             fn(x.double(), None, 1.0, 49.0, 1, 2)

@@ -90,7 +90,7 @@ def test_chain_twin_matches_jax_kernel(shape, sweep):
     b = rs.randn(*shape).astype(np.float32)
     z = rs.randn(*(s // 2 for s in shape)).astype(np.float32)
     zx2 = np.repeat(z, 2, axis=-1)  # the JAX lane-duplicated carry
-    assert np.array_equal(convert.compact_carry(zx2, DEV).numpy(), z)
+    assert np.array_equal(convert.deferred_carry_from_jax(zx2, "zx2", DEV).numpy(), z)
     kappa2, hinv2, omega = 1.7**2, float((shape[0] - 1) ** 2), 1.3
     coeffs = [-hinv2] * 6
     args = (kappa2, hinv2, omega, 3, 5)
