@@ -87,13 +87,38 @@ Phases, in order; any failure raises and exits non-zero:
               ESS/sec from 2048 steps, var(QOI) N in (0.8, 1.25), exactly one
               #5 and six #3 launches a step and no other kernel, the device
               time of a step by kernel and the idle share.
+16. large-plane sweep kernels -- the marching sweep's two modes, #9 staged
+              and #8 windowed (FD, and streamed D: the FD diagonal times a
+              smooth field in [1, 2]), against their twins at (32, 768, 768),
+              (12, 770, 772) and 768^3 (forward and backward, noise on and off,
+              b given and None; tolerances as phase 3); #9 == #8 (FD) == #7 and
+              #8 (streamed) == #6 bit for bit at each shape (the whole-plane
+              kernels forced past the plane limit); device times (CUDA events)
+              of #9, #8 (FD), #7, #8 (streamed), #6 and the twins at 768^3.
+17. large-plane sweep moments -- phase 7's problems with the plane limit
+              patched below their finest plane: V(2,2) (#9 at level 0), Gibbs FD
+              symmetric (#9) and Gibbs streamed forward (#8), each against phase
+              7's explicit-noise chain with the phase-4 gates, exact launch
+              counts, and moments bit for bit phase 7's kernel chain; the
+              (32, 768, 768) keyed V(2,2) chain (#9 at level 0) bit for bit the
+              chain with level 0 forced to #7 over 8 steps.
+18. 768^3 V(2,2) and Gibbs -- gmrf_3d(768), MGMC V(2,2), coarsest 128,
+              through sample_chain with the mean as QOI: ms/cycle over 32
+              steps, tau, ESS/sec and var(QOI) N in (0.8, 1.25) from 512
+              steps, exactly four #9 and 24 #7 launches a step (level 0 past
+              the plane limit, six levels below it) and no other kernel, the
+              device time of a step by kernel and the idle share; the keyed
+              Gibbs chains at 768^3 (b = None): FD forward (one #9 a sweep),
+              FD symmetric (two) and streamed forward (one #8), wall ms per
+              sweep and exact launches.
 
-The last lines are the kernels' JSON record (launches from the main path
-that runs each kernel: phase 6 for the chain and tail kernels, phase 8
-for the FD sweep, phase 9 for the streamed sweep, phase 12 for the patch
-sweeps, phase 14 for #4, phase 15 for #5 and #3; bound_ms from this run's
-shapes at the card's published peaks),
-the card as nvidia-smi prints it, and {"ok": true, "device": {...}}.
+Each phase prints its wall time.  The last lines are the kernels' JSON
+record (launches from the main path that runs each kernel: phase 6 for
+the chain and tail kernels, phase 8 for the FD sweep, phase 9 for the
+streamed sweep, phase 12 for the patch sweeps, phase 14 for #4, phase 15
+for #5 and #3, phase 18 for #9 and #8; bound_ms from this run's shapes
+at the card's published peaks), the card as nvidia-smi prints it, and
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -118,6 +143,9 @@ N_BIG = 768
 N_BIG_TIME = 128
 N_BIG_IACT = 2048
 N_MOMENTS_2D = 4000
+N_BIG_V22_TIME = 32
+N_BIG_V22_IACT = 512
+N_BIG_GIBBS = 32
 RAGGED_BIG = (12, 770, 772)  # a large plane whose extents the strips do not divide
 
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM3 bytes/s and
@@ -392,6 +420,7 @@ def moments_gate(torch, label, smp, b, n):
     kern = chain_moments(torch, f"{label} kernel chain", smp, b, n)
     plain = chain_moments(torch, f"{label} plain chain", ExplicitNoise(smp), b, n)
     moments_check(torch, label, kern, plain, 0.2)
+    return kern, plain
 
 
 def phase_moments(torch, dev):
@@ -502,70 +531,85 @@ def phase_main(torch, dev, smp, n=N_MAIN, n_time=N_TIME, n_iact=N_IACT, want=Non
     return counts
 
 
-def phase_moments_general(torch, dev, b):
+def moments_problems(torch, dev, b):
+    """The problems of phase 7: {label: (sampler, b, steps)}."""
     from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
     from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
     op = shifted_laplace_fd((16, 16, 128), 1.0, device=dev)
-    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128)
-    check(not smp.deferred_eligible(), "V(2,2) must run the general keyed cycle")
-    moments_gate(torch, "V(2,2)", smp, b, N_MOMENTS_V22)
+    probs = {"V(2,2)": (MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128), b, N_MOMENTS_V22)}
     # Gibbs: kappa^2 = 900 against h^-2 = 225, so a sweep contracts by ~0.4
     op = shifted_laplace_fd((16, 16, 32), 30.0, device=dev)
     bg = torch.full(op.grid_shape, 50.0, device=dev)
     for label, o, sweep in (("Gibbs FD symmetric", op, "symmetric"),
                             ("Gibbs streamed forward", field_operator(torch, op), "forward")):
-        smp = GibbsSampler.create(o, sweep=sweep)
-        check(smp.has_kernel and (smp.fd_params is None) == ("streamed" in label),
+        probs[label] = (GibbsSampler.create(o, sweep=sweep), bg, N_MOMENTS_GIBBS)
+    return probs
+
+
+def phase_moments_general(torch, dev, b):
+    """The phase-7 problems' keyed chains against their explicit-noise
+    chains; returns {label: (kernel moments, plain moments)}."""
+    probs = moments_problems(torch, dev, b)
+    smp = probs["V(2,2)"][0]
+    check(not smp.deferred_eligible(), "V(2,2) must run the general keyed cycle")
+    for label in ("Gibbs FD symmetric", "Gibbs streamed forward"):
+        g = probs[label][0]
+        check(g.has_kernel and (g.fd_params is None) == ("streamed" in label),
               f"{label}: the keyed step does not take the expected kernel")
-        moments_gate(torch, label, smp, bg, N_MOMENTS_GIBBS)
+    return {label: moments_gate(torch, label, smp, bb, n) for label, (smp, bb, n) in probs.items()}
 
 
-def phase_v22(torch, smp):
+def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twin=True):
+    """The V(2,2) prior chain of smp through sample_chain with the mean as
+    QOI: ms/cycle over n_time steps, tau and ESS/sec from n_iact steps,
+    var(QOI) N, exactly per_step[counter] launches a step of each counter
+    and no other kernel, the device time of a step by kernel, and, with
+    ``twin``, the cycle with the FD sweep's twin in place of the kernels."""
     from parmgmc_tpu_torch import kernels
     from parmgmc_tpu_torch.chain import init_chain, sample_chain
     from parmgmc_tpu_torch.diagnostics.iact import iact
     from parmgmc_tpu_torch.kernels import rb_gibbs
     from parmgmc_tpu_torch.samplers import gibbs
 
-    per_step = (smp.n_pre + smp.n_post) * (smp.n_levels - 1)
-    check(per_step == 20 and not smp.deferred_eligible(),
-          f"V(2,2) over {smp.n_levels} levels should run 20 sweeps a step, not {per_step}")
+    check(sum(per_step.values()) == (smp.n_pre + smp.n_post) * (smp.n_levels - 1) and not smp.deferred_eligible(),
+          f"V(2,2) over {smp.n_levels} levels does not run {per_step} sweeps a step")
+    shape = tuple(smp.grid_shape)
     st = init_chain(smp, 0)
-    st, _ = sample_chain(smp, st, None, 32, extract=torch.mean)  # warm-up
+    st, _ = sample_chain(smp, st, None, n_warm, extract=torch.mean)  # warm-up
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    st, _ = sample_chain(smp, st, None, N_TIME, extract=torch.mean)
+    st, _ = sample_chain(smp, st, None, n_time, extract=torch.mean)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / N_TIME
-    st, q = sample_chain(smp, st, None, N_IACT, extract=torch.mean)
+    dt = (time.perf_counter() - t0) / n_time
+    st, q = sample_chain(smp, st, None, n_iact, extract=torch.mean)
     q = q.double().cpu()
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    print(f"  launches during the V(2,2) path: {counts} over {N_TIME + N_IACT} steps")
-    check(counts["rb_gibbs_fd"] == per_step * (N_TIME + N_IACT),
-          f"expected exactly {per_step} FD-sweep launches per step: {counts}")
-    check(counts["chain_down"] == counts["tail_down"] == counts["rb_gibbs"] == 0,
-          f"the V(2,2) path launched another kernel: {counts}")
+    steps = n_time + n_iact
+    print(f"  launches during the V(2,2) path: {counts} over {steps} steps")
+    expect = dict.fromkeys(counts, 0)
+    expect.update({k: v * steps for k, v in per_step.items()})
+    check(counts == expect, f"expected exactly {per_step} sweep launches a step and no other kernel: {counts}")
 
     x = st.x
-    check(tuple(x.shape) == (N_MAIN,) * 3 and bool(torch.isfinite(x).all()),
+    check(tuple(x.shape) == shape and bool(torch.isfinite(x).all()),
           "final state has the wrong shape or non-finite values")
-    check(bool(torch.isfinite(q).all()) and q.shape == (N_IACT,), "QOI chain not finite")
-    npts = N_MAIN**3
+    check(bool(torch.isfinite(q).all()) and q.shape == (n_iact,), "QOI chain not finite")
+    npts = math.prod(shape)
     var_ratio = q.var().item() * npts
-    zmean = q.mean().item() * math.sqrt(npts * N_IACT)
+    zmean = q.mean().item() * math.sqrt(npts * n_iact)
     tau, valid = iact(q)
     tau_c = max(tau, 1.0)
-    print(f"  QOI: var * N = {var_ratio:.4f} (exact 1), mean / SE = {zmean:.3f}, "
+    print(f"  QOI over {n_iact} steps: var * N = {var_ratio:.4f} (exact 1), mean / SE = {zmean:.3f}, "
           f"tau {tau:.4f} (valid {valid})")
     check(0.8 < var_ratio < 1.25, "QOI variance is off the prior's exact value")
     check(abs(zmean) < 5.0 * math.sqrt(tau_c), "QOI mean is off zero")
     ess = 1.0 / (tau_c * dt)
-    print(f"  V(2,2) path: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f}, ESS/sec {ess:.2f}")
+    print(f"  V(2,2) path {shape}: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f}, ESS/sec {ess:.2f}")
 
     holder, n_win = [st], 16
 
@@ -578,7 +622,10 @@ def phase_v22(torch, smp):
         print(f"  device per step: {t:.4f} ms  {name}")
     idle = max(0.0, 1.0 - busy / (dt * 1e3))
     print(f"  device busy {busy:.4f} ms/step of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f}")
+    if not twin:
+        return counts
 
+    st = holder[0]
     with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
         st2, _ = sample_chain(smp, st, None, 1, extract=torch.mean)
         torch.cuda.synchronize()
@@ -590,29 +637,33 @@ def phase_v22(torch, smp):
     return counts
 
 
-def phase_gibbs(torch, op):
+def phase_gibbs(torch, op, cases, n_steps):
+    """Keyed Gibbs chains on op (b = None) for each (mode, sweep, counter)
+    of ``cases`` (mode "FD" runs op, "streamed" op with its diagonal times
+    smooth_field): wall ms per sweep over n_steps steps and exactly one
+    launch of ``counter`` a half-sweep, no other kernel."""
     from parmgmc_tpu_torch import kernels
     from parmgmc_tpu_torch.chain import init_chain, sample_chain
     from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 
-    field = field_operator(torch, op)
+    shape = tuple(op.grid_shape)
+    ops = {"FD": op, "streamed": field_operator(torch, op)}
     kernels.reset_launch_counts()
     want = kernels.launch_counts()
-    for mode, o, counter in (("FD", op, "rb_gibbs_fd"), ("streamed", field, "rb_gibbs")):
-        for sweep in ("forward", "symmetric"):
-            smp = GibbsSampler.create(o, sweep=sweep)
-            halves = 2 if sweep == "symmetric" else 1
-            st, _ = sample_chain(smp, init_chain(smp, 1), None, 4, extract=torch.mean)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, q = sample_chain(smp, st, None, N_GIBBS_TIME, extract=torch.mean)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) / (N_GIBBS_TIME * halves)
-            want[counter] += (4 + N_GIBBS_TIME) * halves
-            check(bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all()),
-                  f"Gibbs {mode} {sweep} chain is not finite")
-            print(f"  Gibbs {mode} {sweep} at {N_MAIN}^3: {dt * 1e3:.4f} ms/sweep "
-                  f"({N_GIBBS_TIME} steps)")
+    for mode, sweep, counter in cases:
+        smp = GibbsSampler.create(ops[mode], sweep=sweep)
+        halves = 2 if sweep == "symmetric" else 1
+        st, _ = sample_chain(smp, init_chain(smp, 1), None, 4, extract=torch.mean)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, q = sample_chain(smp, st, None, n_steps, extract=torch.mean)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (n_steps * halves)
+        want[counter] += (4 + n_steps) * halves
+        check(bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all()),
+              f"Gibbs {mode} {sweep} chain is not finite")
+        print(f"  Gibbs {mode} {sweep} at {shape}: {dt * 1e3:.4f} ms/sweep ({n_steps} steps, "
+              f"{halves} {counter} launch(es) a step)")
     counts = kernels.launch_counts()
     print(f"  launches during the Gibbs chains: {counts}")
     check(counts == want, f"Gibbs chains launched {counts}, expected {want}")
@@ -960,6 +1011,169 @@ def phase_moments_2d(torch, dev):
     return counts
 
 
+def sweep_bytes(n, with_b, with_d):
+    """Bytes a full sweep must move on an n-point grid: x, b and a streamed
+    D each read once, x' written once."""
+    return 4 * n * (2 + with_b + with_d)
+
+
+def phase_sweep2d_kernels(torch, dev, big22):
+    """#9 (staged) and #8 (windowed, FD and streamed D) against their twins
+    at (32, 768, 768), the ragged plane and 768^3 (forward and backward,
+    noise on and off, b given and None), bit for bit against each other and
+    against the whole-plane sweeps forced at the same shape (#7 FD, #6
+    streamed); device times (CUDA events) at 768^3."""
+    from parmgmc_tpu_torch.kernels import _twin
+    from parmgmc_tpu_torch.kernels import rb_gibbs as rg
+
+    rec = {}
+    gen = torch.Generator(device=dev).manual_seed(789)
+    randn = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
+
+    def whole():  # the whole-plane route at any plane size: #7 and #6
+        return mock.patch.object(rg, "_PLANE_LIMIT", 2**62)
+
+    s0 = big22.smoothers[0]
+    worst = {"staged": 0.0, "windowed": 0.0}
+    for shape in ((32, N_BIG, N_BIG), RAGGED_BIG, (N_BIG,) * 3):
+        big = shape == (N_BIG,) * 3
+        x, b = randn(*shape), randn(*shape)
+        if big:  # the 768^3 V(2,2) level-0 smoother's coefficients
+            coeffs, fd, omega = s0._coeff6(), s0.fd_params, s0.omega
+        else:
+            hinv2 = float((shape[0] - 1) ** 2)
+            coeffs, fd, omega = [-hinv2] * 6, (1.0, hinv2), 1.0
+        diag = (_twin.fd_diag(shape, *fd, torch.float32, dev) * smooth_field(torch, shape, dev)).contiguous()
+        rels = {False: 0.0, True: 0.0}
+        for sweep in ("forward", "backward"):
+            for noise in (False, True):
+                for bb in (b, None):
+                    kw = dict(sweep=sweep, with_noise=noise)
+                    tag = f"{shape}, {sweep}, noise={noise}, b={'yes' if bb is not None else 'None'}"
+                    tol = 1e-4 if noise else 1e-5
+                    st = rg.fused_rb_gibbs_sweep_2d_staged(x, bb, coeffs, omega, 1234, 77, fd_params=fd, **kw)
+                    wi = rg.fused_rb_gibbs_sweep_2d(x, bb, None, coeffs, omega, 1234, 77, fd_params=fd,
+                                                    staged=False, **kw)
+                    with whole():
+                        r7 = rg.fused_rb_gibbs_sweep_fd(x, bb, coeffs, *fd, omega, 1234, 77, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.equal(st, wi), f"#9 and #8 (FD) differ at {tag}")
+                    d7 = (st - r7).abs().max().item()
+                    check(torch.equal(st, r7), f"#9 and #7 differ at {tag}: max |diff| {d7:.3e}")
+                    del wi, r7
+                    want = rg.fused_rb_gibbs_sweep_2d_staged_reference(x, bb, coeffs, omega, 1234, 77,
+                                                                       fd_params=fd, **kw)
+                    r, d = rel_err(st, want)
+                    check(r <= tol, f"#9 disagrees with its twin at {tag}: {r:.3e} > {tol:g}")
+                    rels[noise] = max(rels[noise], r)
+                    worst["staged"] = max(worst["staged"], d)
+                    worst["windowed"] = max(worst["windowed"], d)  # #8 (FD) is #9
+                    del st, want
+                    ws = rg.fused_rb_gibbs_sweep_2d(x, bb, diag, coeffs, omega, 1234, 77, **kw)
+                    with whole():
+                        r6 = rg.fused_rb_gibbs_sweep(x, bb, diag, coeffs, omega, 1234, 77, **kw)
+                    torch.cuda.synchronize()
+                    d6 = (ws - r6).abs().max().item()
+                    check(torch.equal(ws, r6), f"#8 (streamed) and #6 differ at {tag}: max |diff| {d6:.3e}")
+                    del r6
+                    want = rg.fused_rb_gibbs_sweep_2d_reference(x, bb, diag, coeffs, omega, 1234, 77, **kw)
+                    r, d = rel_err(ws, want)
+                    check(r <= tol, f"#8 (streamed) disagrees with its twin at {tag}: {r:.3e} > {tol:g}")
+                    rels[noise] = max(rels[noise], r)
+                    worst["windowed"] = max(worst["windowed"], d)
+                    del ws, want
+        print(f"  #9 and #8 (FD, streamed D) at {shape} omega {omega:g} kappa2 {fd[0]:g} hinv2 {fd[1]:g}: "
+              f"forward/backward, noise on/off, b given/None: worst rel {rels[False]:.2e} noise off "
+              f"(tol 1e-05), {rels[True]:.2e} noise on (tol 0.0001); #9 == #8 (FD) == #7 and "
+              f"#8 (streamed) == #6 bit for bit")
+        if big:
+            n = x.numel()
+            args = (coeffs, omega, 1234, 77)
+            t = {"#9": event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_2d_staged(x, b, *args, fd_params=fd), 10),
+                 "#8 FD": event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_2d(x, b, None, *args, fd_params=fd,
+                                                                            staged=False), 10),
+                 "#8 streamed": event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_2d(x, None, diag, *args), 10)}
+            with whole():
+                t["#7"] = event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_fd(x, b, coeffs, *fd, *args[1:]), 10)
+                t["#6"] = event_ms(torch, lambda: rg.fused_rb_gibbs_sweep(x, None, diag, *args), 10)
+            t["twin FD"] = event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_2d_staged_reference(
+                x, b, *args, fd_params=fd), 2)
+            t["twin streamed"] = event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_2d_reference(
+                x, None, diag, *args), 2)
+            bms9, by9 = bound(sweep_bytes(n, True, False), FLOPS_SWEEP["fd"] * n)
+            bms8, by8 = bound(sweep_bytes(n, False, True), FLOPS_SWEEP["streamed"] * n)
+            rec["sweep_2d_staged"] = dict(max_abs_err=worst["staged"], ms=t["#9"], plain_ms=t["twin FD"],
+                                          bound_ms=bms9, bound_by=by9, library_ms=None)
+            rec["sweep_2d"] = dict(max_abs_err=worst["windowed"], ms=t["#8 streamed"],
+                                   plain_ms=t["twin streamed"], bound_ms=bms8, bound_by=by8, library_ms=None)
+            print(f"  {N_BIG}^3 device ms per call (noise on): with b #9 {t['#9']:.4f}, #8 (FD) {t['#8 FD']:.4f}, "
+                  f"#7 {t['#7']:.4f}, twin {t['twin FD']:.4f} (bound {bms9:.4f}, {by9}); b = None, streamed D "
+                  f"#8 {t['#8 streamed']:.4f}, #6 {t['#6']:.4f}, twin {t['twin streamed']:.4f} "
+                  f"(bound {bms8:.4f}, {by8})")
+        del x, b, diag
+    return rec
+
+
+def phase_sweep2d_moments(torch, dev, b, gates):
+    """The phase-7 problems with rb_gibbs._PLANE_LIMIT patched below their
+    finest plane, so that the keyed chains take #9 (FD) and #8 (streamed D)
+    there: each chain against phase 7's explicit-noise chain (the phase-4
+    gates), exact launch counts, and its moments bit for bit phase 7's
+    kernel chain (#7, #6).  Then the (32, 768, 768) keyed V(2,2) chain on
+    its natural route (#9 at level 0) bit for bit the chain with level 0
+    forced to #7, over 8 steps."""
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+    from parmgmc_tpu_torch.kernels import rb_gibbs as rg
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    for label, (smp, bb, n) in moments_problems(torch, dev, b).items():
+        v22 = label == "V(2,2)"
+        shapes = [tuple(o.grid_shape) for o in smp.ops[:-1]] if v22 else [tuple(smp.grid_shape)]
+        limit = shapes[0][1] * shapes[0][2] - 1  # the finest plane alone passes it
+        check(all(s[1] * s[2] <= limit for s in shapes[1:]), f"{label}: levels {shapes} all pass {limit}")
+        steps = n + 200
+        if v22:
+            per = {"rb_gibbs_2d_staged": 4, "rb_gibbs_fd": 4 * (len(shapes) - 1)}
+        else:
+            per = {"rb_gibbs_2d_staged": 2} if "FD" in label else {"rb_gibbs_2d": 1}
+        kernels.reset_launch_counts()
+        with mock.patch.object(rg, "_PLANE_LIMIT", limit):
+            kern = chain_moments(torch, f"{label} large-plane kernel chain", smp, bb, n)
+        counts = kernels.launch_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect.update({k: v * steps for k, v in per.items()})
+        print(f"  launches: {counts} ({per} a step over {steps} steps)")
+        check(counts == expect, f"{label}: the large-plane chain launched {counts}, expected {expect}")
+        kern_whole, plain = gates[label]
+        moments_check(torch, f"{label} through the large-plane kernels", kern, plain, 0.2)
+        check(torch.equal(kern[0], kern_whole[0]) and torch.equal(kern[1], kern_whole[1]),
+              f"{label}: the large-plane chain's moments differ from phase 7's whole-plane chain")
+        print(f"  {label}: mean and variance bit for bit phase 7's kernel chain")
+
+    op = shifted_laplace_fd((32, N_BIG, N_BIG), 1.0, device=dev)
+    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128)
+    bb = torch.full(op.grid_shape, 50.0, device=dev)
+    levels = [tuple(o.grid_shape) for o in smp.ops]
+    st = init_chain(smp, 5)
+    kernels.reset_launch_counts()
+    sa, qa = sample_chain(smp, st, bb, 8, extract=torch.mean)
+    ca = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    with mock.patch.object(rg, "_PLANE_LIMIT", 2**62):
+        sb, qb = sample_chain(smp, st, bb, 8, extract=torch.mean)
+    cb = kernels.launch_counts()
+    smoothed = len(levels) - 1
+    check(ca["rb_gibbs_2d_staged"] == 32 and ca["rb_gibbs_fd"] == 32 * (smoothed - 1)
+          and cb["rb_gibbs_2d_staged"] == 0 and cb["rb_gibbs_fd"] == 32 * smoothed,
+          f"the (32, {N_BIG}, {N_BIG}) V(2,2) chains launched {ca} and {cb}")
+    check(torch.equal(sa.x, sb.x) and torch.equal(qa, qb),
+          "the V(2,2) chain through #9 diverged bitwise from the chain through #7")
+    print(f"  (32, {N_BIG}, {N_BIG}) b=50, levels {levels}: the keyed V(2,2) chain with #9 at level 0 "
+          f"bit for bit the chain with #7 there over 8 steps")
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -979,15 +1193,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    clock = [t_start]
 
-    print("== 1. device")
+    def phase(title):
+        now = time.perf_counter()
+        print(f"  ({now - clock[0]:.1f} s)")
+        clock[0] = now
+        print(f"== {title}")
+
+    phase("1. device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    print("== 2. build")
+    phase("2. build")
     secs = kernels.build(verbose=True)
     kernels.lib()
     print(f"  nvcc build: {secs:.2f} s")
@@ -1004,20 +1225,22 @@ def main():
     print(f"  main sampler levels {[o.grid_shape for o in main_smp.ops]} "
           f"(setup {time.perf_counter() - t0:.2f} s)")
 
-    print("== 3. kernels against their twins")
+    phase("3. kernels against their twins")
     rec = phase_kernels(torch, dev, main_smp, v22_smp)
-    print("== 4. moments gate")
+    phase("4. moments gate")
     smp, b = phase_moments(torch, dev)
-    print("== 5. deferred chain")
+    phase("5. deferred chain")
     phase_deferred(torch, smp, b, main_smp)
-    print("== 6. main path")
+    phase("6. main path")
     counts = phase_main(torch, dev, main_smp)
-    print("== 7. moments gates: V(2,2) and Gibbs")
-    phase_moments_general(torch, dev, b)
-    print("== 8. V(2,2) path")
-    counts.update({k: v for k, v in phase_v22(torch, v22_smp).items() if k == "rb_gibbs_fd"})
-    print("== 9. Gibbs chains")
-    counts.update({k: v for k, v in phase_gibbs(torch, op).items() if k == "rb_gibbs"})
+    phase("7. moments gates: V(2,2) and Gibbs")
+    gates = phase_moments_general(torch, dev, b)
+    phase("8. V(2,2) path")
+    counts.update({k: v for k, v in phase_v22(torch, v22_smp, {"rb_gibbs_fd": 20}).items() if k == "rb_gibbs_fd"})
+    phase("9. Gibbs chains")
+    cases = [(mode, sweep, counter) for mode, counter in (("FD", "rb_gibbs_fd"), ("streamed", "rb_gibbs"))
+             for sweep in ("forward", "symmetric")]
+    counts.update({k: v for k, v in phase_gibbs(torch, op, cases, N_GIBBS_TIME).items() if k == "rb_gibbs"})
     del op, main_smp, v22_smp
 
     from parmgmc_tpu_torch.models.problems import squared_shifted_laplace_fd
@@ -1031,25 +1254,26 @@ def main():
               f"(exact 1, {(s.grid_shape[0] - 1) ** 2}); {len(s.base.offsets)} offsets, "
               f"{sum(c.ndim > 0 for c in s.base.coeffs)} coefficient fields")
     print(f"  patch set-up {time.perf_counter() - t0:.2f} s")
-    print("== 10. patch kernels against their twin")
+    phase("10. patch kernels against their twin")
     rec.update(phase_patch_kernels(torch, dev, patch_smps))
-    print("== 11. patch moments gate")
+    phase("11. patch moments gate")
     phase_patch_moments(torch, dev)
-    print("== 12. patch path")
+    phase("12. patch path")
     counts.update(phase_patch_path(torch, patch_smps))
     del patch_smps
 
     t0 = time.perf_counter()
-    big_smp = MGMCSampler.create(gmrf_3d(N_BIG, kappa=1.0), n_pre=1, n_post=0, coarsest_size=128)
+    big_op = gmrf_3d(N_BIG, kappa=1.0)
+    big_smp = MGMCSampler.create(big_op, n_pre=1, n_post=0, coarsest_size=128)
     big_levels = [tuple(o.grid_shape) for o in big_smp.ops]
     print(f"  {N_BIG}^3 sampler levels {big_levels} (setup {time.perf_counter() - t0:.2f} s)")
     check(big_smp._chain_level0_2d() and not any(big_smp._tail_fused_eligible(l) for l in range(1, len(big_levels))),
           f"the {N_BIG}^3 hierarchy does not route level 0 to the large-plane kernels and the rest to #3")
-    print("== 13. large-plane chain kernels against their twins")
+    phase("13. large-plane chain kernels against their twins")
     rec.update(phase_march_kernels(torch, dev, big_smp))
-    print("== 14. large-plane moments gate")
+    phase("14. large-plane moments gate")
     counts.update({k: v for k, v in phase_moments_2d(torch, dev).items() if k == "chain_2d"})
-    print(f"== 15. {N_BIG}^3 main path")
+    phase(f"15. {N_BIG}^3 main path")
     n_smooth = len(big_levels) - 2  # smoothed levels below 0
 
     def want_big(steps):
@@ -1060,6 +1284,23 @@ def main():
     c = phase_main(torch, dev, big_smp, N_BIG, N_BIG_TIME, N_BIG_IACT, want=want_big, twin=False)
     counts.update({k: c[k] for k in ("chain_2d_staged", "zero_restrict")})
     del big_smp
+
+    big22 = MGMCSampler.create(big_op, n_pre=2, n_post=2, coarsest_size=128)
+    check([tuple(o.grid_shape) for o in big22.ops] == big_levels, "the 768^3 V(2,2) hierarchy differs")
+    phase("16. large-plane sweep kernels against their twins")
+    rec.update(phase_sweep2d_kernels(torch, dev, big22))
+    phase("17. large-plane sweep moments gates")
+    phase_sweep2d_moments(torch, dev, b, gates)
+    phase(f"18. {N_BIG}^3 V(2,2) and Gibbs chains")
+    # level 0 past _PLANE_LIMIT on #9, levels 384^3 .. 12^3 on #7: 4 sweeps each
+    c = phase_v22(torch, big22, {"rb_gibbs_2d_staged": 4, "rb_gibbs_fd": 4 * (len(big_levels) - 2)},
+                  n_time=N_BIG_V22_TIME, n_iact=N_BIG_V22_IACT, n_warm=8, twin=False)
+    cases = (("FD", "forward", "rb_gibbs_2d_staged"), ("FD", "symmetric", "rb_gibbs_2d_staged"),
+             ("streamed", "forward", "rb_gibbs_2d"))
+    g = phase_gibbs(torch, big_op, cases, N_BIG_GIBBS)
+    counts.update(rb_gibbs_2d_staged=c["rb_gibbs_2d_staged"] + g["rb_gibbs_2d_staged"], rb_gibbs_2d=g["rb_gibbs_2d"])
+    del big22, big_op
+    print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 
     meta = (
@@ -1081,6 +1322,10 @@ def main():
          "parmgmc_tpu/kernels/mg_sweep.py:1235"),
         ("fused_zero_gibbs_restrict_fd", "zero_restrict", "zero_restrict",
          "parmgmc_tpu_torch/csrc/chain_march.cu", "parmgmc_tpu/kernels/mg_sweep.py:256"),
+        ("fused_rb_gibbs_sweep_2d_staged", "sweep_2d_staged", "rb_gibbs_2d_staged",
+         "parmgmc_tpu_torch/csrc/sweep_march.cu", "parmgmc_tpu/kernels/rb_gibbs.py:1310"),
+        ("fused_rb_gibbs_sweep_2d", "sweep_2d", "rb_gibbs_2d", "parmgmc_tpu_torch/csrc/sweep_march.cu",
+         "parmgmc_tpu/kernels/rb_gibbs.py:936"),
     )
     check(all(counts[ck] > 0 for _, _, ck, _, _ in meta), f"a kernel was not launched on its path: {counts}")
     print(json.dumps({"kernels": [

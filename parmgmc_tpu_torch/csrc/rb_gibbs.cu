@@ -31,11 +31,12 @@
 // noise for halo cells is recomputed by each block that needs it, and
 // the hash makes those draws identical.  This is the simple first
 // version: the x halo is read 2.5 times through L2, and the loads are
-// not vectorised.
+// not vectorised.  The cell update is sweep.cuh's, shared with the
+// large-plane sweep kernel (sweep_march.cu), so the two agree bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "noise.cuh"
+#include "sweep.cuh"
 
 namespace {
 
@@ -44,46 +45,30 @@ constexpr int X0 = T0 + 4, X1 = T1 + 4, X2 = T2 + 4;  // x window, tile + 2
 constexpr int Y0 = T0 + 2, Y1 = T1 + 2, Y2 = T2 + 2;  // first colour, tile + 1
 constexpr int NT = 256;
 
-struct Coeffs {
-  float c0lo, c0hi, c1lo, c1hi, c2lo, c2hi;
-};
-
-template <bool kStreamD>
-__device__ __forceinline__ float diag_at(const float* __restrict__ d, size_t id,
-                                         int i, int j, int k, int n0, int n1,
-                                         int n2, float kappa2, float hinv2) {
-  if (kStreamD) return d[id];
-  const float links = (float)((i >= 1) + (i <= n0 - 2) + (j >= 1) +
-                              (j <= n1 - 2) + (k >= 1) + (k <= n2 - 2));
-  return kappa2 + hinv2 * links;
-}
-
 // the SOR update of the cell at window index c (global (i, j, k), flat id)
 template <bool kStreamD>
 __device__ __forceinline__ float update(const float* xs, int c, size_t id,
                                         int i, int j, int k, int n0, int n1,
                                         int n2, const float* __restrict__ b,
                                         const float* __restrict__ d,
-                                        const Coeffs& q, float kappa2,
+                                        const pmg::StarCoeffs& q, float kappa2,
                                         float hinv2, float omega, float nscale,
                                         uint32_t prefix, int with_noise) {
-  const float dv = diag_at<kStreamD>(d, id, i, j, k, n0, n1, n2, kappa2, hinv2);
-  float bv = b ? b[id] : 0.f;
-  if (with_noise) bv = bv + nscale * sqrtf(dv) * pmg::eta(prefix, (uint32_t)id);
   constexpr int s1 = X2, s0 = X1 * X2;
-  const float nb = q.c0lo * xs[c - s0] + q.c0hi * xs[c + s0] +
-                   q.c1lo * xs[c - s1] + q.c1hi * xs[c + s1] +
-                   q.c2lo * xs[c - 1] + q.c2hi * xs[c + 1];
-  return (1.f - omega) * xs[c] + (omega / dv) * (bv - nb);
+  return pmg::sor_cell(
+      xs[c], xs[c - s0], xs[c + s0], xs[c - s1], xs[c + s1], xs[c - 1],
+      xs[c + 1], q,
+      pmg::sweep_diag<kStreamD>(d, id, i, j, k, n0, n1, n2, kappa2, hinv2),
+      b ? b[id] : 0.f, omega, nscale, prefix, (uint32_t)id, with_noise);
 }
 
 template <bool kStreamD>
 __global__ void __launch_bounds__(NT)
     rb_gibbs_kernel(const float* __restrict__ x, const float* __restrict__ b,
                     const float* __restrict__ d, float* __restrict__ out,
-                    int n0, int n1, int n2, Coeffs q, float kappa2, float hinv2,
-                    float omega, float nscale, uint32_t prefix, int color0,
-                    int with_noise) {
+                    int n0, int n1, int n2, pmg::StarCoeffs q, float kappa2,
+                    float hinv2, float omega, float nscale, uint32_t prefix,
+                    int color0, int with_noise) {
   __shared__ float xs[X0 * X1 * X2];
   const int g0 = blockIdx.z * T0, g1 = blockIdx.y * T1, g2 = blockIdx.x * T2;
   const int tid = threadIdx.x;
@@ -147,7 +132,7 @@ int pmg_rb_gibbs(const float* x, const float* b, const float* d, float* out,
                  float omega, float nscale, unsigned int prefix, int color0,
                  int with_noise, void* stream) {
   const dim3 grid((n2 + T2 - 1) / T2, (n1 + T1 - 1) / T1, (n0 + T0 - 1) / T0);
-  const Coeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
+  const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   if (d)
     rb_gibbs_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
         x, b, d, out, n0, n1, n2, q, kappa2, hinv2, omega, nscale,

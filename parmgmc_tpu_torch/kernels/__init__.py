@@ -46,11 +46,11 @@ NVCC_FLAGS = (
 
 # output tile of one CUDA block per kernel (T0, T1, T2 in csrc/*.cu); the
 # twins' partial sums use the same tiles, so the loader checks them.  The
-# marching kernel's T0 is its windowed mode's; a staged block takes all
+# marching kernels' T0 is their windowed mode's; a staged block takes all
 # of axis 0
 TILES = {
     "chain": (8, 8, 32), "tail": (8, 8, 32), "rb_gibbs": (8, 8, 32),
-    "chain_march": (16, 32, 32),
+    "chain_march": (16, 32, 32), "sweep_march": (16, 32, 32),
 }
 
 _LOCK = threading.Lock()
@@ -59,17 +59,22 @@ _LIB = None
 # fused_rb_gibbs_sweep_fd, fused_rb_gibbs_sweep, fused_patch_sweep_sqfd (one
 # cooperative launch), fused_patch_sweep_sqfd_streamed (one C call that
 # enqueues a launch per colour), fused_chain_down_2d_staged,
-# fused_chain_down_2d and fused_zero_gibbs_restrict_fd
+# fused_chain_down_2d, fused_zero_gibbs_restrict_fd,
+# fused_rb_gibbs_sweep_2d_staged and fused_rb_gibbs_sweep_2d (either diagonal)
 _LAUNCHES = {
     "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
     "patch_sweep": 0, "patch_sweep_streamed": 0,
     "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
+    "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
+# the full sweeps: (x, b, d, out, n0, n1, n2, six coefficients, kappa2,
+# hinv2, omega, nscale, prefix, color0, with_noise, stream)
+_SWEEP = ([_P] * 4 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I)
 _SIGNATURES = {
     "pmg_chain_down": (
         [_P] * 7 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I,
@@ -78,13 +83,16 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 4 + [_F] * 10 + [_U, _I, _I, _P], _I,
     ),
     "pmg_tail_down": ([_P] * 3 + [_I] * 3 + [_F] * 4 + [_U, _I, _I, _P], _I),
-    "pmg_rb_gibbs": ([_P] * 4 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I),
+    "pmg_rb_gibbs": _SWEEP,
+    "pmg_sweep_march_staged": _SWEEP,
+    "pmg_sweep_march_windowed": _SWEEP,
     "pmg_patch_sweep": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
     "pmg_patch_sweep_streamed": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
     "pmg_chain_tile": ([ctypes.POINTER(_I)], None),
     "pmg_tail_tile": ([ctypes.POINTER(_I)], None),
     "pmg_rb_gibbs_tile": ([ctypes.POINTER(_I)], None),
     "pmg_chain_march_tile": ([ctypes.POINTER(_I)], None),
+    "pmg_sweep_march_tile": ([ctypes.POINTER(_I)], None),
 }
 
 

@@ -17,8 +17,14 @@ row-keyed hardware PRNG has no counterpart.
 
 Both wrappers launch one source, ``csrc/rb_gibbs.cu`` (a template flag
 picks the diagonal's source); its note gives the byte bound and the tile
-design.  The TPU's plane-size dispatch to the 2D-tiled kernels and its
-Mosaic tile gates are not copied: the CUDA tiles take any 3D shape.
+design.  They route as the JAX package routes: a grid whose planes hold
+more than :data:`_PLANE_LIMIT` points goes to
+:func:`fused_rb_gibbs_sweep_2d` (#8), which sends FD calls on to
+:func:`fused_rb_gibbs_sweep_2d_staged` (#9).  Both large-plane kernels are
+launch modes of ``csrc/sweep_march.cu``, which marches column strips down
+axis 0; they compute the same function with the same draws as
+``rb_gibbs.cu``, bit for bit.  The Mosaic tile gates are not copied: the
+CUDA tiles take any 3D shape.
 """
 
 from __future__ import annotations
@@ -33,7 +39,18 @@ __all__ = [
     "fused_rb_gibbs_sweep_fd_reference",
     "fused_rb_gibbs_sweep",
     "fused_rb_gibbs_sweep_reference",
+    "fused_rb_gibbs_sweep_2d",
+    "fused_rb_gibbs_sweep_2d_reference",
+    "fused_rb_gibbs_sweep_2d_staged",
+    "fused_rb_gibbs_sweep_2d_staged_reference",
 ]
+
+# planes above this many points take the large-plane kernels: the sweeps
+# here, and level 0 of the V(1,0) chain in samplers/mgmc.py.  It is the JAX
+# package's rb_gibbs._PLANE_LIMIT, the line where its whole-plane kernels
+# leave VMEM; both routes compute the same function.  A TPU limit, not
+# measured on the H100 (ROADMAP.md slice 2c)
+_PLANE_LIMIT = 448 * 1024
 
 
 def _color0(sweep: str) -> int:
@@ -97,7 +114,10 @@ def fused_rb_gibbs_sweep_reference(
 
 
 def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sweep,
-            with_noise, counter):
+            with_noise, counter, entry="pmg_rb_gibbs"):
+    """Launch the C function ``entry`` (one of the sweep kernels' entry
+    points, which share a signature) on CUDA tensors; count it under
+    ``counter``."""
     if x.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {x.device}")
     color0 = _color0(sweep)
@@ -109,7 +129,7 @@ def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sw
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
-        err = lib.pmg_rb_gibbs(
+        err = getattr(lib, entry)(
             ptr(x), ptr(b), ptr(diag), ptr(out), *x.shape,
             *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _nscale(omega, noise_mult),
@@ -120,6 +140,10 @@ def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sw
     return out
 
 
+def _large_plane(x) -> bool:
+    return x.ndim == 3 and x.shape[1] * x.shape[2] > _PLANE_LIMIT
+
+
 def fused_rb_gibbs_sweep_fd(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult=1.0, *,
     sweep="forward", with_noise=True,
@@ -127,9 +151,16 @@ def fused_rb_gibbs_sweep_fd(
     """x': one stochastic red/black sweep of the link-count FD operator
     (kappa2, hinv2) with off-diagonals ``coeffs``.
 
-    CPU tensors run :func:`fused_rb_gibbs_sweep_fd_reference`; CUDA
-    tensors launch ``csrc/rb_gibbs.cu`` in FD mode (float32, contiguous)
-    or raise."""
+    Planes over :data:`_PLANE_LIMIT` points go to
+    :func:`fused_rb_gibbs_sweep_2d` (#9 for this FD form).  Otherwise CPU
+    tensors run :func:`fused_rb_gibbs_sweep_fd_reference`; CUDA tensors
+    launch ``csrc/rb_gibbs.cu`` in FD mode (float32, contiguous) or
+    raise."""
+    if _large_plane(x):
+        return fused_rb_gibbs_sweep_2d(
+            x, b, None, coeffs, omega, seed, step, noise_mult, sweep=sweep,
+            with_noise=with_noise, fd_params=(kappa2, hinv2),
+        )
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_fd_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
@@ -146,9 +177,16 @@ def fused_rb_gibbs_sweep(
     """x': one stochastic red/black sweep of the star stencil with the
     diagonal field ``diag`` and off-diagonals ``coeffs``.
 
-    CPU tensors run :func:`fused_rb_gibbs_sweep_reference`; CUDA tensors
-    launch ``csrc/rb_gibbs.cu`` in streamed-diagonal mode (float32,
-    contiguous) or raise."""
+    Planes over :data:`_PLANE_LIMIT` points go to
+    :func:`fused_rb_gibbs_sweep_2d` (#8).  Otherwise CPU tensors run
+    :func:`fused_rb_gibbs_sweep_reference`; CUDA tensors launch
+    ``csrc/rb_gibbs.cu`` in streamed-diagonal mode (float32, contiguous)
+    or raise."""
+    if _large_plane(x):
+        return fused_rb_gibbs_sweep_2d(
+            x, b, diag, coeffs, omega, seed, step, noise_mult, sweep=sweep,
+            with_noise=with_noise,
+        )
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_reference(
             x, b, diag, coeffs, omega, seed, step, noise_mult,
@@ -158,3 +196,100 @@ def fused_rb_gibbs_sweep(
         raise ValueError("fused_rb_gibbs_sweep streams the diagonal: diag is required")
     return _launch(x, b, diag, coeffs, 0.0, 0.0, omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs")
+
+
+# -- large planes: the marching sweep kernel (csrc/sweep_march.cu) ------------
+
+
+def _fd_pair(fd_params) -> tuple:
+    return float(fd_params[0]), float(fd_params[1])
+
+
+def fused_rb_gibbs_sweep_2d_reference(
+    x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True, fd_params=None,
+):
+    """Plain-torch twin of :func:`fused_rb_gibbs_sweep_2d` (any device): the
+    function of :func:`fused_rb_gibbs_sweep_fd_reference` when ``fd_params``
+    = (kappa2, hinv2) is given, of :func:`fused_rb_gibbs_sweep_reference`
+    with ``diag`` when not."""
+    if (diag is None) == (fd_params is None):
+        raise ValueError("the 2D sweep takes exactly one of diag and fd_params")
+    _check_args(x, b, diag)
+    if fd_params is None:
+        D = diag
+    else:
+        D = _twin.fd_diag(tuple(x.shape), *_fd_pair(fd_params), x.dtype, x.device)
+    return _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise)
+
+
+def fused_rb_gibbs_sweep_2d_staged_reference(
+    x, b, coeffs, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True, fd_params=None,
+):
+    """Plain-torch twin of :func:`fused_rb_gibbs_sweep_2d_staged` (any
+    device)."""
+    if fd_params is None:
+        raise ValueError("the staged 2D sweep is FD-form only: fd_params is required")
+    return fused_rb_gibbs_sweep_2d_reference(
+        x, b, None, coeffs, omega, seed, step, noise_mult, sweep=sweep,
+        with_noise=with_noise, fd_params=fd_params,
+    )
+
+
+def fused_rb_gibbs_sweep_2d(
+    x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True, fd_params=None, staged=True,
+):
+    """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` (``fd_params`` =
+    (kappa2, hinv2), ``diag`` None) or of :func:`fused_rb_gibbs_sweep`
+    (``diag`` given) for large planes, in windows of 16 planes
+    (``kernels.TILES["sweep_march"][0]``) that each recompute a 2-plane
+    axis-0 halo.
+
+    Port of ``parmgmc_tpu/kernels/rb_gibbs.py::fused_rb_gibbs_sweep_2d``.
+    FD calls go on to :func:`fused_rb_gibbs_sweep_2d_staged`, as the JAX
+    function auto-routes them; the staged kernel takes every 3D shape, so
+    the JAX tile probe has no counterpart.  ``staged=False`` keeps an FD
+    call on the windowed kernel (the JAX ``tile2d=`` call of ``bench.py
+    --selftest-staged``).  CPU tensors run the twin; CUDA tensors launch
+    ``csrc/sweep_march.cu`` (float32, contiguous) or raise."""
+    if (diag is None) == (fd_params is None):
+        raise ValueError("the 2D sweep takes exactly one of diag and fd_params")
+    if fd_params is not None and staged:
+        return fused_rb_gibbs_sweep_2d_staged(
+            x, b, coeffs, omega, seed, step, noise_mult, sweep=sweep,
+            with_noise=with_noise, fd_params=fd_params,
+        )
+    if x.device.type == "cpu":
+        return fused_rb_gibbs_sweep_2d_reference(
+            x, b, diag, coeffs, omega, seed, step, noise_mult, sweep=sweep,
+            with_noise=with_noise, fd_params=fd_params,
+        )
+    kappa2, hinv2 = (0.0, 0.0) if fd_params is None else _fd_pair(fd_params)
+    return _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
+                   sweep, with_noise, "rb_gibbs_2d", "pmg_sweep_march_windowed")
+
+
+def fused_rb_gibbs_sweep_2d_staged(
+    x, b, coeffs, omega, seed, step, noise_mult=1.0, *,
+    sweep="forward", with_noise=True, fd_params=None,
+):
+    """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` with ``fd_params`` =
+    (kappa2, hinv2) for large planes, one block per column strip walking
+    all of axis 0; bit for bit the windowed FD mode of
+    :func:`fused_rb_gibbs_sweep_2d` and #7.
+
+    Port of ``parmgmc_tpu/kernels/rb_gibbs.py::fused_rb_gibbs_sweep_2d_staged``
+    (FD only: raises without ``fd_params``).  CPU tensors run the twin;
+    CUDA tensors launch ``csrc/sweep_march.cu`` (float32, contiguous) or
+    raise."""
+    if fd_params is None:
+        raise ValueError("the staged 2D sweep is FD-form only: fd_params is required")
+    if x.device.type == "cpu":
+        return fused_rb_gibbs_sweep_2d_staged_reference(
+            x, b, coeffs, omega, seed, step, noise_mult, sweep=sweep,
+            with_noise=with_noise, fd_params=fd_params,
+        )
+    return _launch(x, b, None, coeffs, *_fd_pair(fd_params), omega, seed, step, noise_mult,
+                   sweep, with_noise, "rb_gibbs_2d_staged", "pmg_sweep_march_staged")

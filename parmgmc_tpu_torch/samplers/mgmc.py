@@ -15,7 +15,7 @@ Three routes through the same sampler:
   FD levels in float32 -- the chain kernels, routed as the JAX package
   routes its own: level 0 in one
   :func:`~parmgmc_tpu_torch.kernels.mg_sweep.fused_chain_down_fd` launch,
-  or, for planes over ``_PLANE_LIMIT`` points, in
+  or, for planes over ``kernels.rb_gibbs._PLANE_LIMIT`` points, in
   ``fused_chain_down_2d_staged`` (``step_deferred``) or
   ``fused_chain_down_2d`` (``step``); levels 1 .. L-2 in
   :func:`~parmgmc_tpu_torch.kernels.mg_tail.fused_tail_down` from the
@@ -25,7 +25,8 @@ Three routes through the same sampler:
 * ``step(key, x, b)`` on every other cycle -- the general keyed cycle:
   each pre- and post-sweep is the level smoother's keyed ``step`` (one
   full-sweep kernel launch per half-sweep, see
-  :class:`~parmgmc_tpu_torch.samplers.gibbs.GibbsSampler`), residuals,
+  :class:`~parmgmc_tpu_torch.samplers.gibbs.GibbsSampler`; levels whose
+  planes pass ``_PLANE_LIMIT`` take the large-plane sweep kernels), residuals,
   transfers and the coarse sample in plain torch, gamma coarse
   iterations per level.
 
@@ -58,12 +59,6 @@ from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 
 __all__ = ["MGMCSampler", "build_hierarchy"]
-
-# planes above this many points take the large-plane chain kernels at
-# level 0 (the JAX package's rb_gibbs._PLANE_LIMIT, the line where its
-# whole-plane kernels leave VMEM); both routes compute the same function.
-# A TPU limit, not measured on the H100 (ROADMAP.md slice 2c)
-_PLANE_LIMIT = 448 * 1024
 
 
 def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="aggregate"):
@@ -255,10 +250,12 @@ class MGMCSampler:
 
     def _chain_level0_2d(self) -> bool:
         """Does level 0 take the large-plane chain kernels?  A 3D grid the
-        marching kernel takes whose plane is above ``_PLANE_LIMIT`` points
-        (the JAX ``_chain_level0_2d`` without its VMEM probe).  It depends
-        on the shape alone, so step and step_deferred agree."""
+        marching kernel takes whose plane is above
+        ``kernels.rb_gibbs._PLANE_LIMIT`` points (the JAX
+        ``_chain_level0_2d`` without its VMEM probe).  It depends on the
+        shape alone, so step and step_deferred agree."""
         from parmgmc_tpu_torch.kernels.mg_sweep import chain_down_2d_supported
+        from parmgmc_tpu_torch.kernels.rb_gibbs import _PLANE_LIMIT
 
         gs = self.grid_shape
         return chain_down_2d_supported(gs) and gs[1] * gs[2] > _PLANE_LIMIT

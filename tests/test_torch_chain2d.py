@@ -28,7 +28,7 @@ from parmgmc_tpu.operators.stencil import shifted_laplace_fd as jax_shifted_lapl
 from parmgmc_tpu.samplers.mgmc import MGMCSampler as JaxMGMCSampler
 from parmgmc_tpu_torch import convert, keys
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
-from parmgmc_tpu_torch.kernels import mg_sweep, mg_tail
+from parmgmc_tpu_torch.kernels import mg_sweep, mg_tail, rb_gibbs
 from parmgmc_tpu_torch.operators.stencil import fd_stencil
 from parmgmc_tpu_torch.samplers import mgmc
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
@@ -207,7 +207,7 @@ def large_planes(monkeypatch):
     """Small grids count as large planes.  Returns record(**fixed): spy
     on every kernel wrapper (with ``fixed`` keyword arguments) and return
     the list its calls go to."""
-    monkeypatch.setattr(mgmc, "_PLANE_LIMIT", 64)
+    monkeypatch.setattr(rb_gibbs, "_PLANE_LIMIT", 64)
 
     def record(**fixed):
         calls = []

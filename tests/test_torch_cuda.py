@@ -11,7 +11,10 @@ Each kernel against its plain twin at small shapes with ragged tiles
 chain's deferred form bit for bit against the plain form, the launches
 of the general keyed cycle, the keyed Gibbs step and the keyed patch
 chain, the marching kernel's three modes (#5 staged, #4 windowed, #3
-from zero) and their bitwise identities, and the wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+from zero) and their bitwise identities, the marching sweep's two modes
+(#9 staged, #8 windowed with the diagonal rebuilt or streamed) bit for
+bit against each other and the whole-plane sweeps (#7, #6), and the
+wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -39,6 +42,10 @@ from parmgmc_tpu_torch.kernels.patch_sweep import (
 from parmgmc_tpu_torch.models.problems import squared_shifted_laplace_fd
 from parmgmc_tpu_torch.kernels.rb_gibbs import (
     fused_rb_gibbs_sweep,
+    fused_rb_gibbs_sweep_2d,
+    fused_rb_gibbs_sweep_2d_reference,
+    fused_rb_gibbs_sweep_2d_staged,
+    fused_rb_gibbs_sweep_2d_staged_reference,
     fused_rb_gibbs_sweep_fd,
     fused_rb_gibbs_sweep_fd_reference,
     fused_rb_gibbs_sweep_reference,
@@ -172,6 +179,40 @@ def test_sweep_kernels_match_twins(dev, shape):
                        fused_rb_gibbs_sweep_fd(x, zeros, coeffs, 1.0, h, 1.3, 3, 5))
 
 
+@pytest.mark.parametrize("shape", [(12, 66, 34), (37, 40, 70)])
+def test_sweep_march_modes_match_twins(dev, shape):
+    """#9 and #8 (FD and streamed D) against their twins; #9, #8-FD and #7
+    bit for bit, #8-streamed and #6 bit for bit (at these planes the
+    whole-plane wrappers launch #7 and #6)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x, b, f = (torch.randn(*shape, generator=g, device=dev) for _ in range(3))
+    h = float((shape[0] - 1) ** 2)
+    fd = (1.0, h)
+    diag = (shifted_laplace_fd(shape, 1.0, device=dev).diag * (1.5 + 0.5 * torch.tanh(f))).contiguous()
+    coeffs = [-h] * 6
+    for sweep in ("forward", "backward"):
+        for noise in (False, True):
+            for bb in (b, None):
+                kw = dict(sweep=sweep, with_noise=noise)
+                kernels.reset_launch_counts()
+                st = fused_rb_gibbs_sweep_2d_staged(x, bb, coeffs, 1.3, 3, 5, fd_params=fd, **kw)
+                wi = fused_rb_gibbs_sweep_2d(x, bb, None, coeffs, 1.3, 3, 5, fd_params=fd, staged=False, **kw)
+                ws = fused_rb_gibbs_sweep_2d(x, bb, diag, coeffs, 1.3, 3, 5, **kw)
+                counts = kernels.launch_counts()
+                assert counts["rb_gibbs_2d_staged"] == 1 and counts["rb_gibbs_2d"] == 2
+                tol = 1e-4 if noise else 1e-5
+                want = fused_rb_gibbs_sweep_2d_staged_reference(x, bb, coeffs, 1.3, 3, 5, fd_params=fd, **kw)
+                assert _rel(st, want) <= tol, (sweep, noise, bb is None)
+                want = fused_rb_gibbs_sweep_2d_reference(x, bb, diag, coeffs, 1.3, 3, 5, **kw)
+                assert _rel(ws, want) <= tol, (sweep, noise, bb is None)
+                assert torch.equal(st, wi)
+                assert torch.equal(st, fused_rb_gibbs_sweep_fd(x, bb, coeffs, *fd, 1.3, 3, 5, **kw))
+                assert torch.equal(ws, fused_rb_gibbs_sweep(x, bb, diag, coeffs, 1.3, 3, 5, **kw))
+    zeros = torch.zeros_like(x)
+    assert torch.equal(fused_rb_gibbs_sweep_2d_staged(x, None, coeffs, 1.3, 3, 5, fd_params=fd),
+                       fused_rb_gibbs_sweep_2d_staged(x, zeros, coeffs, 1.3, 3, 5, fd_params=fd))
+
+
 @pytest.mark.parametrize("shape", [(11, 12, 13), (16, 10, 128)])
 def test_patch_kernels_match_twin(dev, shape):
     """#10 (cooperative) and #11 (per colour) against the twin, and bit
@@ -261,6 +302,12 @@ def test_wrappers_refuse_bad_cuda_input(dev):
         fused_zero_gibbs_restrict_fd(x[:, :, :31].contiguous(), *args)
     with pytest.raises(ValueError):
         fused_zero_gibbs_restrict_fd(x.transpose(0, 1), *args)
+    with pytest.raises(TypeError):
+        fused_rb_gibbs_sweep_2d_staged(x.double(), None, h, 1.0, 1, 2, fd_params=(1.0, 49.0))
+    with pytest.raises(ValueError):
+        fused_rb_gibbs_sweep_2d_staged(x.transpose(0, 1), None, h, 1.0, 1, 2, fd_params=(1.0, 49.0))
+    with pytest.raises(ValueError):
+        fused_rb_gibbs_sweep_2d(x, None, torch.ones(8, 8, 32), h, 1.0, 1, 2)
     for fn in (fused_patch_sweep_sqfd, fused_patch_sweep_sqfd_streamed):
         with pytest.raises(TypeError):
             fn(x.double(), None, 1.0, 49.0, 1, 2)
