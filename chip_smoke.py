@@ -65,9 +65,10 @@ Phases, in order; any failure raises and exits non-zero:
               sweep (CUDA events) and idle share, host enqueue time per
               sweep, exact launch counts, a finite chain.
 
-13. large-plane kernels -- the marching kernel's three modes, #5 staged
-              and #4 windowed against their twins at (32, 768, 768) and
-              (12, 770, 772) (forward and backward, noise on and off, b given
+13. large-plane kernels -- the marching kernel's three modes, #5 and #4
+              against their twins at (32, 768, 768), (12, 770, 772) and
+              (12, 770, 774) (rows not a multiple of 16 B: the cp.async
+              producer) (forward and backward, noise on and off, b given
               and None with z and the sums; tolerances as phase 3) and bit for
               bit against each other, #3 against its twin at every level of
               the 768^3 hierarchy below 0 and at (8, 10, 128), #3(b) bit for
@@ -75,7 +76,8 @@ Phases, in order; any failure raises and exits non-zero:
               noise) #5 and #4 against their twins (1e-4, partial sums
               elementwise) and against #1 (1e-6); device times (CUDA events)
               of #5, #4, #1 and the twin at 768^3, of #3 per level and of the
-              tail kernel forced over the same levels.
+              tail kernel forced over the same levels; the launch geometry,
+              blocks an SM and waves of each timed launch.
 14. large-plane moments -- bench.py selftest2d's problem ((32, 768, 768),
               kappa = 1, b = 50): the keyed chain (#4 at level 0, #3 below,
               exact launch counts) against the explicit-noise chain, 4000
@@ -87,14 +89,15 @@ Phases, in order; any failure raises and exits non-zero:
               ESS/sec from 2048 steps, var(QOI) N in (0.8, 1.25), exactly one
               #5 and six #3 launches a step and no other kernel, the device
               time of a step by kernel and the idle share.
-16. large-plane sweep kernels -- the marching sweep's two modes, #9 staged
-              and #8 windowed (FD, and streamed D: the FD diagonal times a
-              smooth field in [1, 2]), against their twins at (32, 768, 768),
-              (12, 770, 772) and 768^3 (forward and backward, noise on and off,
+16. large-plane sweep kernels -- the marching sweep's two entries, #9 and
+              #8 (FD, and streamed D: the FD diagonal times a smooth field in
+              [1, 2]), against their twins at (32, 768, 768), (12, 770, 772),
+              (12, 770, 774) and 768^3 (forward and backward, noise on and off,
               b given and None; tolerances as phase 3); #9 == #8 (FD) == #7 and
               #8 (streamed) == #6 bit for bit at each shape (the whole-plane
               kernels forced past the plane limit); device times (CUDA events)
-              of #9, #8 (FD), #7, #8 (streamed), #6 and the twins at 768^3.
+              of #9, #8 (FD), #7, #8 (streamed), #6 and the twins at 768^3; the
+              launch geometry, blocks an SM and waves.
 17. large-plane sweep moments -- phase 7's problems with the plane limit
               patched below their finest plane: V(2,2) (#9 at level 0), Gibbs FD
               symmetric (#9) and Gibbs streamed forward (#8), each against phase
@@ -147,6 +150,8 @@ N_BIG_V22_TIME = 32
 N_BIG_V22_IACT = 512
 N_BIG_GIBBS = 32
 RAGGED_BIG = (12, 770, 772)  # a large plane whose extents the strips do not divide
+# and one whose rows are not a multiple of 16 B: the marching kernels' cp.async producer
+RAGGED_ODD = (12, 770, 774)
 
 # the card's peaks (NVIDIA's H100 SXM data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores
@@ -429,7 +434,7 @@ def phase_moments(torch, dev):
 
     op = shifted_laplace_fd((16, 16, 128), 1.0, device=dev)
     b = torch.full(op.grid_shape, 50.0, device=dev)
-    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128)
+    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
     moments_gate(torch, "V(1,0)", smp, b, N_MOMENTS)
     return smp, b
 
@@ -538,7 +543,8 @@ def moments_problems(torch, dev, b):
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
     op = shifted_laplace_fd((16, 16, 128), 1.0, device=dev)
-    probs = {"V(2,2)": (MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128), b, N_MOMENTS_V22)}
+    probs = {"V(2,2)": (MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128,
+                                                coarsening="aggregate"), b, N_MOMENTS_V22)}
     # Gibbs: kappa^2 = 900 against h^-2 = 225, so a sweep contracts by ~0.4
     op = shifted_laplace_fd((16, 16, 32), 30.0, device=dev)
     bg = torch.full(op.grid_shape, 50.0, device=dev)
@@ -804,6 +810,19 @@ def phase_patch_path(torch, smps):
     return counts
 
 
+def launch_report(label, entry, flags, plan):
+    """Print a marching launch's geometry (kernels/_march.py) and what the
+    card gives it: blocks an SM, shared bytes, waves of block slots."""
+    from parmgmc_tpu_torch import kernels
+
+    occ = kernels.occupancy(entry, *flags)
+    slots = occ["blocks_per_sm"] * occ["sms"]
+    print(f"  {label}: {plan.items} work items of {plan.tile} (+{plan.halo} planes each side), "
+          f"{'TMA' if plan.tma else 'cp.async'}; {occ['blocks_per_sm']} blocks an SM x {occ['sms']} "
+          f"SMs, {occ['smem_bytes']} B shared each: {plan.items / slots:.2f} waves")
+    check(occ["blocks_per_sm"] > 0, f"{label}: the launch fits no block on an SM")
+
+
 def march_bytes(n, with_x, with_b, with_z, nblk=0):
     """Bytes the chain function must move on an n-point grid: each input
     read once, each output (xpy or y, rc, partial sums) written once."""
@@ -824,7 +843,7 @@ def phase_march_kernels(torch, dev, big_smp):
     pairs = ((ms.fused_chain_down_2d_staged, ms.fused_chain_down_2d_staged_reference),
              (ms.fused_chain_down_2d, ms.fused_chain_down_2d_reference))
     worst = 0.0
-    for shape in ((32, N_BIG, N_BIG), RAGGED_BIG):
+    for shape in ((32, N_BIG, N_BIG), RAGGED_BIG, RAGGED_ODD):
         x, b, z = randn(*shape), randn(*shape), randn(*(d // 2 for d in shape))
         hinv2 = float((shape[0] - 1) ** 2)
         args = ([-hinv2] * 6, 1.0, hinv2, 1.0, 1234, 77)
@@ -855,6 +874,8 @@ def phase_march_kernels(torch, dev, big_smp):
             y, rc = ms.fused_zero_gibbs_restrict_fd(b, *args, sweep=sweep)
             y5, rc5 = ms.fused_chain_down_2d_staged(torch.zeros_like(b), b, *args, sweep=sweep)
             check(torch.equal(y, y5) and torch.equal(rc, rc5), f"#3 is not #5 from zero at {shape}")
+        if shape == RAGGED_ODD:
+            launch_report(f"#5, #4 at {shape} (x, z)", "chain_march", (1, 0, 1), ms.chain_plan(shape, with_z=True))
         print(f"  #5 and #4 at {shape}: forward/backward, noise on/off, b given / None with z and sums: "
               f"worst rel {rels[False]:.2e} noise off (tol 1e-05), {rels[True]:.2e} noise on (tol 0.0001); "
               f"#4 == #5 bit for bit, #3(b) == #5(0, b) bit for bit")
@@ -888,6 +909,7 @@ def phase_march_kernels(torch, dev, big_smp):
                 check(torch.equal(got[0], y5) and torch.equal(got[1], rc5), f"#3 is not #5 from zero at {shape}")
         line = f"  #3 at {shape}: worst rel {max(rels):.2e} against the twin; == #5(0, b) bit for bit"
         if sm is not None:
+            launch_report(f"#3 at {shape} (b)", "chain_march", (0, 1, 0), ms.chain_plan(shape))
             t = event_ms(torch, lambda: ms.fused_zero_gibbs_restrict_fd(bl, *args), 20)
             tp = event_ms(torch, lambda: ms.fused_zero_gibbs_restrict_fd_reference(bl, *args), 2)
             npts = bl.numel()
@@ -932,7 +954,9 @@ def phase_march_kernels(torch, dev, big_smp):
         print(f"  768^3 #5 against its twin {name}: rel {r:.2e} abs {d:.2e} (tol 1e-4)")
         check(r <= 1e-4, f"#5 disagrees with its twin at 768^3 in {name}: {r:.3e}")
     # #4's twin is #5's with partial sums per window: the same xpy, re-tiled
-    want4 = (_twin.tile_sums(want[0], ms.MARCH_TILE), _twin.tile_sums(z, tuple(t // 2 for t in ms.MARCH_TILE)))
+    # (both launch in the geometry of chain_plan: the same tiles)
+    tile = ms.chain_plan(shape).tile
+    want4 = (_twin.tile_sums(want[0], tile), _twin.tile_sums(z, tuple(t // 2 for t in tile)))
     scales = (want[0].double().abs().sum().item(), z.double().abs().sum().item())
     del want
     out4 = ms.fused_chain_down_2d(x, None, *args, **kw)
@@ -956,14 +980,14 @@ def phase_march_kernels(torch, dev, big_smp):
         check(d <= 1e-5 * scale, f"#5 {name} total disagrees with #1's at 768^3: {d:.3e}")
     del ref, out5
     n = x.numel()
-    nblk5 = math.prod(-(-d // t) for d, t in zip(shape, (shape[0], *ms.MARCH_TILE[1:])))
-    nblk4 = math.prod(-(-d // t) for d, t in zip(shape, ms.MARCH_TILE))
+    plan = ms.chain_plan(shape, with_z=True)
+    launch_report("768^3 #5, #4 (x, z)", "chain_march", (1, 0, 1), plan)
     times = {}
     for key, fn in (("chain_2d_staged", ms.fused_chain_down_2d_staged), ("chain_2d", ms.fused_chain_down_2d),
                     ("chain_down", ms.fused_chain_down_fd)):
         times[key] = event_ms(torch, lambda: fn(x, None, *args, **kw), 10)
-    for key, nblk in (("chain_2d_staged", nblk5), ("chain_2d", nblk4)):
-        bms, by = bound(march_bytes(n, True, False, True, nblk), FLOPS_CHAIN * n)
+    for key in ("chain_2d_staged", "chain_2d"):
+        bms, by = bound(march_bytes(n, True, False, True, plan.items), FLOPS_CHAIN * n)
         rec[key] = dict(max_abs_err=max(worst, *errs), ms=times[key], plain_ms=plain, bound_ms=bms, bound_by=by,
                         library_ms=None)
     print(f"  768^3 (b=None, z, sums, noise): #5 {times['chain_2d_staged']:.4f} ms, "
@@ -983,7 +1007,7 @@ def phase_moments_2d(torch, dev):
 
     op = shifted_laplace_fd((32, N_BIG, N_BIG), 1.0, device=dev)
     b = torch.full(op.grid_shape, 50.0, device=dev)
-    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128)
+    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
     levels = [tuple(o.grid_shape) for o in smp.ops]
     print(f"  levels {levels}")
     check(smp._chain_level0_2d() and smp.deferred_eligible(),
@@ -1035,7 +1059,7 @@ def phase_sweep2d_kernels(torch, dev, big22):
 
     s0 = big22.smoothers[0]
     worst = {"staged": 0.0, "windowed": 0.0}
-    for shape in ((32, N_BIG, N_BIG), RAGGED_BIG, (N_BIG,) * 3):
+    for shape in ((32, N_BIG, N_BIG), RAGGED_BIG, RAGGED_ODD, (N_BIG,) * 3):
         big = shape == (N_BIG,) * 3
         x, b = randn(*shape), randn(*shape)
         if big:  # the 768^3 V(2,2) level-0 smoother's coefficients
@@ -1086,7 +1110,11 @@ def phase_sweep2d_kernels(torch, dev, big22):
               f"forward/backward, noise on/off, b given/None: worst rel {rels[False]:.2e} noise off "
               f"(tol 1e-05), {rels[True]:.2e} noise on (tol 0.0001); #9 == #8 (FD) == #7 and "
               f"#8 (streamed) == #6 bit for bit")
+        if shape == RAGGED_ODD:
+            launch_report(f"#9 at {shape} (b)", "sweep_march", (1, 0), rg.sweep_plan(shape))
         if big:
+            launch_report(f"{N_BIG}^3 #9, #8 FD (b)", "sweep_march", (1, 0), rg.sweep_plan(shape))
+            launch_report(f"{N_BIG}^3 #8 (streamed D, b = None)", "sweep_march", (0, 1), rg.sweep_plan(shape))
             n = x.numel()
             args = (coeffs, omega, 1234, 77)
             t = {"#9": event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_2d_staged(x, b, *args, fd_params=fd), 10),
@@ -1153,7 +1181,7 @@ def phase_sweep2d_moments(torch, dev, b, gates):
         print(f"  {label}: mean and variance bit for bit phase 7's kernel chain")
 
     op = shifted_laplace_fd((32, N_BIG, N_BIG), 1.0, device=dev)
-    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128)
+    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128, coarsening="aggregate")
     bb = torch.full(op.grid_shape, 50.0, device=dev)
     levels = [tuple(o.grid_shape) for o in smp.ops]
     st = init_chain(smp, 5)
@@ -1219,7 +1247,7 @@ def main():
 
     t0 = time.perf_counter()
     op = gmrf_3d(N_MAIN, kappa=1.0)
-    main_smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128)
+    main_smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
     v22_smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=128, coarsening="aggregate")
     check(op.device.type == "cuda", f"gmrf_3d with no device argument is on {op.device}")
     print(f"  main sampler levels {[o.grid_shape for o in main_smp.ops]} "
@@ -1264,7 +1292,7 @@ def main():
 
     t0 = time.perf_counter()
     big_op = gmrf_3d(N_BIG, kappa=1.0)
-    big_smp = MGMCSampler.create(big_op, n_pre=1, n_post=0, coarsest_size=128)
+    big_smp = MGMCSampler.create(big_op, n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
     big_levels = [tuple(o.grid_shape) for o in big_smp.ops]
     print(f"  {N_BIG}^3 sampler levels {big_levels} (setup {time.perf_counter() - t0:.2f} s)")
     check(big_smp._chain_level0_2d() and not any(big_smp._tail_fused_eligible(l) for l in range(1, len(big_levels))),
@@ -1285,7 +1313,7 @@ def main():
     counts.update({k: c[k] for k in ("chain_2d_staged", "zero_restrict")})
     del big_smp
 
-    big22 = MGMCSampler.create(big_op, n_pre=2, n_post=2, coarsest_size=128)
+    big22 = MGMCSampler.create(big_op, n_pre=2, n_post=2, coarsest_size=128, coarsening="aggregate")
     check([tuple(o.grid_shape) for o in big22.ops] == big_levels, "the 768^3 V(2,2) hierarchy differs")
     phase("16. large-plane sweep kernels against their twins")
     rec.update(phase_sweep2d_kernels(torch, dev, big22))

@@ -1,15 +1,17 @@
 // MGMC down-phase of one level by plane marching, one launch.
 //
 // Replaces three Pallas kernels of parmgmc_tpu/kernels/mg_sweep.py with
-// one body in three launch modes:
+// one body, each with its own entry mode, wrapper and launch counter:
 //
-//   fused_chain_down_2d_staged  (#5)  one block per (T1, T2) column strip
-//                                     walks all of axis 0;
-//   fused_chain_down_2d         (#4)  the same body over windows of T0
-//                                     planes, each block recomputing a
-//                                     3-plane axis-0 halo;
-//   fused_zero_gibbs_restrict_fd (#3) the windowed launch with no x
-//                                     stream: the level's cycle from zero.
+//   fused_chain_down_2d_staged  (#5)  the chain's level 0 (deferred chain);
+//   fused_chain_down_2d         (#4)  the same function (sample_chain);
+//   fused_zero_gibbs_restrict_fd (#3) no x stream: the level's cycle from
+//                                     zero.
+//
+// The three share one launch geometry (kernels/_march.py, plan): a work
+// item is a (T1, T2) column strip over a segment of t0 planes of axis 0
+// (t0 even, so an aggregate's two planes stay in one segment), one block
+// each, recomputing a 3-plane axis-0 halo on each side.
 //
 // For the chain state x = x_in + P z (x_in == nullptr: x = 0; z optional,
 // compact (N0/2, N1/2, N2/2), P the 2x2x2 aggregate prolongation) it
@@ -21,54 +23,98 @@
 //   xpy  = x + y
 //   rc   = 2x2x2 aggregate sum of (r - A y)       (N0/2, N1/2, N2/2)
 //
-// plus optional per-block partial sums of xpy (xsum) and of z (zsum),
-// each block summing in a fixed order.  Every grid point is computed by
-// the same instructions in every mode, so #4 equals #5 bit for bit and
+// plus optional partial sums of xpy (xsum) and of z (zsum), one slot per
+// work item, each summed in a fixed order.  Every grid point is computed
+// by the same instructions in every mode, so #4 equals #5 bit for bit and
 // #3(b) equals #5(x = 0, b).
 //
-// What bounds it on an H100: device memory.  At 768^3 the chain (#5,
-// b = None, z) reads x (1.81 GB) and z (0.23 GB) and writes xpy and rc
-// (2.04 GB): ~1.2 ms at 3.35 TB/s.
+// What bounds it on an H100: device memory by the count, instruction
+// issue in fact.  At 768^3 the chain (#5, b = None, z) reads x (1.81 GB)
+// and z (0.23 GB) and writes xpy and rc (2.04 GB): 1.22 ms at 3.35 TB/s.
+// Each cell costs 79 float operations (0.53 ms at 67 TFLOP/s) plus the
+// noise hash's integer work, two mix rounds of ~10 integer operations
+// each (noise.cuh), at half the float rate (~0.3 ms); counted in issued
+// instructions (the draw ~70, A x and A y, the colour-1 update, the
+// bookkeeping; 1.2 draws a strip cell for the halo) it is ~3 ms at the
+// SMs' 4 warp-instructions a clock.
 //
-// Design.  The TPU kernels stream column strips down axis 0 to keep the
-// working set in VMEM; here the same 2.5D marching keeps it in shared
-// memory.  A block owns a (T1, T2) strip of the plane, aligned to the
-// aggregates, and one thread owns one 2x2 in-plane aggregate column.
-// The block marches along axis 0 with rolling rings of planes: at step s
-// it loads x (+ P z) of plane s on the strip + 3 ring, forms r~ of plane
-// s - 1 on the strip + 2 ring and applies the colour-0 phase (it needs x
-// at s - 2 .. s), runs the colour-1 phase of plane s - 2 on the strip + 1
-// ring (it needs the colour-0 values at s - 3 .. s - 1), and emits xpy
-// and A y of plane s - 3 on the strip (y at s - 4 .. s - 2, x at s - 4 ..
-// s - 2).  Each thread keeps the residual of an even plane in registers
-// and writes rc once the odd plane after it is done.  The in-plane halo
-// is recomputed by the neighbouring strips (x loads are (T1+6)(T2+6) /
-// (T1 T2) = 1.41x the strip at 32 x 32); along axis 0 nothing is
-// recomputed in the staged mode, 6 planes per window in the windowed
-// one.  The noise hash makes every recomputed draw identical.  Each
-// thread loads the next x plane into registers while the block computes
-// the current one, and D, omega / D and nscale sqrt(D) come from 7-entry
-// tables (one per link count) instead of a division and a square root a
-// cell.  Still simple: no TMA, four block barriers a plane.
+// Design (csrc/march.cuh).  Loads issued by the computing threads stall
+// their phase, and whole-axis strips (576 at 768^3) leave a partial last
+// wave of block slots.  So one producer warp streams x
+// (38 x 40 boxes, strip + 3), z (20 x 24 boxes) and b (36 x 40, strip +
+// 2) into rings of shared-memory stages (7 x, 3 z, 5 b planes) with TMA,
+// or with cp.async where a row stride is not a multiple of 16 B; each
+// stage completes on an mbarrier.  4,608 work items at 768^3 fill 3
+// blocks an SM in 11.6 waves.  Eight consumer warps run at step s:
+// (2) r~ of plane s - 1 on the strip + 1 and the colour-0 cells of the
+// ring around it, colour-0 phase applied, into a ring of 5 planes: a warp
+// a row and a lane a column of the strip's own columns (no division, no
+// bank conflict), the side columns and the ring in the batch that the
+// warps with one row fewer have free, 5 cells a thread whose draws the
+// compiler interleaves; barrier; (3) the colour-1 phase of plane s - 2 in
+// place on the strip + 1, colour-1 cells only (it reads only colour-0
+// neighbours, which it does not write), and x + P z of plane s + 1 added
+// in place into its x stage, 4 cells a float4; barrier; (4) xpy and A y
+// of plane s - 3 on the strip, a lane a column of two row pairs, r - A y
+// restricted once both planes of an aggregate are done (the even
+// plane's value kept in registers, the aggregate's column pair added
+// with a shuffle, in the order AggregateTransfer.restrict adds).  The two
+// barriers are the two true dependencies (colour 1 needs colour-0 values,
+// A y needs y, from other threads); the rings are deep enough that no
+// other barrier guards a slot.  z is read once, into its stage: zsum is
+// taken there.  The x stream and the noise are template flags, a block
+// inside the grid skips the link counts and bound tests, and the draw's
+// square root has no branch (noise.cuh), so the batches have none.  The
+// in-plane halo is recomputed by the neighbouring strips; the axis-0 halo
+// costs 6 x planes a segment (6 % at 96 planes).  D, omega / D and nscale
+// sqrt(D) come from 7-entry tables (one per link count) instead of a
+// division and a square root a cell.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "march.cuh"
 #include "noise.cuh"
 
 namespace {
 
-constexpr int T0 = 16;                 // windowed mode: planes per block
-constexpr int T1 = 32, T2 = 32;        // strip; kernels.TILES["chain_march"]
-constexpr int X1 = T1 + 6, X2 = T2 + 6;  // x (+ P z) ring, strip + 3
-constexpr int R1 = T1 + 4, R2 = T2 + 4;  // r~ after the colour-0 phase, + 2
-constexpr int Y1 = T1 + 2, Y2 = T2 + 2;  // y, strip + 1
-// planes held in each ring: x at s - 5 .. s (step 4 still reads s - 4
-// while a thread past it stores s + 1), r~ at s - 3 .. s - 1, y at s - 4 .. s - 2
-constexpr int NX = 6, NR = 3, NY = 3;
-constexpr int NT = (T1 / 2) * (T2 / 2);  // one thread per aggregate column
-constexpr int XPT = (X1 * X2 + NT - 1) / NT;  // x ring values a thread loads
-constexpr int SMEM_BYTES =
-    (NX * X1 * X2 + NR * R1 * R2 + NY * Y1 * Y2) * (int)sizeof(float);
+constexpr int HALO = 3;                   // axis-0 halo planes of a segment
+constexpr int T1 = 32, T2 = 32;           // strip; kernels.TILES["chain_march"]
+// TMA boxes start on a 16-B column (k % 4 == 0): x on the strip + 3 rows
+// at (g1-3, g2-4), b on the strip + 2 rows at (g1-2, g2-4), both 40
+// columns wide; z at (g1/2-2, g2/2-4), 24 wide
+constexpr int X1 = T1 + 6, X2 = T2 + 8;
+constexpr int B1 = T1 + 4, B2 = T2 + 8;
+constexpr int Z1 = T1 / 2 + 4, Z2 = T2 / 2 + 8;
+constexpr int R1 = T1 + 4, R2 = T2 + 4;  // r~ / y ring, strip + 2, at (g1-2, g2-2)
+constexpr int XSF = pmg::stage_floats(X1, X2), ZSF = pmg::stage_floats(Z1, Z2);
+constexpr int BSF = pmg::stage_floats(B1, B2), VSF = R1 * R2;
+// x planes s - 4 .. s + 1 in use at step s and one in flight; r~/y
+// planes s - 5 .. s - 1 (step s + 1 writes the slot of s - 5 after the
+// first barrier of step s + 1, which follows its last reader); b planes
+// s - 3 .. s - 1 and two in flight; z planes of x s - 4 .. s + 1
+constexpr int NX = 7, NV = 5, NB = 5, NZ = 3;
+constexpr int NCONS = (T1 / 2) * (T2 / 2);  // one thread per aggregate column
+constexpr int NT = NCONS + 32;              // 8 consumer warps, 1 producer
+// cells of r~ a step: the strip + 1 and the ring's colour-0 cells, as
+// CORE_ROWS rows of the strip's T2 columns (a warp a row, a lane a column)
+// and EXTRA_CELLS more; a consumer thread takes R_PER_THREAD of them.  Of
+// the colour-1 phase: the strip + 1's colour-1 cells
+constexpr int NWARPS = NCONS / 32;
+constexpr int CORE_ROWS = R1 - 2;
+constexpr int EXTRA_CELLS = 2 * (R1 - 2) + R1 + R2 - 2;
+constexpr int R_PER_THREAD = (CORE_ROWS + NWARPS - 1) / NWARPS;
+static_assert(T2 == 32, "a lane a column of the strip");
+static_assert((NWARPS - CORE_ROWS % NWARPS) * 32 >= EXTRA_CELLS &&
+                  CORE_ROWS % NWARPS != 0 && CORE_ROWS / NWARPS + 1 == R_PER_THREAD,
+              "the extra cells fill the last batch of the warps with one row fewer");
+constexpr int Y_PER_THREAD = ((R1 - 2) * ((R2 - 2) / 2) + NCONS - 1) / NCONS;
+
+int smem_bytes(bool has_x, bool has_b, bool has_z) {
+  return (NX * XSF * has_x + NZ * ZSF * has_z + NB * BSF * has_b + NV * VSF) *
+         (int)sizeof(float);
+}
 
 struct Coeffs {
   float c0lo, c0hi, c1lo, c1hi, c2lo, c2hi;
@@ -76,59 +122,62 @@ struct Coeffs {
 
 // in-grid link count of a cell: D = kappa2 + hinv2 * links takes one of 7
 // values, so D, omega / D and nscale * sqrt(D) come from per-block tables
-__device__ __forceinline__ int links_at(int i, int j, int k, int n0, int n1,
-                                        int n2) {
-  return (i >= 1) + (i <= n0 - 2) + (j >= 1) + (j <= n1 - 2) + (k >= 1) +
-         (k <= n2 - 2);
+__device__ __forceinline__ int links_at(int i, int j, int k, int n0, int n1, int n2) {
+  return (i >= 1) + (i <= n0 - 2) + (j >= 1) + (j <= n1 - 2) + (k >= 1) + (k <= n2 - 2);
 }
 
 // off-diagonal star sum at in-plane cell c of plane ring entries lo (i-1),
 // mid (i), hi (i+1) with row stride s1; cells outside the grid hold 0
-__device__ __forceinline__ float neigh(const float* lo, const float* mid,
-                                       const float* hi, int c, int s1,
-                                       const Coeffs& q) {
-  return q.c0lo * lo[c] + q.c0hi * hi[c] + q.c1lo * mid[c - s1] +
-         q.c1hi * mid[c + s1] + q.c2lo * mid[c - 1] + q.c2hi * mid[c + 1];
+__device__ __forceinline__ float neigh(const float* lo, const float* mid, const float* hi,
+                                       int c, int s1, const Coeffs& q) {
+  return q.c0lo * lo[c] + q.c0hi * hi[c] + q.c1lo * mid[c - s1] + q.c1hi * mid[c + s1] +
+         q.c2lo * mid[c - 1] + q.c2hi * mid[c + 1];
 }
 
-// ring slot of plane i (i >= -3)
-template <int N>
-__device__ __forceinline__ int slot(int i) {
-  return (i + 3) % N;
-}
-
-// deterministic block sum (fixed shuffle tree, then warp 0)
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// deterministic sum over the consumer threads (fixed shuffle tree, then
+// warp 0); the result is valid in thread 0
+__device__ __forceinline__ float consumer_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) red[warp] = v;
-  __syncthreads();
+  pmg::consumer_sync<NCONS>();
   float s = 0.f;
   if (warp == 0) {
-    s = lane < NT / 32 ? red[lane] : 0.f;
+    s = lane < NCONS / 32 ? red[lane] : 0.f;
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
   }
-  __syncthreads();
+  pmg::consumer_sync<NCONS>();
   return s;
 }
 
+// kX: an x stream (else x = 0: #3); kNoise: the noise draw.  Both are
+// template flags so the per-cell batches compile without branches
+template <bool kX, bool kNoise>
 __global__ void __launch_bounds__(NT, 3)
     chain_march_kernel(const float* __restrict__ x, const float* __restrict__ b,
                        const float* __restrict__ z, float* __restrict__ xpy,
                        float* __restrict__ rc, float* __restrict__ xsum,
-                       float* __restrict__ zsum, int n0, int n1, int n2,
-                       int t0, Coeffs q, float kappa2, float hinv2,
-                       float omega, float nscale, uint32_t prefix, int color0,
-                       int with_noise) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  float* xs = smem;                      // NX planes of (X1, X2)
-  float* vs = xs + NX * X1 * X2;         // NR planes of (R1, R2)
-  float* ys = vs + NR * R1 * R2;         // NY planes of (Y1, Y2)
-  __shared__ float red[NT / 32];
+                       float* __restrict__ zsum, int n0, int n1, int n2, int t0, int use_tma,
+                       Coeffs q, float kappa2, float hinv2, float omega, float nscale,
+                       uint32_t prefix, int color0,
+                       const __grid_constant__ CUtensorMap mx,
+                       const __grid_constant__ CUtensorMap mb,
+                       const __grid_constant__ CUtensorMap mz) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ pmg::Ring<NX> rx;
+  __shared__ pmg::Ring<NB> rb;
+  __shared__ pmg::Ring<NZ> rz;
+  __shared__ float red[NCONS / 32];
   // per link count: D, omega / D, nscale * sqrt(D) (csrc/chain_down.cu's
   // per-cell float operations, evaluated once per link count)
   __shared__ float dtab[7], wtab[7], ntab[7];
+  constexpr bool has_x = kX;
+  const bool has_b = b != nullptr, has_z = z != nullptr;
+  float* xs = smem;                         // NX planes of (X1, X2)
+  float* zs = xs + NX * XSF * has_x;        // NZ planes of (Z1, Z2)
+  float* bs = zs + NZ * ZSF * has_z;        // NB planes of (B1, B2)
+  float* vs = bs + NB * BSF * has_b;        // NV planes of (R1, R2)
+  const int tid = threadIdx.x;
   if (tid < 7) {
     const float d = kappa2 + hinv2 * (float)tid;
     dtab[tid] = d;
@@ -137,149 +186,312 @@ __global__ void __launch_bounds__(NT, 3)
   }
   const int g1 = blockIdx.y * T1, g2 = blockIdx.x * T2;
   const int o_lo = blockIdx.z * t0, o_hi = min(o_lo + t0, n0);
-  const int m1 = n1 >> 1, m2 = n2 >> 1;
+  const int first = o_lo - HALO, last = o_hi + HALO - 1;  // x planes streamed
+  const int bfirst = o_lo - 2;                            // b planes o_lo - 2 .. o_hi + 1
+  const int m0 = n0 >> 1, m1 = n1 >> 1, m2 = n2 >> 1;
+  if (tid == 0) {
+    rx.init(use_tma ? 1 : 32, NCONS / 32);
+    rb.init(use_tma ? 1 : 32, NCONS / 32);
+    rz.init(use_tma ? 1 : 32, NCONS / 32);
+    pmg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= NCONS) {
+    // producer warp, in plane order: x plane p, the z plane it first
+    // needs, and b plane p
+    const int lane = tid - NCONS;
+    for (int p = first; p <= last; ++p) {
+      if (has_x) {
+        const int ux = p - first;
+        rx.wait_empty(ux);
+        float* dst = xs + (ux % NX) * XSF;
+        uint64_t* bar = &rx.full[ux % NX];
+        if (use_tma) {
+          if (lane == 0) {
+            pmg::mbar_expect_tx(bar, X1 * X2 * 4);
+            pmg::tma_load_3d(dst, &mx, bar, g2 - 4, g1 - 3, p);
+          }
+        } else {
+          pmg::cpasync_box(dst, x, X1, X2, g2 - 4, g1 - 3, p, n0, n1, n2, lane);
+          pmg::cpasync_arrive(bar);
+        }
+        if (has_z && (p == first || (p & 1) == 0)) {
+          const int uz = (p >> 1) - (first >> 1);
+          rz.wait_empty(uz);
+          float* zdst = zs + (uz % NZ) * ZSF;
+          uint64_t* zbar = &rz.full[uz % NZ];
+          if (use_tma) {
+            if (lane == 0) {
+              pmg::mbar_expect_tx(zbar, Z1 * Z2 * 4);
+              pmg::tma_load_3d(zdst, &mz, zbar, (g2 >> 1) - 4, (g1 >> 1) - 2, p >> 1);
+            }
+          } else {
+            pmg::cpasync_box(zdst, z, Z1, Z2, (g2 >> 1) - 4, (g1 >> 1) - 2, p >> 1, m0, m1, m2,
+                             lane);
+            pmg::cpasync_arrive(zbar);
+          }
+        }
+      }
+      if (has_b && p >= bfirst && p <= o_hi + 1) {
+        const int ub = p - bfirst;
+        rb.wait_empty(ub);
+        float* dst = bs + (ub % NB) * BSF;
+        uint64_t* bar = &rb.full[ub % NB];
+        if (use_tma) {
+          if (lane == 0) {
+            pmg::mbar_expect_tx(bar, B1 * B2 * 4);
+            pmg::tma_load_3d(dst, &mb, bar, g2 - 4, g1 - 2, p);
+          }
+        } else {
+          pmg::cpasync_box(dst, b, B1, B2, g2 - 4, g1 - 2, p, n0, n1, n2, lane);
+          pmg::cpasync_arrive(bar);
+        }
+      }
+    }
+    if (!use_tma) pmg::cpasync_wait_all();
+    return;
+  }
+
+  __builtin_assume(tid < NCONS);
+  const int lane = tid & 31, warp = tid >> 5;
+  // zsum: one aggregate column a thread
   const int cj = tid / (T2 / 2), ck = tid % (T2 / 2);
-  const int j0 = g1 + 2 * cj, k0 = g2 + 2 * ck;
-  const bool owner = j0 < n1 && k0 < n2;  // even extents: whole aggregate
-  float reven[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  const bool owner = g1 + 2 * cj < n1 && g2 + 2 * ck < n2;  // even extents: whole aggregate
+  // every row and column the block computes on (the strip + 2) is inside
+  // the grid and has both in-plane links
+  const bool inner = g1 >= 3 && g1 + T1 + 3 <= n1 && g2 >= 3 && g2 + T2 + 3 <= n2;
+  float reven[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // phase 4: r of the even plane
   float xacc = 0.f, zacc = 0.f;
+  auto xplane = [&](int p) { return xs + ((p - first) % NX) * XSF; };
+  auto vplane = [&](int i) { return vs + ((i - bfirst) % NV) * VSF; };
+  auto bplane = [&](int i) { return bs + ((i - bfirst) % NB) * BSF; };
 
-  // x (+ P z) of one plane on the strip + 3 ring, XPT values a thread, in
-  // registers: plane s + 1 is loaded while plane s is being computed
-  float xr[XPT];
-  auto fetch = [&](int i) {
-    const bool in0 = x != nullptr && i >= 0 && i < n0;
-#pragma unroll
-    for (int u = 0; u < XPT; ++u) {
-      const int t = tid + u * NT;
-      const int j = g1 + t / X2 - 3, k = g2 + t % X2 - 3;
-      float v = 0.f;
-      if (in0 && t < X1 * X2 && j >= 0 && j < n1 && k >= 0 && k < n2) {
-        v = x[((size_t)i * n1 + j) * n2 + k];
-        if (z) v += z[((size_t)(i >> 1) * m1 + (j >> 1)) * m2 + (k >> 1)];
-      }
-      xr[u] = v;
+  // x + P z of plane p in place in its stage (zero outside the grid, as
+  // both boxes are); zsum over the segment's own z planes
+  auto prep = [&](int p) {
+    rx.wait_full(p - first);
+    if (!has_z) return;
+    const int uz = (p >> 1) - (first >> 1);
+    rz.wait_full(uz);
+    float* xp = xplane(p);
+    const float* zp = zs + (uz % NZ) * ZSF;
+    const int zj = (g1 >> 1) - 2;
+    // 4 x cells (16 B) share 2 z cells: the box starts on a 4-column
+    // boundary, z's on a 2-column one (column g2/2 - 4 holds k = g2 - 8)
+    for (int t = tid; t < X1 * (X2 / 4); t += NCONS) {
+      const int a1 = t / (X2 / 4), q4 = t % (X2 / 4);
+      float4* xv = reinterpret_cast<float4*>(xp + a1 * X2) + q4;
+      const float2 zv =
+          *reinterpret_cast<const float2*>(zp + (((g1 - 3 + a1) >> 1) - zj) * Z2 + 2 + 2 * q4);
+      float4 w = *xv;
+      w.x += zv.x;
+      w.y += zv.x;
+      w.z += zv.y;
+      w.w += zv.y;
+      *xv = w;
     }
+    if (owner && (p & 1) == 0 && p >= o_lo && p < o_hi) zacc += zp[(cj + 2) * Z2 + (ck + 4)];
+    if ((p & 1) || p == last) rz.release(uz);
   };
-  fetch(o_lo - 3);
+  if (has_x) {
+    for (int p = first; p < o_lo; ++p) prep(p);
+    pmg::consumer_sync<NCONS>();
+  }
 
-  for (int s = o_lo - 3; s <= o_hi + 2; ++s) {
-    // 1. plane s into the x ring (zero outside the grid); fetch plane s + 1
-    {
-      float* xp = xs + slot<NX>(s) * (X1 * X2);
-#pragma unroll
-      for (int u = 0; u < XPT; ++u) {
-        const int t = tid + u * NT;
-        if (t < X1 * X2) xp[t] = xr[u];
-      }
-      if (s < o_hi + 2) fetch(s + 1);
-    }
-    __syncthreads();
-
-    // 2. r~ = (b - A x) + noise of plane s - 1 on the strip + 2 ring; the
+  for (int s = o_lo - 1; s <= o_hi + 2; ++s) {
+    // 2. r~ = (b - A x) + noise of plane s - 1 on the strip + 2; the
     //    colour-0 phase from zero in place
-    if (s - 1 >= o_lo - 2) {
+    {
       const int i = s - 1;
-      const float* xl = xs + slot<NX>(i - 1) * (X1 * X2);
-      const float* xm = xs + slot<NX>(i) * (X1 * X2);
-      const float* xh = xs + slot<NX>(i + 1) * (X1 * X2);
-      float* vp = vs + slot<NR>(i) * (R1 * R2);
+      const float* xl = has_x ? xplane(i - 1) : nullptr;
+      const float* xm = has_x ? xplane(i) : nullptr;
+      const float* xh = has_x ? xplane(i + 1) : nullptr;
+      if (has_x) rx.wait_full(s - first);
+      if (has_b) rb.wait_full(i - bfirst);
+      const float* bp = has_b ? bplane(i) : nullptr;
+      float* vp = vplane(i);
       const bool in0 = i >= 0 && i < n0;
-      for (int t = tid; t < R1 * R2; t += NT) {
-        const int a1 = t / R2, a2 = t % R2;
-        const int j = g1 + a1 - 2, k = g2 + a2 - 2;
-        float v = 0.f;
-        if (in0 && j >= 0 && j < n1 && k >= 0 && k < n2) {
-          const int c = (a1 + 1) * X2 + (a2 + 1);
-          const size_t id = ((size_t)i * n1 + j) * n2 + k;
-          const int l = links_at(i, j, k, n0, n1, n2);
-          const float ax = dtab[l] * xm[c] + neigh(xl, xm, xh, c, X2, q);
-          v = (b ? b[id] : 0.f) - ax;
-          if (with_noise) v = v + ntab[l] * pmg::eta(prefix, (uint32_t)id);
-          if (((i + j + k) & 1) == color0) v = wtab[l] * v;
+      // the strip + 1, and the colour-0 cells of the ring around it (its
+      // colour-1 cells have no reader); v computed for all first, then
+      // stored, so the batch's noise draws overlap
+      // F: every cell the step touches is inside the grid with 6 links
+      const auto run = [&](auto tag) {
+        constexpr bool F = decltype(tag)::value;
+        const float d6 = dtab[6], n6 = ntab[6], w6 = wtab[6];  // F: every cell's
+        float v[R_PER_THREAD];
+        int at[R_PER_THREAD];
+#pragma unroll
+        for (int u = 0; u < R_PER_THREAD; ++u) {
+          at[u] = -1;
+          v[u] = 0.f;
+          int a1, a2;
+          if (u < CORE_ROWS / NWARPS || warp < CORE_ROWS % NWARPS) {
+            // the strip's own columns on the strip + 1 rows: warp = row,
+            // lane = column
+            a1 = 1 + warp + NWARPS * u;
+            a2 = 2 + lane;
+          } else {
+            // the rest, one cell a lane of the remaining warps: the strip +
+            // 1's two side columns, then the ring's colour-0 cells
+            const int e = (warp - CORE_ROWS % NWARPS) * 32 + lane;
+            if (e >= EXTRA_CELLS) continue;
+            if (e < 2 * (R1 - 2)) {
+              a2 = e < R1 - 2 ? 1 : R2 - 2;
+              a1 = 1 + e % (R1 - 2);
+            } else if (e < 2 * (R1 - 2) + R2) {  // rows 0 and R1 - 1
+              const int r = e - 2 * (R1 - 2);
+              a1 = r < R2 / 2 ? 0 : R1 - 1;
+              a2 = 2 * (r % (R2 / 2)) + ((color0 ^ (i + g1 + g2 + a1)) & 1);
+            } else {                             // columns 0 and R2 - 1
+              const int r = e - 2 * (R1 - 2) - R2;
+              a2 = r < (R1 - 2) / 2 ? 0 : R2 - 1;
+              a1 = 1 + 2 * (r % ((R1 - 2) / 2)) + ((1 ^ color0 ^ (i + g1 + g2 + a2)) & 1);
+            }
+          }
+          const int j = g1 + a1 - 2, k = g2 + a2 - 2;
+          at[u] = a1 * R2 + a2;
+          if (F || (in0 && j >= 0 && j < n1 && k >= 0 && k < n2)) {
+            const uint32_t id = ((uint32_t)i * n1 + j) * n2 + k;  // the noise counter
+            const int l = F ? 6 : links_at(i, j, k, n0, n1, n2);
+            float ax = 0.f;
+            if (has_x) {
+              const int c = (a1 + 1) * X2 + (a2 + 2);
+              ax = (F ? d6 : dtab[l]) * xm[c] + neigh(xl, xm, xh, c, X2, q);
+            }
+            float r = (has_b ? bp[a1 * B2 + (a2 + 2)] : 0.f) - ax;
+            if (kNoise) r = r + (F ? n6 : ntab[l]) * pmg::eta<true>(prefix, id);
+            if (((i + j + k) & 1) == color0) r = (F ? w6 : wtab[l]) * r;
+            v[u] = r;
+          }
         }
-        vp[t] = v;
-      }
+#pragma unroll
+        for (int u = 0; u < R_PER_THREAD; ++u)
+          if (at[u] >= 0) vp[at[u]] = v[u];
+      };
+      if (inner && i >= 1 && i <= n0 - 2)
+        run(std::true_type{});
+      else
+        run(std::false_type{});
     }
-    __syncthreads();
+    pmg::consumer_sync<NCONS>();
 
-    // 3. colour-1 phase of plane s - 2 on the strip + 1 ring (reads only
-    //    colour-0 neighbours); colour-0 cells copy their value
-    if (s - 2 >= o_lo - 1) {
-      const int i = s - 2;
-      const float* vl = vs + slot<NR>(i - 1) * (R1 * R2);
-      const float* vm = vs + slot<NR>(i) * (R1 * R2);
-      const float* vh = vs + slot<NR>(i + 1) * (R1 * R2);
-      float* yp = ys + slot<NY>(i) * (Y1 * Y2);
-      const bool in0 = i >= 0 && i < n0;
-      for (int t = tid; t < Y1 * Y2; t += NT) {
-        const int a1 = t / Y2, a2 = t % Y2;
-        const int j = g1 + a1 - 1, k = g2 + a2 - 1;
-        float v = 0.f;
-        if (in0 && j >= 0 && j < n1 && k >= 0 && k < n2) {
-          const int c = (a1 + 1) * R2 + (a2 + 1);
-          v = vm[c];
-          if (((i + j + k) & 1) != color0)
-            v = wtab[links_at(i, j, k, n0, n1, n2)] * (v - neigh(vl, vm, vh, c, R2, q));
-        }
-        yp[t] = v;
+    // 3. colour-1 phase of plane s - 2 in place on the strip + 1 (it reads
+    //    only colour-0 neighbours); then x + P z of plane s + 1
+    {
+      const int i = s - 2;  // planes o_lo - 1 .. o_hi
+      if (i >= o_lo - 1 && i >= 0 && i < n0) {
+        const float* vl = vplane(i - 1);
+        float* vm = vplane(i);
+        const float* vh = vplane(i + 1);
+        // colour-1 cells only: 17 a row of the strip + 1
+        const auto run = [&](auto tag) {
+          constexpr bool F = decltype(tag)::value;
+          const float w6 = wtab[6];
+          float v[Y_PER_THREAD];
+          int at[Y_PER_THREAD];
+#pragma unroll
+          for (int u = 0; u < Y_PER_THREAD; ++u) {
+            const int t = tid + u * NCONS;
+            at[u] = -1;
+            if (t >= (R1 - 2) * ((R2 - 2) / 2)) continue;
+            const int a1 = 1 + t / ((R2 - 2) / 2);
+            const int a2 = 1 + 2 * (t % ((R2 - 2) / 2)) + ((color0 ^ (i + g1 + g2 + a1)) & 1);
+            const int j = g1 + a1 - 2, k = g2 + a2 - 2;
+            if (F || (j >= 0 && j < n1 && k >= 0 && k < n2)) {
+              const int c = a1 * R2 + a2;
+              at[u] = c;
+              v[u] = (F ? w6 : wtab[links_at(i, j, k, n0, n1, n2)]) *
+                     (vm[c] - neigh(vl, vm, vh, c, R2, q));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < Y_PER_THREAD; ++u)
+            if (at[u] >= 0) vm[at[u]] = v[u];
+        };
+        if (inner && i >= 1 && i <= n0 - 2)
+          run(std::true_type{});
+        else
+          run(std::false_type{});
       }
+      if (has_x && s + 1 <= last) prep(s + 1);
     }
-    __syncthreads();
+    pmg::consumer_sync<NCONS>();
 
     // 4. outputs of plane s - 3 on the strip: xpy, and r - A y restricted
-    //    once both planes of the aggregate are done
-    if (s - 3 >= o_lo && owner) {
-      const int i = s - 3;
-      const float* xl = xs + slot<NX>(i - 1) * (X1 * X2);
-      const float* xm = xs + slot<NX>(i) * (X1 * X2);
-      const float* xh = xs + slot<NX>(i + 1) * (X1 * X2);
-      const float* yl = ys + slot<NY>(i - 1) * (Y1 * Y2);
-      const float* ym = ys + slot<NY>(i) * (Y1 * Y2);
-      const float* yh = ys + slot<NY>(i + 1) * (Y1 * Y2);
-      float r[2][2], o[2][2];
+    //    once both planes of the aggregate are done.  A warp takes two
+    //    row pairs of the strip, a lane one column (neighbouring lanes on
+    //    neighbouring banks); the lane pair of an aggregate adds its two
+    //    column sums with a shuffle
+    const int i = s - 3;
+    if (i >= o_lo && i < o_hi) {
+      const float* xl = has_x ? xplane(i - 1) : nullptr;
+      const float* xm = has_x ? xplane(i) : nullptr;
+      const float* xh = has_x ? xplane(i + 1) : nullptr;
+      const float* yl = vplane(i - 1);
+      const float* ym = vplane(i);
+      const float* yh = vplane(i + 1);
+      const float* bp = has_b ? bplane(i) : nullptr;
+      const int k = g2 + lane;
+      float r[2][2], o[2][2];  // [row pair][row of the pair]
+      const auto run = [&](auto tag) {
+        constexpr bool F = decltype(tag)::value;
+        const float d6 = dtab[6];
 #pragma unroll
-      for (int dj = 0; dj < 2; ++dj)
+        for (int u = 0; u < 2; ++u)
 #pragma unroll
-        for (int dk = 0; dk < 2; ++dk) {
-          const int j = j0 + dj, k = k0 + dk;
-          const int cx = (j - g1 + 3) * X2 + (k - g2 + 3);
-          const int cy = (j - g1 + 1) * Y2 + (k - g2 + 1);
-          const size_t id = ((size_t)i * n1 + j) * n2 + k;
-          const float d = dtab[links_at(i, j, k, n0, n1, n2)];
-          const float xv = xm[cx], yv = ym[cy];
-          const float ax = d * xv + neigh(xl, xm, xh, cx, X2, q);
-          const float ay = d * yv + neigh(yl, ym, yh, cy, Y2, q);
-          r[dj][dk] = ((b ? b[id] : 0.f) - ax) - ay;
-          o[dj][dk] = xv + yv;
+          for (int dj = 0; dj < 2; ++dj) {
+            const int a1 = 2 * (warp + NWARPS * u) + dj, j = g1 + a1;
+            const int cy = (a1 + 2) * R2 + (lane + 2);
+            const float d = F ? d6 : dtab[links_at(i, j, k, n0, n1, n2)];
+            float xv = 0.f, ax = 0.f;
+            if (has_x) {
+              const int cx = (a1 + 3) * X2 + (lane + 4);
+              xv = xm[cx];
+              ax = d * xv + neigh(xl, xm, xh, cx, X2, q);
+            }
+            const float yv = ym[cy];
+            const float ay = d * yv + neigh(yl, ym, yh, cy, R2, q);
+            r[u][dj] = ((has_b ? bp[(a1 + 2) * B2 + (lane + 4)] : 0.f) - ax) - ay;
+            o[u][dj] = xv + yv;
+          }
+      };
+      if (inner && i >= 1 && i <= n0 - 2)
+        run(std::true_type{});
+      else
+        run(std::false_type{});
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int jp = g1 + 2 * (warp + NWARPS * u);
+        const bool valid = jp < n1 && (k & ~1) < n2;  // even extents: whole aggregates
+        if (valid) {
+#pragma unroll
+          for (int dj = 0; dj < 2; ++dj) xpy[((size_t)i * n1 + (jp + dj)) * n2 + k] = o[u][dj];
+          xacc += o[u][0] + o[u][1];
         }
-#pragma unroll
-      for (int dj = 0; dj < 2; ++dj) {
-        const size_t id = ((size_t)i * n1 + (j0 + dj)) * n2 + k0;
-        *reinterpret_cast<float2*>(xpy + id) = make_float2(o[dj][0], o[dj][1]);
+        if ((i & 1) == 0) {
+          reven[u][0] = r[u][0];
+          reven[u][1] = r[u][1];
+        } else {
+          // axis-0 pairs, then axis 1, then axis 2 (AggregateTransfer.restrict)
+          const float col = (reven[u][0] + r[u][0]) + (reven[u][1] + r[u][1]);
+          const float other = __shfl_xor_sync(0xffffffffu, col, 1);
+          if (valid && (lane & 1) == 0)
+            rc[((size_t)(i >> 1) * m1 + (jp >> 1)) * m2 + (k >> 1)] = col + other;
+        }
       }
-      if ((i & 1) == 0) {
-#pragma unroll
-        for (int dj = 0; dj < 2; ++dj)
-#pragma unroll
-          for (int dk = 0; dk < 2; ++dk) reven[dj][dk] = r[dj][dk];
-      } else {
-        const size_t cid = ((size_t)(i >> 1) * m1 + (j0 >> 1)) * m2 + (k0 >> 1);
-        // axis-0 pairs, then axis 1, then axis 2 (AggregateTransfer.restrict)
-        rc[cid] = ((reven[0][0] + r[0][0]) + (reven[1][0] + r[1][0])) +
-                  ((reven[0][1] + r[0][1]) + (reven[1][1] + r[1][1]));
-        if (z) zacc += z[cid];
-      }
-      xacc += (o[0][0] + o[0][1]) + (o[1][0] + o[1][1]);
     }
+    // x plane s - 4 and b plane s - 3 have no reader left
+    if (has_x && s - 4 >= first) rx.release(s - 4 - first);
+    if (has_b && s - 3 >= bfirst) rb.release(s - 3 - bfirst);
   }
   const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   if (xsum) {
-    const float s = block_sum(xacc, red);
+    const float s = consumer_sum(xacc, red);
     if (tid == 0) xsum[blk] = s;
   }
   if (zsum) {
-    const float s = block_sum(zacc, red);
+    const float s = consumer_sum(zacc, red);
     if (tid == 0) zsum[blk] = s;
   }
 }
@@ -288,37 +500,54 @@ __global__ void __launch_bounds__(NT, 3)
 
 extern "C" {
 
-// (T0 of the windowed mode, T1, T2), so the loader can check them
+// (axis-0 halo, T1, T2), so the loader can check them
 void pmg_chain_march_tile(int* out) {
-  out[0] = T0;
+  out[0] = HALO;
   out[1] = T1;
   out[2] = T2;
 }
 
-// t0 = planes per block: n0 for the staged mode (#5), 0 for the windowed
-// mode (#4, #3; windows of T0 planes)
-int pmg_chain_march(const float* x, const float* b, const float* z,
-                    float* xpy, float* rc, float* xsum, float* zsum, int n0,
-                    int n1, int n2, int t0, float c0lo, float c0hi,
-                    float c1lo, float c1hi, float c2lo, float c2hi,
-                    float kappa2, float hinv2, float omega, float nscale,
-                    unsigned int prefix, int color0, int with_noise,
-                    void* stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        chain_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+// (blocks an SM, SMs, dynamic shared bytes) of a launch with the given
+// streams
+void pmg_chain_march_occupancy(int with_x, int with_b, int with_z, int* out) {
+  if (with_x)
+    pmg::occupancy(chain_march_kernel<true, true>, NT, smem_bytes(true, with_b, with_z), out);
+  else
+    pmg::occupancy(chain_march_kernel<false, true>, NT, smem_bytes(false, with_b, with_z), out);
+}
+
+// t0 = planes a work item (even); use_tma: stream through TMA (else
+// cp.async); x == nullptr is the from-zero level (#3)
+int pmg_chain_march(const float* x, const float* b, const float* z, float* xpy, float* rc,
+                    float* xsum, float* zsum, int n0, int n1, int n2, int t0, int use_tma,
+                    float c0lo, float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
+                    float kappa2, float hinv2, float omega, float nscale, unsigned int prefix,
+                    int color0, int with_noise, void* stream) {
+  if (n0 <= 0 || n1 <= 0 || n2 <= 0 || (n0 | n1 | n2) & 1 || t0 <= 0 || (t0 & 1) ||
+      (z && !x))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mx, mb, mz;
+  if (use_tma) {
+    if (!pmg::encode_planes(&mx, x, n0, n1, n2, X1, X2) ||
+        !pmg::encode_planes(&mb, b, n0, n1, n2, B1, B2) ||
+        !pmg::encode_planes(&mz, z, n0 / 2, n1 / 2, n2 / 2, Z1, Z2))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    pmg::encode_planes(&mx, nullptr, 0, 0, 0, 0, 0);
+    mb = mz = mx;
   }
-  if (t0 == 0) t0 = T0;
-  if (t0 <= 0 || (t0 & 1)) return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(x != nullptr, b != nullptr, z != nullptr);
+  auto kernel = x ? (with_noise ? chain_march_kernel<true, true>
+                                : chain_march_kernel<true, false>)
+                  : (with_noise ? chain_march_kernel<false, true>
+                                : chain_march_kernel<false, false>);
+  const cudaError_t e = pmg::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((n2 + T2 - 1) / T2, (n1 + T1 - 1) / T1, (n0 + t0 - 1) / t0);
   const Coeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
-  chain_march_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0, q, kappa2, hinv2, omega,
-      nscale, (uint32_t)prefix, color0, with_noise);
+  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0,
+                                                   use_tma, q, kappa2, hinv2, omega, nscale,
+                                                   (uint32_t)prefix, color0, mx, mb, mz);
   return (int)cudaGetLastError();
 }
 

@@ -46,4 +46,20 @@ __device__ __forceinline__ float sor_cell(float xc, float lo0, float hi0,
   return (1.f - omega) * xc + (omega / dv) * (bv - nb);
 }
 
+// sor_cell with the diagonal's two derived factors given: ns = nscale *
+// sqrtf(dv) and wd = omega / dv, each rounded as sor_cell rounds it, so
+// the result is sor_cell's bit for bit (the expression trees, and so the
+// FMA contractions, are the same).  For the link-count FD diagonal, which
+// takes 7 values, a kernel tabulates them once
+__device__ __forceinline__ float sor_cell_pre(float xc, float lo0, float hi0, float lo1,
+                                              float hi1, float lo2, float hi2,
+                                              const StarCoeffs& q, float ns, float wd,
+                                              float bv, float omega, uint32_t prefix,
+                                              uint32_t id, int with_noise) {
+  if (with_noise) bv = bv + ns * eta<true>(prefix, id);
+  const float nb = q.c0lo * lo0 + q.c0hi * hi0 + q.c1lo * lo1 + q.c1hi * hi1 +
+                   q.c2lo * lo2 + q.c2hi * hi2;
+  return (1.f - omega) * xc + wd * (bv - nb);
+}
+
 }  // namespace pmg

@@ -2,16 +2,17 @@
 // marching, out of place, for grids with large planes.
 //
 // Replaces two Pallas kernels of parmgmc_tpu/kernels/rb_gibbs.py with one
-// body in two launch modes, each with its own entry point:
+// body, each with its own entry point, wrapper and launch counter:
 //
-//   fused_rb_gibbs_sweep_2d_staged (#9)  FD only: one block per (T1, T2)
-//                                        column strip walks all of axis 0;
-//   fused_rb_gibbs_sweep_2d        (#8)  the same body over windows of T0
-//                                        planes, each block recomputing a
-//                                        2-plane axis-0 halo; the diagonal
-//                                        rebuilt from (kappa2, hinv2) and the
-//                                        in-grid link count, or streamed
+//   fused_rb_gibbs_sweep_2d_staged (#9)  FD only: the diagonal rebuilt
+//                                        from (kappa2, hinv2) and the
+//                                        in-grid link count;
+//   fused_rb_gibbs_sweep_2d        (#8)  FD, or the diagonal streamed
 //                                        from a tensor (kStreamD).
+//
+// The two share one launch geometry (kernels/_march.py, plan): a work
+// item is a (T1, T2) column strip over a segment of t0 planes of axis 0,
+// one block each, recomputing a 2-plane axis-0 halo on each side.
 //
 // Both compute what csrc/rb_gibbs.cu (#7, #6) computes: for b (b ==
 // nullptr: b = 0)
@@ -25,206 +26,362 @@
 // the same values as in rb_gibbs.cu, so #9, #8 and #7 (#8 and #6 with the
 // diagonal streamed) agree bit for bit.
 //
-// What bounds it on an H100: device memory.  At 768^3 it reads x and
-// writes x' (3.62 GB, ~1.08 ms at 3.35 TB/s), plus 1.81 GB for b and as
-// much for a streamed D; its 48 float operations a cell take ~0.32 ms at
-// 67 TFLOP/s.
+// What bounds it on an H100: device memory by the count, instruction
+// issue in fact.  At 768^3 it reads x and b and writes x' (5.44 GB, 1.62
+// ms at 3.35 TB/s; a streamed D adds 1.81 GB).  Each cell costs 48 float
+// operations (0.32 ms at 67 TFLOP/s) plus the noise hash's integer work,
+// two mix rounds of ~10 integer operations each (noise.cuh), at half the
+// float rate (~0.3 ms), and the draw's log and square root; counted in
+// issued instructions (~120 a cell with its bookkeeping) that is ~1.9 ms
+// at the SMs' 4 warp-instructions a clock.
 //
-// Design.  The TPU kernels tile the plane in 2D because a whole 768^2
-// plane does not fit VMEM; here the same 2.5D marching keeps the working
-// set in shared memory.  A block owns a (T1, T2) strip of the plane and
-// loops over planes with two rolling rings of three planes each: x on the
-// strip + 2 ring, and the plane after the colour-0 phase on the strip + 1
-// ring (colour-0 cells updated, colour-1 cells copied).  At step s it
-// stores x of plane s, runs the colour-0 phase of plane s - 1 (it needs x
-// at s - 2 .. s), and runs the colour-1 phase of plane s - 2 on the strip
-// (it needs the colour-0 results at s - 3 .. s - 1), writing the plane
-// out: two block barriers a plane, one after the store and one after the
-// colour-0 phase.  The in-plane halo is recomputed by the neighbouring
-// strips ((T1 + 4)(T2 + 4) / (T1 T2) = 1.27x the x loads at 32 x 32);
-// along axis 0 nothing is recomputed in the staged mode, 4 x planes and
-// 2 colour-0 planes per window in the windowed one.  b~ is formed where a
-// cell is updated and the noise hash makes every recomputed draw
-// identical.  Each thread loads the next x plane into registers while the
-// block computes the current one.  Still simple: no TMA, scalar loads.
+// Design (csrc/march.cuh).  Loads issued by the computing threads stall
+// their phase, and whole-axis strips (576 at 768^3) leave a partial last
+// wave of block slots.  So one producer warp streams x (36 x 40 boxes,
+// strip + 2) and b and D (34 x 40 boxes, strip + 1) into rings of
+// shared-memory stages (6 x planes, 4 b/D planes) with TMA, or with cp.async where the
+// row stride is not a multiple of 16 B; each stage completes on an
+// mbarrier, so 8 consumer warps wait on data, not on their own loads.
+// 4,608 work items at 768^3 fill 3 blocks an SM in 11.6 waves.  With the
+// loads out of the way the cell update bounds it: the noise draw is ~70
+// instructions.  So each consumer thread updates cells of one colour only
+// (no lane idles through the other colour's draw), in batches whose
+// draws the compiler interleaves: at step i the colour-0 cells of plane
+// i on the strip + 1 (578, 3 a thread) into a ring of 4 colour-0 planes,
+// then, after the one block barrier of the step (colour 1 needs its
+// colour-0 neighbours from other threads), the colour-1 cells of plane
+// i - 1 on the strip (512, 2 a thread), each written out with its
+// pair's colour-0 cell as one float2.  FD tabulates nscale sqrt(D) and
+// omega / D for the 7 link counts (sweep.cuh's sor_cell_pre, the same
+// roundings); a block inside the grid skips the link counts and bound
+// tests; the noise flag is a template flag and the draw's square root
+// has no branch (noise.cuh).  The in-plane halo is recomputed by the
+// neighbouring strips (578 colour-0 cells for 512), the axis-0 halo costs
+// 4 x planes a segment (4 % at 96 planes).  b~ is formed where a cell is
+// updated and the noise hash makes every recomputed draw identical.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "march.cuh"
 #include "sweep.cuh"
 
 namespace {
 
-constexpr int T0 = 16;                   // windowed mode: planes per block
+constexpr int HALO = 2;                  // axis-0 halo planes of a segment
 constexpr int T1 = 32, T2 = 32;          // strip; kernels.TILES["sweep_march"]
-constexpr int X1 = T1 + 4, X2 = T2 + 4;  // x ring, strip + 2
+// TMA boxes start on a 16-B column (k % 4 == 0): x on the strip + 2 rows
+// at (g1-2, g2-4), b and D on the strip + 1 rows at (g1-1, g2-4), both 40
+// columns wide
+constexpr int X1 = T1 + 4, X2 = T2 + 8;
+constexpr int B1 = T1 + 2, B2 = T2 + 8;
 constexpr int Y1 = T1 + 2, Y2 = T2 + 2;  // after the colour-0 phase, strip + 1
-// planes held in each ring: x at s - 2 .. s, colour-0 results at s - 3 ..
-// s - 1 (step s + 1 overwrites the oldest only after its first barrier)
-constexpr int NX = 3, NY = 3;
-constexpr int NT = 256;
-constexpr int XPT = (X1 * X2 + NT - 1) / NT;  // x ring values a thread loads
+constexpr int XSF = pmg::stage_floats(X1, X2), BSF = pmg::stage_floats(B1, B2);
+// x planes i - 1 .. i + 1 in use and 3 in flight; b (and D) i - 1, i and
+// 2 in flight; colour-0 results i - 3 .. i (step i + 1 overwrites i - 3
+// only after the barrier of step i, which follows its last reader)
+constexpr int NX = 6, NB = 4, NY = 4;
+constexpr int NCONS = 256, NT = NCONS + 32;  // 8 consumer warps, 1 producer
+// cells a consumer thread updates a step, in one unrolled batch: colour 0
+// on the strip + 1 (34 x 17 = 578), colour 1 on the strip (512)
+constexpr int C0_PER_THREAD = (Y1 * (Y2 / 2) + NCONS - 1) / NCONS;
+constexpr int C1_PER_THREAD = T1 * T2 / 2 / NCONS;
 
-// ring slot of plane i (i >= -3)
-template <int N>
-__device__ __forceinline__ int slot(int i) {
-  return (i + 3) % N;
+int smem_bytes(int nbox) {
+  return (NX * XSF + NB * nbox * BSF + NY * Y1 * Y2) * (int)sizeof(float);
 }
 
-template <bool kStreamD>
-__global__ void __launch_bounds__(NT)
+// kStreamD: D streamed from a tensor (else rebuilt, FD); kNoise: the
+// noise draw.  Template flags, so the per-cell batches have no branches
+template <bool kStreamD, bool kNoise>
+__global__ void __launch_bounds__(NT, 3)
     sweep_march_kernel(const float* __restrict__ x, const float* __restrict__ b,
                        const float* __restrict__ d, float* __restrict__ out,
-                       int n0, int n1, int n2, int t0, pmg::StarCoeffs q,
+                       int n0, int n1, int n2, int t0, int use_tma, pmg::StarCoeffs q,
                        float kappa2, float hinv2, float omega, float nscale,
-                       uint32_t prefix, int color0, int with_noise) {
-  __shared__ float xs[NX * X1 * X2];
-  __shared__ float ys[NY * Y1 * Y2];
+                       uint32_t prefix, int color0,
+                       const __grid_constant__ CUtensorMap mx,
+                       const __grid_constant__ CUtensorMap mb,
+                       const __grid_constant__ CUtensorMap md) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ pmg::Ring<NX> rx;
+  __shared__ pmg::Ring<NB> rb;
+  // FD: nscale sqrt(D) and omega / D per link count, as sor_cell rounds them
+  __shared__ float nstab[7], wtab[7];
+  const bool has_b = b != nullptr;
+  const int nbox = (int)has_b + (int)kStreamD;  // boxes in a b/D stage
+  float* xs = smem;
+  float* bs = xs + NX * XSF;
+  float* ys = bs + NB * nbox * BSF;
   const int tid = threadIdx.x;
   const int g1 = blockIdx.y * T1, g2 = blockIdx.x * T2;
   const int o_lo = blockIdx.z * t0, o_hi = min(o_lo + t0, n0);
+  const int xfirst = o_lo - HALO, bfirst = o_lo - 1;  // first x, b plane
+  if (!kStreamD && tid < 7) {
+    const float dv = kappa2 + hinv2 * (float)tid;
+    nstab[tid] = nscale * sqrtf(dv);
+    wtab[tid] = omega / dv;
+  }
+  if (tid == 0) {
+    rx.init(use_tma ? 1 : 32, NCONS / 32);
+    rb.init(use_tma ? 1 : 32, NCONS / 32);
+    pmg::mbar_fence_init();
+  }
+  __syncthreads();
 
-  // x of one plane on the strip + 2 ring, XPT values a thread, in
-  // registers: plane s + 1 is loaded while plane s is being computed
-  float xr[XPT];
-  auto fetch = [&](int i) {
-    const bool in0 = i >= 0 && i < n0;
-#pragma unroll
-    for (int u = 0; u < XPT; ++u) {
-      const int t = tid + u * NT;
-      const int j = g1 + t / X2 - 2, k = g2 + t % X2 - 2;
-      float v = 0.f;
-      if (in0 && t < X1 * X2 && j >= 0 && j < n1 && k >= 0 && k < n2)
-        v = x[((size_t)i * n1 + j) * n2 + k];
-      xr[u] = v;
-    }
-  };
-  fetch(o_lo - 2);
-
-  for (int s = o_lo - 2; s <= o_hi + 1; ++s) {
-    // 1. plane s into the x ring (zero outside the grid); fetch plane s + 1
-    {
-      float* xp = xs + slot<NX>(s) * (X1 * X2);
-#pragma unroll
-      for (int u = 0; u < XPT; ++u) {
-        const int t = tid + u * NT;
-        if (t < X1 * X2) xp[t] = xr[u];
+  if (tid >= NCONS) {
+    // producer warp: x planes o_lo - 2 .. o_hi + 1; with x plane p, the
+    // b/D plane p - 1 (planes o_lo - 1 .. o_hi), which step p - 1 needs
+    const int lane = tid - NCONS;
+    const int nxp = o_hi + HALO - xfirst;
+    for (int u = 0; u < nxp; ++u) {
+      const int p = xfirst + u;
+      rx.wait_empty(u);
+      float* dst = xs + (u % NX) * XSF;
+      if (use_tma) {
+        if (lane == 0) {
+          pmg::mbar_expect_tx(&rx.full[u % NX], X1 * X2 * 4);
+          pmg::tma_load_3d(dst, &mx, &rx.full[u % NX], g2 - 4, g1 - 2, p);
+        }
+      } else {
+        pmg::cpasync_box(dst, x, X1, X2, g2 - 4, g1 - 2, p, n0, n1, n2, lane);
+        pmg::cpasync_arrive(&rx.full[u % NX]);
       }
-      if (s <= o_hi) fetch(s + 1);
+      const int v = u - 2, pb = p - 1;  // b/D plane bfirst + v
+      if (nbox == 0 || v < 0) continue;
+      rb.wait_empty(v);
+      float* bdst = bs + (v % NB) * nbox * BSF;
+      uint64_t* bar = &rb.full[v % NB];
+      if (use_tma) {
+        if (lane == 0) {
+          pmg::mbar_expect_tx(bar, nbox * B1 * B2 * 4);
+          if (has_b) pmg::tma_load_3d(bdst, &mb, bar, g2 - 4, g1 - 1, pb);
+          if (kStreamD) pmg::tma_load_3d(bdst + (has_b ? BSF : 0), &md, bar, g2 - 4, g1 - 1, pb);
+        }
+      } else {
+        if (has_b) pmg::cpasync_box(bdst, b, B1, B2, g2 - 4, g1 - 1, pb, n0, n1, n2, lane);
+        if (kStreamD)
+          pmg::cpasync_box(bdst + (has_b ? BSF : 0), d, B1, B2, g2 - 4, g1 - 1, pb, n0, n1, n2,
+                           lane);
+        pmg::cpasync_arrive(bar);
+      }
     }
-    __syncthreads();
+    if (!use_tma) pmg::cpasync_wait_all();
+    return;
+  }
 
-    // 2. colour-0 phase of plane s - 1 on the strip + 1 ring: colour-0
-    //    cells updated from x, colour-1 cells copied, 0 outside the grid
-    if (s >= o_lo) {
-      const int i = s - 1;
-      const float* xl = xs + slot<NX>(i - 1) * (X1 * X2);
-      const float* xm = xs + slot<NX>(i) * (X1 * X2);
-      const float* xh = xs + slot<NX>(i + 1) * (X1 * X2);
-      float* yp = ys + slot<NY>(i) * (Y1 * Y2);
+  __builtin_assume(tid < NCONS);
+  // consumer warps: step i runs colour 0 on plane i (o_lo - 1 .. o_hi)
+  // and colour 1 on plane i - 1 (o_lo .. o_hi - 1), each thread on cells of
+  // the colour being updated only (no divergence between the colours)
+  // the cell update; F (compile time): the cell is inside the grid with
+  // 6 links (an inner block's plane 1 .. n0 - 2)
+  const auto update = [&](auto tag, float xc, float lo0, float hi0, float lo1, float hi1,
+                          float lo2, float hi2, const float* bp, const float* dp, int cb, int i,
+                          int j, int k) {
+    constexpr bool F = decltype(tag)::value;
+    const uint32_t id = ((uint32_t)i * n1 + j) * n2 + k;  // the noise counter
+    const float bv = has_b ? bp[cb] : 0.f;
+    if (kStreamD)
+      return pmg::sor_cell(xc, lo0, hi0, lo1, hi1, lo2, hi2, q, dp[cb], bv, omega, nscale,
+                           prefix, id, kNoise);
+    const int l = F ? 6
+                    : (i >= 1) + (i <= n0 - 2) + (j >= 1) + (j <= n1 - 2) + (k >= 1) +
+                          (k <= n2 - 2);
+    return pmg::sor_cell_pre(xc, lo0, hi0, lo1, hi1, lo2, hi2, q, nstab[l], wtab[l], bv, omega,
+                             prefix, id, kNoise);
+  };
+  // every row and column of the strip + 1 is inside the grid with both
+  // in-plane links
+  const bool inner = g1 >= 2 && g1 + T1 + 2 <= n1 && g2 >= 2 && g2 + T2 + 2 <= n2;
+  for (int i = o_lo - 1; i <= o_hi; ++i) {
+    const int ux = i - xfirst, ub = i - bfirst, uy = i - (o_lo - 1);
+    if (i == o_lo - 1) {
+      rx.wait_full(ux - 1);
+      rx.wait_full(ux);
+    }
+    rx.wait_full(ux + 1);
+    if (nbox) rb.wait_full(ub);
+    {
+      // colour 0 of plane i on the strip + 1: 17 cells a row of 34, the
+      // colour-1 places of the ring left unwritten (nothing reads them)
+      const float* xl = xs + ((ux - 1) % NX) * XSF;
+      const float* xm = xs + (ux % NX) * XSF;
+      const float* xh = xs + ((ux + 1) % NX) * XSF;
+      const float* bp = bs + (ub % NB) * nbox * BSF;
+      const float* dp = bp + (has_b ? BSF : 0);
+      float* yp = ys + (uy % NY) * (Y1 * Y2);
       const bool in0 = i >= 0 && i < n0;
-      for (int t = tid; t < Y1 * Y2; t += NT) {
-        const int a1 = t / Y2, a2 = t % Y2;
-        const int j = g1 + a1 - 1, k = g2 + a2 - 1;
-        float v = 0.f;
-        if (in0 && j >= 0 && j < n1 && k >= 0 && k < n2) {
-          const int c = (a1 + 1) * X2 + (a2 + 1);
-          v = xm[c];
-          if (((i + j + k) & 1) == color0) {
-            const size_t id = ((size_t)i * n1 + j) * n2 + k;
-            v = pmg::sor_cell(
-                v, xl[c], xh[c], xm[c - X2], xm[c + X2], xm[c - 1], xm[c + 1],
-                q,
-                pmg::sweep_diag<kStreamD>(d, id, i, j, k, n0, n1, n2, kappa2,
-                                          hinv2),
-                b ? b[id] : 0.f, omega, nscale, prefix, (uint32_t)id,
-                with_noise);
+      const auto run = [&](auto tag) {
+        constexpr bool F = decltype(tag)::value;
+        float v[C0_PER_THREAD];
+        int at[C0_PER_THREAD];
+#pragma unroll
+        for (int u = 0; u < C0_PER_THREAD; ++u) {
+          const int t = tid + u * NCONS;
+          at[u] = -1;
+          v[u] = 0.f;
+          if ((u + 1) * NCONS <= Y1 * (Y2 / 2) || t < Y1 * (Y2 / 2)) {
+            const int a1 = t / (Y2 / 2), h = t - a1 * (Y2 / 2);
+            const int j = g1 + a1 - 1;
+            const int a2 = 2 * h + (((i + j + g2 - 1) & 1) ^ color0);
+            const int k = g2 + a2 - 1;
+            at[u] = a1 * Y2 + a2;
+            if (F || (in0 && j >= 0 && j < n1 && k >= 0 && k < n2)) {
+              const int c = (a1 + 1) * X2 + (a2 + 3);
+              v[u] = update(tag, xm[c], xl[c], xh[c], xm[c - X2], xm[c + X2], xm[c - 1],
+                            xm[c + 1], bp, dp, a1 * B2 + (a2 + 3), i, j, k);
+            }
           }
         }
-        yp[t] = v;
-      }
+#pragma unroll
+        for (int u = 0; u < C0_PER_THREAD; ++u)
+          if (at[u] >= 0) yp[at[u]] = v[u];
+      };
+      if (inner && i >= 1 && i <= n0 - 2)
+        run(std::true_type{});
+      else
+        run(std::false_type{});
     }
-    __syncthreads();
+    pmg::consumer_sync<NCONS>();
 
-    // 3. colour-1 phase of plane s - 2 on the strip (it reads only colour-0
-    //    neighbours); every strip cell is written out
-    if (s >= o_lo + 2) {
-      const int i = s - 2;
-      const float* yl = ys + slot<NY>(i - 1) * (Y1 * Y2);
-      const float* ym = ys + slot<NY>(i) * (Y1 * Y2);
-      const float* yh = ys + slot<NY>(i + 1) * (Y1 * Y2);
-      for (int t = tid; t < T1 * T2; t += NT) {
-        const int a1 = t / T2, a2 = t % T2;
-        const int j = g1 + a1, k = g2 + a2;
-        if (j < n1 && k < n2) {
+    const int i1 = i - 1;
+    if (i1 >= o_lo) {
+      // colour 1 of plane i - 1 on the strip: one cell of each aligned
+      // pair (k, k + 1), written out with the pair's colour-0 cell
+      const float* xm = xs + ((ux - 1) % NX) * XSF;
+      const float* yl = ys + ((uy - 2) % NY) * (Y1 * Y2);
+      const float* ym = ys + ((uy - 1) % NY) * (Y1 * Y2);
+      const float* yh = ys + (uy % NY) * (Y1 * Y2);
+      const float* bp = bs + ((ub - 1) % NB) * nbox * BSF;
+      const float* dp = bp + (has_b ? BSF : 0);
+      float v1[C1_PER_THREAD], v0[C1_PER_THREAD];
+      const auto run = [&](auto tag) {
+        constexpr bool F = decltype(tag)::value;
+#pragma unroll
+        for (int u = 0; u < C1_PER_THREAD; ++u) {
+          const int t = tid + u * NCONS;
+          const int a1 = t / (T2 / 2), h = t % (T2 / 2);
+          const int j = g1 + a1;
+          const int odd = ((i1 + j) & 1) == color0;  // colour 1 at k = g2 + 2h + odd
+          const int a2 = 2 * h + odd, k = g2 + a2;
           const int c = (a1 + 1) * Y2 + (a2 + 1);
-          const size_t id = ((size_t)i * n1 + j) * n2 + k;
-          float v = ym[c];
-          if (((i + j + k) & 1) != color0)
-            v = pmg::sor_cell(
-                v, yl[c], yh[c], ym[c - Y2], ym[c + Y2], ym[c - 1], ym[c + 1],
-                q,
-                pmg::sweep_diag<kStreamD>(d, id, i, j, k, n0, n1, n2, kappa2,
-                                          hinv2),
-                b ? b[id] : 0.f, omega, nscale, prefix, (uint32_t)id,
-                with_noise);
-          out[id] = v;
+          v0[u] = ym[c + 1 - 2 * odd];
+          v1[u] = 0.f;
+          if (F || (j < n1 && k < n2))
+            v1[u] = update(tag, xm[(a1 + 2) * X2 + (a2 + 4)], yl[c], yh[c], ym[c - Y2],
+                           ym[c + Y2], ym[c - 1], ym[c + 1], bp, dp, (a1 + 1) * B2 + (a2 + 4),
+                           i1, j, k);
+        }
+      };
+      if (inner && i1 >= 1 && i1 <= n0 - 2)
+        run(std::true_type{});
+      else
+        run(std::false_type{});
+#pragma unroll
+      for (int u = 0; u < C1_PER_THREAD; ++u) {
+        const int t = tid + u * NCONS;
+        const int a1 = t / (T2 / 2), h = t % (T2 / 2);
+        const int j = g1 + a1, k = g2 + 2 * h;
+        if (j >= n1 || k >= n2) continue;
+        const int odd = ((i1 + j) & 1) == color0;
+        const float lo = odd ? v0[u] : v1[u], hi = odd ? v1[u] : v0[u];
+        float* o = out + ((size_t)i1 * n1 + j) * n2 + k;
+        if (k + 1 < n2 && (n2 & 1) == 0) {
+          *reinterpret_cast<float2*>(o) = make_float2(lo, hi);
+        } else {
+          o[0] = lo;
+          if (k + 1 < n2) o[1] = hi;
         }
       }
     }
+    rx.release(ux - 1);                       // x plane i - 1 has no reader left
+    if (nbox && ub >= 1) rb.release(ub - 1);  // nor b/D plane i - 1
   }
 }
 
-int launch(const float* x, const float* b, const float* d, float* out, int n0,
-           int n1, int n2, int t0, const pmg::StarCoeffs& q, float kappa2,
-           float hinv2, float omega, float nscale, unsigned int prefix,
-           int color0, int with_noise, void* stream) {
-  if (n0 <= 0 || n1 <= 0 || n2 <= 0 || t0 <= 0) return (int)cudaErrorInvalidValue;
+template <bool kStreamD>
+int launch_mode(const float* x, const float* b, const float* d, float* out, int n0, int n1,
+                int n2, int t0, int use_tma, const pmg::StarCoeffs& q, float kappa2,
+                float hinv2, float omega, float nscale, unsigned int prefix, int color0,
+                int with_noise, void* stream) {
+  const int nbox = (b != nullptr) + (int)kStreamD;
+  const int smem = smem_bytes(nbox);
+  CUtensorMap mx, mb, md;
+  if (use_tma) {
+    if (!pmg::encode_planes(&mx, x, n0, n1, n2, X1, X2) ||
+        !pmg::encode_planes(&mb, b, n0, n1, n2, B1, B2) ||
+        !pmg::encode_planes(&md, kStreamD ? d : nullptr, n0, n1, n2, B1, B2))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    pmg::encode_planes(&mx, nullptr, 0, 0, 0, 0, 0);
+    mb = md = mx;
+  }
+  auto kernel = with_noise ? sweep_march_kernel<kStreamD, true>
+                           : sweep_march_kernel<kStreamD, false>;
+  const cudaError_t e = pmg::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((n2 + T2 - 1) / T2, (n1 + T1 - 1) / T1, (n0 + t0 - 1) / t0);
-  if (d)
-    sweep_march_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(
-        x, b, d, out, n0, n1, n2, t0, q, kappa2, hinv2, omega, nscale,
-        (uint32_t)prefix, color0, with_noise);
-  else
-    sweep_march_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(
-        x, b, d, out, n0, n1, n2, t0, q, kappa2, hinv2, omega, nscale,
-        (uint32_t)prefix, color0, with_noise);
+  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, b, d, out, n0, n1, n2, t0, use_tma, q,
+                                                   kappa2, hinv2, omega, nscale,
+                                                   (uint32_t)prefix, color0, mx, mb, md);
   return (int)cudaGetLastError();
+}
+
+int launch(const float* x, const float* b, const float* d, float* out, int n0, int n1,
+           int n2, int t0, int use_tma, const pmg::StarCoeffs& q, float kappa2, float hinv2,
+           float omega, float nscale, unsigned int prefix, int color0, int with_noise,
+           void* stream) {
+  if (n0 <= 0 || n1 <= 0 || n2 <= 0 || t0 <= 0) return (int)cudaErrorInvalidValue;
+  if (d)
+    return launch_mode<true>(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega,
+                             nscale, prefix, color0, with_noise, stream);
+  return launch_mode<false>(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega,
+                            nscale, prefix, color0, with_noise, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// (T0 of the windowed mode, T1, T2), so the loader can check them
+// (axis-0 halo, T1, T2), so the loader can check them
 void pmg_sweep_march_tile(int* out) {
-  out[0] = T0;
+  out[0] = HALO;
   out[1] = T1;
   out[2] = T2;
 }
 
-// #9: FD only (d must be nullptr); one block per strip over all of axis 0
-int pmg_sweep_march_staged(const float* x, const float* b, const float* d,
-                           float* out, int n0, int n1, int n2, float c0lo,
-                           float c0hi, float c1lo, float c1hi, float c2lo,
-                           float c2hi, float kappa2, float hinv2, float omega,
-                           float nscale, unsigned int prefix, int color0,
-                           int with_noise, void* stream) {
-  if (d) return (int)cudaErrorInvalidValue;
-  const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
-  return launch(x, b, nullptr, out, n0, n1, n2, n0, q, kappa2, hinv2, omega,
-                nscale, prefix, color0, with_noise, stream);
+// (blocks an SM, SMs, dynamic shared bytes) of a launch with b given or
+// not and D streamed or not
+void pmg_sweep_march_occupancy(int with_b, int stream_d, int* out) {
+  const int nbox = (with_b != 0) + (stream_d != 0);
+  if (stream_d)
+    pmg::occupancy(sweep_march_kernel<true, true>, NT, smem_bytes(nbox), out);
+  else
+    pmg::occupancy(sweep_march_kernel<false, true>, NT, smem_bytes(nbox), out);
 }
 
-// #8: windows of T0 planes; d == nullptr: FD mode (D from kappa2, hinv2),
-// else D is read from d
-int pmg_sweep_march_windowed(const float* x, const float* b, const float* d,
-                             float* out, int n0, int n1, int n2, float c0lo,
-                             float c0hi, float c1lo, float c1hi, float c2lo,
-                             float c2hi, float kappa2, float hinv2,
-                             float omega, float nscale, unsigned int prefix,
-                             int color0, int with_noise, void* stream) {
+// #9: FD only (d must be nullptr)
+int pmg_sweep_march_staged(const float* x, const float* b, const float* d, float* out, int n0,
+                           int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
+                           float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
+                           float hinv2, float omega, float nscale, unsigned int prefix,
+                           int color0, int with_noise, void* stream) {
+  if (d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
-  return launch(x, b, d, out, n0, n1, n2, T0, q, kappa2, hinv2, omega, nscale,
+  return launch(x, b, nullptr, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
+                prefix, color0, with_noise, stream);
+}
+
+// #8: d == nullptr: FD mode (D from kappa2, hinv2), else D is read from d
+int pmg_sweep_march_windowed(const float* x, const float* b, const float* d, float* out,
+                             int n0, int n1, int n2, int t0, int use_tma, float c0lo,
+                             float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
+                             float kappa2, float hinv2, float omega, float nscale,
+                             unsigned int prefix, int color0, int with_noise, void* stream) {
+  const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
+  return launch(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
                 prefix, color0, with_noise, stream);
 }
 

@@ -32,6 +32,7 @@ __all__ = [
     "check_launch",
     "check_input",
     "launch_counts",
+    "occupancy",
     "reset_launch_counts",
 ]
 
@@ -46,11 +47,11 @@ NVCC_FLAGS = (
 
 # output tile of one CUDA block per kernel (T0, T1, T2 in csrc/*.cu); the
 # twins' partial sums use the same tiles, so the loader checks them.  The
-# marching kernels' T0 is their windowed mode's; a staged block takes all
-# of axis 0
+# marching kernels give (axis-0 halo, T1, T2): their segment of axis 0
+# comes from the launch plan (kernels/_march.py)
 TILES = {
     "chain": (8, 8, 32), "tail": (8, 8, 32), "rb_gibbs": (8, 8, 32),
-    "chain_march": (16, 32, 32), "sweep_march": (16, 32, 32),
+    "chain_march": (3, 32, 32), "sweep_march": (2, 32, 32),
 }
 
 _LOCK = threading.Lock()
@@ -75,17 +76,19 @@ _U = ctypes.c_uint32
 # the full sweeps: (x, b, d, out, n0, n1, n2, six coefficients, kappa2,
 # hinv2, omega, nscale, prefix, color0, with_noise, stream)
 _SWEEP = ([_P] * 4 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I)
+# the marching sweeps: the same with (t0, use_tma) after the extents
+_MARCH_SWEEP = ([_P] * 4 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I)
 _SIGNATURES = {
     "pmg_chain_down": (
         [_P] * 7 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I,
     ),
     "pmg_chain_march": (
-        [_P] * 7 + [_I] * 4 + [_F] * 10 + [_U, _I, _I, _P], _I,
+        [_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I,
     ),
     "pmg_tail_down": ([_P] * 3 + [_I] * 3 + [_F] * 4 + [_U, _I, _I, _P], _I),
     "pmg_rb_gibbs": _SWEEP,
-    "pmg_sweep_march_staged": _SWEEP,
-    "pmg_sweep_march_windowed": _SWEEP,
+    "pmg_sweep_march_staged": _MARCH_SWEEP,
+    "pmg_sweep_march_windowed": _MARCH_SWEEP,
     "pmg_patch_sweep": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
     "pmg_patch_sweep_streamed": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
     "pmg_chain_tile": ([ctypes.POINTER(_I)], None),
@@ -93,6 +96,8 @@ _SIGNATURES = {
     "pmg_rb_gibbs_tile": ([ctypes.POINTER(_I)], None),
     "pmg_chain_march_tile": ([ctypes.POINTER(_I)], None),
     "pmg_sweep_march_tile": ([ctypes.POINTER(_I)], None),
+    "pmg_chain_march_occupancy": ([_I, _I, _I, ctypes.POINTER(_I)], None),
+    "pmg_sweep_march_occupancy": ([_I, _I, ctypes.POINTER(_I)], None),
 }
 
 
@@ -168,6 +173,15 @@ def lib() -> ctypes.CDLL:
                     raise RuntimeError(f"csrc {name} kernel tile {tuple(out)} != {tile}")
             _LIB = so
         return _LIB
+
+
+def occupancy(entry: str, *flags) -> dict:
+    """What the card gives a marching kernel's launch: blocks an SM, SMs
+    and dynamic shared bytes, from ``pmg_<entry>_occupancy(*flags)`` (the
+    streams the launch reads; see csrc/chain_march.cu, sweep_march.cu)."""
+    out = (_I * 3)()
+    getattr(lib(), f"pmg_{entry}_occupancy")(*flags, out)
+    return dict(blocks_per_sm=out[0], sms=out[1], smem_bytes=out[2])
 
 
 def check_input(name: str, t, like) -> None:

@@ -1,0 +1,91 @@
+"""Launch plan of the plane-marching kernels (``csrc/sweep_march.cu``,
+``csrc/chain_march.cu``).
+
+A work item is one (T1, T2) column strip of the plane over a segment of
+``seg`` planes of axis 0; the kernel runs one block per work item, in the
+grid (n2 strips, n1 strips, segments).  A block also streams ``halo``
+planes on each side of its segment (2 for the sweep, 3 for the chain),
+whose cells it recomputes, and one box of the plane around its strip
+(the in-plane halo).  The plan depends on the shape alone, so the twins'
+per-item partial sums tile the grid as the kernel does on any device.
+
+Segments are as long as :data:`SEG` planes while the grid still has
+:data:`MIN_ITEMS` work items (then the last wave of blocks is under a
+tenth of the work on an H100: 132 SMs hold 396 to 528 of these blocks),
+and no shorter than :data:`MIN_SEG`; chain segments are even, so that an
+aggregate's two planes stay in one item.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+__all__ = ["SEG", "MIN_SEG", "MIN_ITEMS", "MarchPlan", "plan"]
+
+SEG = 96  # longest segment: 6 halo planes cost the chain 6 % of its x loads
+MIN_SEG = 16  # shortest segment, whose halo planes already add 25 % (sweep) or 37 % (chain)
+MIN_ITEMS = 4096  # work items wanted before segments get shorter
+
+
+@dataclass(frozen=True)
+class MarchPlan:
+    """Geometry of one marching launch."""
+
+    shape: tuple  # (n0, n1, n2)
+    strip: tuple  # (T1, T2)
+    halo: int  # axis-0 halo planes streamed on each side of a segment
+    seg: int  # planes a work item owns (the last segment may be shorter)
+    tma: bool  # stream with TMA (else with cp.async)
+
+    @property
+    def grid(self) -> tuple:
+        """(segments, n1 strips, n2 strips): the partial sums' tile grid,
+        in the kernels' block order."""
+        n0, n1, n2 = self.shape
+        return (-(-n0 // self.seg), -(-n1 // self.strip[0]), -(-n2 // self.strip[1]))
+
+    @property
+    def tile(self) -> tuple:
+        """(seg, T1, T2): the block of the grid one work item owns."""
+        return (self.seg, *self.strip)
+
+    @property
+    def items(self) -> int:
+        return math.prod(self.grid)
+
+    def item(self, w: int) -> dict:
+        """Work item ``w`` (block order): the planes, rows and columns it
+        owns, as half-open ranges clipped to the grid, and the planes it
+        streams."""
+        g0, g1, g2 = self.grid
+        s, r = divmod(w, g1 * g2)
+        a, c = divmod(r, g2)
+        n0, n1, n2 = self.shape
+        lo = s * self.seg
+        hi = min(lo + self.seg, n0)
+        return dict(
+            planes=(lo, hi),
+            rows=(a * self.strip[0], min((a + 1) * self.strip[0], n1)),
+            cols=(c * self.strip[1], min((c + 1) * self.strip[1], n2)),
+            streamed=(lo - self.halo, hi + self.halo),
+        )
+
+
+def plan(shape, halo: int, strip=(32, 32), *, even: bool = False, row_words=()) -> MarchPlan:
+    """The plan of a marching launch on a grid of ``shape``.
+
+    ``halo`` and ``strip`` are the kernel's (``kernels.TILES``); ``even``
+    asks for even segments (the chain).  ``row_words`` are the row lengths,
+    in float32 words, of every tensor the launch streams: TMA takes them
+    when each is a multiple of 4 (a row stride of 16 B), cp.async
+    otherwise."""
+    n0, n1, n2 = (int(s) for s in shape)
+    strips = -(-n1 // strip[0]) * -(-n2 // strip[1])
+    seg = min(SEG, max(MIN_SEG, n0 * strips // MIN_ITEMS))
+    if even:
+        seg -= seg % 2
+    return MarchPlan(
+        shape=(n0, n1, n2), strip=tuple(strip), halo=halo, seg=seg,
+        tma=all(int(w) % 4 == 0 for w in row_words),
+    )

@@ -23,12 +23,14 @@ restricted.  The CUDA source is ``csrc/chain_down.cu``; its note gives the
 byte bound and the tile design.
 
 Large planes take the same function from ``csrc/chain_march.cu``, a
-kernel that marches column strips down axis 0, in three wrappers with
-the JAX names: :func:`fused_chain_down_2d_staged` (one block per strip
-over all of axis 0), :func:`fused_chain_down_2d` (windows of
-``MARCH_TILE[0]`` planes) and :func:`fused_zero_gibbs_restrict_fd` (a
-level from zero: x = 0, no z, b required).  Each has its own twin and
-launch counter; their xpy/y and rc agree bit for bit.
+kernel that marches column strips down segments of axis 0 in the launch
+geometry of :func:`chain_plan`, in three wrappers with the JAX names:
+:func:`fused_chain_down_2d_staged` (the deferred chain's),
+:func:`fused_chain_down_2d` (``sample_chain``'s) and
+:func:`fused_zero_gibbs_restrict_fd` (a level from zero: x = 0, no z, b
+required).  Each has its own twin and launch counter; their xpy/y and rc
+agree bit for bit, and the partial sums are one per work item of the
+plan.
 """
 
 from __future__ import annotations
@@ -38,12 +40,13 @@ import math
 import torch
 
 from parmgmc_tpu_torch import kernels
-from parmgmc_tpu_torch.kernels import _noise, _twin
+from parmgmc_tpu_torch.kernels import _march, _noise, _twin
 
 __all__ = [
     "CHAIN_TILE",
     "MARCH_TILE",
     "chain_down_2d_supported",
+    "chain_plan",
     "fused_chain_down_fd",
     "fused_chain_down_fd_reference",
     "fused_chain_down_2d",
@@ -174,9 +177,18 @@ def fused_chain_down_fd(
 
 # -- large planes: the marching kernel (csrc/chain_march.cu) ------------------
 
-# (T0 of the windowed mode, T1, T2): a staged block owns a (T1, T2) strip of
-# every plane; a windowed block (#4, #3) the same strip over T0 planes
+# (axis-0 halo, T1, T2): a block owns a (T1, T2) column strip over a
+# segment of axis 0 (chain_plan) and recomputes the halo planes around it
 MARCH_TILE = kernels.TILES["chain_march"]
+
+
+def chain_plan(shape, with_z=False) -> _march.MarchPlan:
+    """The launch plan of the marching chain kernel on ``shape`` (#5, #4
+    and #3 share it): even segments, TMA when every streamed row (x and b
+    of n2 words, z of n2/2) is a multiple of 16 B."""
+    n2 = int(shape[2])
+    return _march.plan(shape, MARCH_TILE[0], MARCH_TILE[1:], even=True,
+                       row_words=(n2, n2 // 2) if with_z else (n2,))
 
 
 def chain_down_2d_supported(shape) -> bool:
@@ -194,10 +206,10 @@ def fused_chain_down_2d_staged_reference(
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
 ):
     """Plain-torch twin of :func:`fused_chain_down_2d_staged` (any device):
-    partial sums per column strip."""
+    partial sums per work item of :func:`chain_plan`."""
     _check_args(x, b, z, with_zsum)
     xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
-    return _with_sums(xpy, rc, z, (x.shape[0], *MARCH_TILE[1:]), with_xsum, with_zsum)
+    return _with_sums(xpy, rc, z, chain_plan(x.shape).tile, with_xsum, with_zsum)
 
 
 def fused_chain_down_2d_reference(
@@ -205,10 +217,10 @@ def fused_chain_down_2d_reference(
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
 ):
     """Plain-torch twin of :func:`fused_chain_down_2d` (any device): partial
-    sums per (T0, T1, T2) window."""
+    sums per work item of :func:`chain_plan`."""
     _check_args(x, b, z, with_zsum)
     xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
-    return _with_sums(xpy, rc, z, MARCH_TILE, with_xsum, with_zsum)
+    return _with_sums(xpy, rc, z, chain_plan(x.shape).tile, with_xsum, with_zsum)
 
 
 def fused_zero_gibbs_restrict_fd_reference(
@@ -219,10 +231,10 @@ def fused_zero_gibbs_restrict_fd_reference(
     return _chain_math(None, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, None)
 
 
-def _march(counter, t0, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-           with_noise, z, with_xsum, with_zsum):
-    """Launch ``csrc/chain_march.cu`` with ``t0`` planes per block (0: the
-    windowed T0) on CUDA tensors; count it under ``counter``."""
+def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
+                  with_noise, z, with_xsum, with_zsum):
+    """Launch ``csrc/chain_march.cu`` in the geometry of :func:`chain_plan`
+    on CUDA tensors; count it under ``counter``."""
     like = b if x is None else x
     if sweep not in ("forward", "backward"):
         raise ValueError(f"chain kernel runs one forward/backward sweep, got {sweep!r}")
@@ -231,8 +243,9 @@ def _march(counter, t0, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
             kernels.check_input(name, t, like)
     lib = kernels.lib()
     n0, n1, n2 = like.shape
-    tile = (t0 or MARCH_TILE[0], *MARCH_TILE[1:])
-    nblk = math.prod(-(-s // t) for s, t in zip(like.shape, tile))
+    plan = chain_plan(like.shape, with_z=z is not None)
+    tma = plan.tma and all(t.data_ptr() % 16 == 0 for t in (x, b, z) if t is not None)
+    nblk = plan.items
     xpy = torch.empty_like(like)
     rc = torch.empty((n0 // 2, n1 // 2, n2 // 2), dtype=like.dtype, device=like.device)
     xsum = torch.empty(nblk, dtype=like.dtype, device=like.device) if with_xsum else None
@@ -241,7 +254,7 @@ def _march(counter, t0, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
     with torch.cuda.device(like.device):
         err = lib.pmg_chain_march(
             ptr(x), ptr(b), ptr(z), ptr(xpy), ptr(rc), ptr(xsum), ptr(zsum),
-            n0, n1, n2, t0, *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
+            n0, n1, n2, plan.seg, int(tma), *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _twin.noise_factor(omega),
             _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN),
             0 if sweep == "forward" else 1, int(with_noise),
@@ -261,8 +274,9 @@ def fused_chain_down_2d_staged(
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase of
-    :func:`fused_chain_down_fd` for large planes, one block per column
-    strip walking all of axis 0 (partial sums per strip).
+    :func:`fused_chain_down_fd` for large planes, by column strips marching
+    down segments of axis 0 (:func:`chain_plan`; partial sums per work
+    item).
 
     Port of ``parmgmc_tpu/kernels/mg_sweep.py::fused_chain_down_2d_staged``
     with the port's compact carry ``z`` in place of ``zf``/``zx2``.  CPU
@@ -276,8 +290,8 @@ def fused_chain_down_2d_staged(
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
     _check_args(x, b, z, with_zsum)
-    return _march("chain_2d_staged", x.shape[0], x, b, coeffs, kappa2, hinv2, omega, seed,
-                  step, sweep, with_noise, z, with_xsum, with_zsum)
+    return _launch_march("chain_2d_staged", x, b, coeffs, kappa2, hinv2, omega, seed, step,
+                         sweep, with_noise, z, with_xsum, with_zsum)
 
 
 def fused_chain_down_2d(
@@ -285,9 +299,8 @@ def fused_chain_down_2d(
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): as
-    :func:`fused_chain_down_2d_staged`, with axis 0 cut into windows of
-    ``MARCH_TILE[0]`` planes that each recompute a 3-plane halo (partial
-    sums per window); bit for bit the staged outputs xpy and rc.
+    :func:`fused_chain_down_2d_staged`, in the same launch geometry, on its
+    own entry and counter; bit for bit the staged outputs.
 
     Port of ``parmgmc_tpu/kernels/mg_sweep.py::fused_chain_down_2d``.  CPU
     tensors run the twin; CUDA tensors launch ``csrc/chain_march.cu`` or
@@ -300,8 +313,8 @@ def fused_chain_down_2d(
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
     _check_args(x, b, z, with_zsum)
-    return _march("chain_2d", 0, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-                  with_noise, z, with_xsum, with_zsum)
+    return _launch_march("chain_2d", x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
+                         with_noise, z, with_xsum, with_zsum)
 
 
 def fused_zero_gibbs_restrict_fd(
@@ -322,5 +335,5 @@ def fused_zero_gibbs_restrict_fd(
     if b.device.type != "cuda":
         raise ValueError(f"no zero-start level kernel for device {b.device}")
     _check_args(b, b, None, False)
-    return _march("zero_restrict", 0, None, b, coeffs, kappa2, hinv2, omega, seed, step,
-                  sweep, with_noise, None, False, False)
+    return _launch_march("zero_restrict", None, b, coeffs, kappa2, hinv2, omega, seed, step,
+                         sweep, with_noise, None, False, False)

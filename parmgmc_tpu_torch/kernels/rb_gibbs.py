@@ -21,8 +21,9 @@ design.  They route as the JAX package routes: a grid whose planes hold
 more than :data:`_PLANE_LIMIT` points goes to
 :func:`fused_rb_gibbs_sweep_2d` (#8), which sends FD calls on to
 :func:`fused_rb_gibbs_sweep_2d_staged` (#9).  Both large-plane kernels are
-launch modes of ``csrc/sweep_march.cu``, which marches column strips down
-axis 0; they compute the same function with the same draws as
+entry points of ``csrc/sweep_march.cu``, which marches column strips down
+segments of axis 0 in the launch geometry of :func:`sweep_plan`; they
+compute the same function with the same draws as
 ``rb_gibbs.cu``, bit for bit.  The Mosaic tile gates are not copied: the
 CUDA tiles take any 3D shape.
 """
@@ -32,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from parmgmc_tpu_torch import kernels
-from parmgmc_tpu_torch.kernels import _noise, _twin
+from parmgmc_tpu_torch.kernels import _march, _noise, _twin
 
 __all__ = [
     "fused_rb_gibbs_sweep_fd",
@@ -43,6 +44,7 @@ __all__ = [
     "fused_rb_gibbs_sweep_2d_reference",
     "fused_rb_gibbs_sweep_2d_staged",
     "fused_rb_gibbs_sweep_2d_staged_reference",
+    "sweep_plan",
 ]
 
 # planes above this many points take the large-plane kernels: the sweeps
@@ -113,11 +115,18 @@ def fused_rb_gibbs_sweep_reference(
     return _sweep_reference(x, b, diag, coeffs, omega, seed, step, noise_mult, sweep, with_noise)
 
 
+def sweep_plan(shape) -> _march.MarchPlan:
+    """The launch plan of the marching sweep on ``shape``: #9 and #8 share
+    it (strips of ``kernels.TILES["sweep_march"]``, 2-plane axis-0 halo)."""
+    halo, *strip = kernels.TILES["sweep_march"]
+    return _march.plan(shape, halo, strip, row_words=(shape[2],))
+
+
 def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sweep,
             with_noise, counter, entry="pmg_rb_gibbs"):
-    """Launch the C function ``entry`` (one of the sweep kernels' entry
-    points, which share a signature) on CUDA tensors; count it under
-    ``counter``."""
+    """Launch the C function ``entry`` (a sweep kernel's entry point) on
+    CUDA tensors; count it under ``counter``.  The marching entries also
+    take the segment and the producer of :func:`sweep_plan`."""
     if x.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {x.device}")
     color0 = _color0(sweep)
@@ -128,9 +137,14 @@ def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sw
     lib = kernels.lib()
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()
+    geometry = ()
+    if entry != "pmg_rb_gibbs":
+        p = sweep_plan(x.shape)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, b, diag) if t is not None)
+        geometry = (p.seg, int(p.tma and aligned))
     with torch.cuda.device(x.device):
         err = getattr(lib, entry)(
-            ptr(x), ptr(b), ptr(diag), ptr(out), *x.shape,
+            ptr(x), ptr(b), ptr(diag), ptr(out), *x.shape, *geometry,
             *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _nscale(omega, noise_mult),
             _noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN),
@@ -243,16 +257,15 @@ def fused_rb_gibbs_sweep_2d(
 ):
     """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` (``fd_params`` =
     (kappa2, hinv2), ``diag`` None) or of :func:`fused_rb_gibbs_sweep`
-    (``diag`` given) for large planes, in windows of 16 planes
-    (``kernels.TILES["sweep_march"][0]``) that each recompute a 2-plane
-    axis-0 halo.
+    (``diag`` given) for large planes, by column strips marching down
+    segments of axis 0 (:func:`sweep_plan`, the geometry #9 shares).
 
     Port of ``parmgmc_tpu/kernels/rb_gibbs.py::fused_rb_gibbs_sweep_2d``.
     FD calls go on to :func:`fused_rb_gibbs_sweep_2d_staged`, as the JAX
     function auto-routes them; the staged kernel takes every 3D shape, so
     the JAX tile probe has no counterpart.  ``staged=False`` keeps an FD
-    call on the windowed kernel (the JAX ``tile2d=`` call of ``bench.py
-    --selftest-staged``).  CPU tensors run the twin; CUDA tensors launch
+    call on this entry point and counter (the JAX ``tile2d=`` call of
+    ``bench.py --selftest-staged``).  CPU tensors run the twin; CUDA tensors launch
     ``csrc/sweep_march.cu`` (float32, contiguous) or raise."""
     if (diag is None) == (fd_params is None):
         raise ValueError("the 2D sweep takes exactly one of diag and fd_params")
@@ -276,8 +289,8 @@ def fused_rb_gibbs_sweep_2d_staged(
     sweep="forward", with_noise=True, fd_params=None,
 ):
     """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` with ``fd_params`` =
-    (kappa2, hinv2) for large planes, one block per column strip walking
-    all of axis 0; bit for bit the windowed FD mode of
+    (kappa2, hinv2) for large planes, by column strips marching down
+    segments of axis 0 (:func:`sweep_plan`); bit for bit the FD mode of
     :func:`fused_rb_gibbs_sweep_2d` and #7.
 
     Port of ``parmgmc_tpu/kernels/rb_gibbs.py::fused_rb_gibbs_sweep_2d_staged``

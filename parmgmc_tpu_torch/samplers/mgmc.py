@@ -61,14 +61,14 @@ from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 __all__ = ["MGMCSampler", "build_hierarchy"]
 
 
-def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="aggregate"):
+def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
     """(ops, transfers): per-level operators by closed-form aggregate
-    Galerkin coarsening of a link-count FD operator."""
-    if coarsening != "aggregate":
-        raise NotImplementedError(
-            f"coarsening={coarsening!r} needs the comb-probed Galerkin product "
-            "(ROADMAP.md item 18)"
-        )
+    Galerkin coarsening of a link-count FD operator.
+
+    The default is the JAX package's, ``"linear"``; its transfer needs the
+    comb-probed Galerkin product, so it raises where the first transfer
+    would be built (a one-level hierarchy builds with any value).  Pass
+    ``coarsening="aggregate"`` for the closed-form hierarchy."""
     if not isinstance(op, StencilOperator):
         raise NotImplementedError(
             "MGMC on LRC or graph operators is ROADMAP.md items 13 and 20"
@@ -83,6 +83,11 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="aggregate"
             break
         if any(s <= 2 for s in gshape):
             break
+        if coarsening != "aggregate":
+            raise NotImplementedError(
+                f"coarsening={coarsening!r} needs the comb-probed Galerkin product "
+                "(ROADMAP.md item 18); pass coarsening='aggregate'"
+            )
         fd = detect_fd_params(cur) if all(s % 2 == 0 for s in gshape) else None
         if fd is None:
             raise NotImplementedError(
@@ -129,7 +134,7 @@ class MGMCSampler:
         n_post: int = 1,
         coarse_sampler=None,
         n_coarse: int = 1,
-        coarsening: str = "aggregate",
+        coarsening: str = "linear",
         gamma: int = 1,
     ) -> "MGMCSampler":
         ops, transfers = build_hierarchy(

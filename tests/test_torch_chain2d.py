@@ -228,7 +228,8 @@ def _zeros(shapes):
 
 def _sampler(shape):
     op = fd_stencil(shape, 1.69, float((shape[0] - 1) ** 2), device=DEV)
-    return mgmc.MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=16)
+    return mgmc.MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=16,
+                                   coarsening="aggregate")
 
 
 def test_routes_reach_the_kernels_the_jax_package_runs(large_planes):

@@ -18,10 +18,13 @@ wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
+from unittest import mock
+
 import pytest
 import torch
 
 from parmgmc_tpu_torch import kernels
+from parmgmc_tpu_torch.kernels import rb_gibbs
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
 from parmgmc_tpu_torch.kernels.mg_sweep import (
     fused_chain_down_2d,
@@ -88,7 +91,10 @@ def test_chain_kernel_matches_twin(dev, shape):
                 assert _rel(a, w) <= tol, (noise, bb is None, i)
 
 
-@pytest.mark.parametrize("shape", [(36, 40, 70), (12, 66, 34)])
+# n2 % 4 != 0 streams through cp.async, (20, 40, 72) all through TMA,
+# (12, 66, 68) z (n2 / 2 = 34) through cp.async and x, b through TMA
+@pytest.mark.parametrize("shape", [(36, 40, 70), (12, 66, 34), (20, 40, 72), (12, 66, 68),
+                                   (12, 770, 774)])
 def test_march_kernel_modes_match_twins(dev, shape):
     """#5 and #4 against their twins and bit for bit against each other;
     #3 against its twin and bit for bit #5 with x = 0."""
@@ -179,11 +185,12 @@ def test_sweep_kernels_match_twins(dev, shape):
                        fused_rb_gibbs_sweep_fd(x, zeros, coeffs, 1.0, h, 1.3, 3, 5))
 
 
-@pytest.mark.parametrize("shape", [(12, 66, 34), (37, 40, 70)])
+# n2 % 4 != 0 streams through cp.async, the others through TMA
+@pytest.mark.parametrize("shape", [(12, 66, 34), (37, 40, 70), (37, 40, 72), (12, 770, 774)])
 def test_sweep_march_modes_match_twins(dev, shape):
     """#9 and #8 (FD and streamed D) against their twins; #9, #8-FD and #7
-    bit for bit, #8-streamed and #6 bit for bit (at these planes the
-    whole-plane wrappers launch #7 and #6)."""
+    bit for bit, #8-streamed and #6 bit for bit (the whole-plane wrappers
+    forced to #7 and #6 past the plane limit)."""
     g = torch.Generator(device=dev).manual_seed(11)
     x, b, f = (torch.randn(*shape, generator=g, device=dev) for _ in range(3))
     h = float((shape[0] - 1) ** 2)
@@ -206,8 +213,9 @@ def test_sweep_march_modes_match_twins(dev, shape):
                 want = fused_rb_gibbs_sweep_2d_reference(x, bb, diag, coeffs, 1.3, 3, 5, **kw)
                 assert _rel(ws, want) <= tol, (sweep, noise, bb is None)
                 assert torch.equal(st, wi)
-                assert torch.equal(st, fused_rb_gibbs_sweep_fd(x, bb, coeffs, *fd, 1.3, 3, 5, **kw))
-                assert torch.equal(ws, fused_rb_gibbs_sweep(x, bb, diag, coeffs, 1.3, 3, 5, **kw))
+                with mock.patch.object(rb_gibbs, "_PLANE_LIMIT", 2**62):  # #7 and #6 at any plane
+                    assert torch.equal(st, fused_rb_gibbs_sweep_fd(x, bb, coeffs, *fd, 1.3, 3, 5, **kw))
+                    assert torch.equal(ws, fused_rb_gibbs_sweep(x, bb, diag, coeffs, 1.3, 3, 5, **kw))
     zeros = torch.zeros_like(x)
     assert torch.equal(fused_rb_gibbs_sweep_2d_staged(x, None, coeffs, 1.3, 3, 5, fd_params=fd),
                        fused_rb_gibbs_sweep_2d_staged(x, zeros, coeffs, 1.3, 3, 5, fd_params=fd))
@@ -248,7 +256,7 @@ def test_keyed_patch_chain_launches(dev):
 
 def test_keyed_general_cycle_and_gibbs_launch_the_sweep_kernel(dev):
     op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
-    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=64)
+    smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=64, coarsening="aggregate")
     assert len(smp.ops) == 3 and not smp.deferred_eligible()
     kernels.reset_launch_counts()
     st, q = sample_chain(smp, init_chain(smp, 2), None, 5, extract=torch.mean)
@@ -266,7 +274,7 @@ def test_keyed_general_cycle_and_gibbs_launch_the_sweep_kernel(dev):
 
 def test_keyed_chain_deferred_is_bitwise(dev):
     op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
-    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=64)
+    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=64, coarsening="aggregate")
     assert len(smp.ops) == 3
     kernels.reset_launch_counts()
     st = init_chain(smp, 6)

@@ -152,7 +152,7 @@ def test_keyed_chain_moments(case):
     shape = (4, 4, 8)  # 128 DOF
     if case == "mgmc_v22":
         op = shifted_laplace_fd(shape, 1.0, device=DEV)
-        smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=16)
+        smp = MGMCSampler.create(op, n_pre=2, n_post=2, coarsest_size=16, coarsening="aggregate")
         assert [o.grid_shape for o in smp.ops] == [(4, 4, 8), (2, 2, 4)]
         n, burnin = 1500, 20
     else:

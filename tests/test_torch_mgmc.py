@@ -5,8 +5,12 @@
 * the exact invariance identity through ``torch.func.jacfwd`` (< 1e-10);
 * the keyed kernel chain (the twins, on CPU tensors): deferred chain
   bitwise equal to the plain chain, moments and tau sane on a tiny grid,
-  and out-of-slice configurations refused.
+  and out-of-slice configurations refused;
+* the default coarsening is the JAX package's ("linear"): where JAX builds
+  its linear hierarchy the port refuses instead of building another one.
 """
+
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 from parmgmc_tpu.models.problems import gmrf_3d as jax_gmrf_3d
+from parmgmc_tpu.operators.transfer import GeometricTransfer as JaxGeometricTransfer
 from parmgmc_tpu.samplers.mgmc import MGMCSampler as JaxMGMCSampler
 from parmgmc_tpu_torch import convert
 from parmgmc_tpu_torch.chain import (
@@ -27,6 +32,7 @@ from parmgmc_tpu_torch.chain import (
 from parmgmc_tpu_torch.diagnostics.iact import iact
 from parmgmc_tpu_torch.models.problems import gmrf_3d
 from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+from parmgmc_tpu_torch.samplers import mgmc
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 from parmgmc_tpu_torch.testing import invariance_error
 
@@ -81,7 +87,7 @@ def test_step_with_noise_matches_jax(cfg, with_b):
 @pytest.mark.parametrize("cfg", ["main", "general"])
 def test_invariance(cfg):
     op = gmrf_3d(8, 1.0, F64, device=DEV)
-    smp = MGMCSampler.create(op, coarsest_size=16, **(_MAIN if cfg == "main" else _GENERAL))
+    smp = MGMCSampler.create(op, coarsest_size=16, coarsening="aggregate", **(_MAIN if cfg == "main" else _GENERAL))
     b = torch.from_numpy(np.random.RandomState(6).randn(8, 8, 8))
     for rhs in (None, b):
         mean_err, cov_err = invariance_error(smp, op, rhs)
@@ -92,7 +98,7 @@ def _tiny_sampler():
     # (8, 8, 16) -> (4, 4, 8) -> (2, 2, 4): level 0 on the chain kernel,
     # level 1 on the tail kernel, a 16-DOF Cholesky coarsest level
     op = shifted_laplace_fd((8, 8, 16), 1.0, device=DEV)
-    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=16)
+    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=16, coarsening="aggregate")
     assert [o.grid_shape for o in smp.ops] == [(8, 8, 16), (4, 4, 8), (2, 2, 4)]
     return op, smp
 
@@ -139,7 +145,7 @@ def test_keyed_path_refuses_out_of_slice_configs():
     # cycles other than V(1,0) run the general keyed cycle; the deferred
     # chain stays the V(1,0) chain kernels' alone
     for kw in (dict(n_post=1), dict(n_post=0, gamma=2), dict(n_post=0, sweep="symmetric")):
-        smp = MGMCSampler.create(op, coarsest_size=16, **kw)
+        smp = MGMCSampler.create(op, coarsest_size=16, coarsening="aggregate", **kw)
         assert not smp.deferred_eligible()
         _, x1 = smp.step(0, x, None)
         assert x1.shape == op.grid_shape and bool(torch.isfinite(x1).all())
@@ -148,11 +154,34 @@ def test_keyed_path_refuses_out_of_slice_configs():
         with pytest.raises(NotImplementedError):
             smp.step_deferred(0, x, smp.deferred_init(x.dtype), None)
     # float64 levels have no kernel: the smoothers take explicit-noise steps
-    smp64 = MGMCSampler.create(shifted_laplace_fd((8, 8, 16), 1.0, F64, device=DEV), n_post=0, coarsest_size=16)
+    smp64 = MGMCSampler.create(shifted_laplace_fd((8, 8, 16), 1.0, F64, device=DEV), n_post=0,
+                                coarsest_size=16, coarsening="aggregate")
     assert not smp64.deferred_eligible() and not smp64.smoothers[0].has_kernel
     _, x64 = smp64.step(0, x.double(), None)
     assert x64.dtype == F64 and bool(torch.isfinite(x64).all())
     # 2D grids stay out of slice (ROADMAP item 18)
-    smp2d = MGMCSampler.create(shifted_laplace_fd((8, 16), 1.0, device=DEV), n_post=0, coarsest_size=8)
+    smp2d = MGMCSampler.create(shifted_laplace_fd((8, 16), 1.0, device=DEV), n_post=0, coarsest_size=8,
+                                coarsening="aggregate")
     with pytest.raises(NotImplementedError):
         smp2d.step(0, torch.zeros(8, 16), None)
+
+
+def test_default_coarsening_is_the_jax_default():
+    """create(op) with every default: JAX builds the linear hierarchy
+    (GeometricTransfer); the port has no linear transfer yet (ROADMAP item
+    18), so it raises before it builds any transfer -- it never builds the
+    aggregate hierarchy in its place.  One level needs no transfer and
+    builds in both packages."""
+    jsmp = JaxMGMCSampler.create(jax_gmrf_3d(16, kappa=1.0))
+    assert jsmp.n_levels > 1
+    assert all(isinstance(t, JaxGeometricTransfer) for t in jsmp.transfers)
+    op = gmrf_3d(16, kappa=1.0, device=DEV)
+    with mock.patch.object(mgmc, "AggregateTransfer", side_effect=AssertionError("aggregate built")):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            MGMCSampler.create(op)
+        with pytest.raises(NotImplementedError, match="item 18"):
+            mgmc.build_hierarchy(op)
+        one = MGMCSampler.create(op, n_levels=1)
+    assert one.n_levels == JaxMGMCSampler.create(jax_gmrf_3d(16, kappa=1.0), n_levels=1).n_levels == 1
+    smp = MGMCSampler.create(op, coarsening="aggregate")
+    assert [o.grid_shape for o in smp.ops] == [tuple(o.grid_shape) for o in jsmp.ops]

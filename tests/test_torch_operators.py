@@ -101,7 +101,7 @@ def test_aggregate_transfer_matches_jax_exactly(shape):
 
 def test_hierarchy_matches_galerkin_and_jax():
     op = gmrf_3d(8, 1.1, F64, device=DEV)
-    ops, transfers = build_hierarchy(op, coarsest_size=16)
+    ops, transfers = build_hierarchy(op, coarsest_size=16, coarsening="aggregate")
     jops, _ = jax_build_hierarchy(jax_gmrf_3d(8, 1.1, jnp.float64), coarsest_size=16,
                                   coarsening="aggregate")
     assert [o.grid_shape for o in ops] == [tuple(o.grid_shape) for o in jops] == [(8,) * 3, (4,) * 3]
@@ -114,9 +114,9 @@ def test_hierarchy_matches_galerkin_and_jax():
         Aj = np.asarray(jops[l + 1].to_dense())
         assert np.abs(Ac.numpy() - Aj).max() <= 1e-12 * np.abs(Aj).max()
     with pytest.raises(NotImplementedError):
-        build_hierarchy(op, coarsening="linear")
+        build_hierarchy(op, coarsest_size=16, coarsening="linear")
     with pytest.raises(NotImplementedError):
-        build_hierarchy(gmrf_3d(7, 1.0, F64, device=DEV), coarsest_size=8)
+        build_hierarchy(gmrf_3d(7, 1.0, F64, device=DEV), coarsest_size=8, coarsening="aggregate")
 
 
 @pytest.mark.parametrize("sweep", ["forward", "backward", "symmetric"])

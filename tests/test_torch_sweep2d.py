@@ -290,7 +290,7 @@ def test_keyed_chains_are_bitwise_across_routes(routes, monkeypatch, case):
     shape = (8, 8, 16)
     if case == "v22":
         smp = MGMCSampler.create(shifted_laplace_fd(shape, 1.0, device=DEV), n_pre=2, n_post=2,
-                                 coarsest_size=16)
+                                 coarsest_size=16, coarsening="aggregate")
     elif case == "gibbs_fd":
         smp = gibbs.GibbsSampler.create(shifted_laplace_fd(shape, 2.0, device=DEV), sweep="symmetric")
     else:
