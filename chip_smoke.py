@@ -19,7 +19,9 @@ Phases, in order; any failure raises and exits non-zero:
               from torch.profiler.  The full sweep runs in both modes (FD
               diagonal, #7; streamed diagonal, #6, with the FD diagonal
               times a smooth field in [1, 2]), forward and backward, noise
-              on and off, b given and None.
+              on and off, b given and None; #7 (b, noise) timed at every
+              level (calls queued behind a sleeping kernel) with its
+              launch plan.
 4. moments -- bench.py's selftest problem (16x16x128, b = 50): the keyed
               kernel chain against the explicit-noise plain chain over 12000
               steps after 200 burn-in (max |z| < 10, mean |z| < 2.5, max
@@ -48,10 +50,11 @@ Phases, in order; any failure raises and exits non-zero:
               symmetric, FD (#7) and streamed diagonal (#6): wall ms per
               sweep and the launches of each mode.
 10. patch kernels -- the patch sweep kernels, whole-sweep cooperative
-              (#10) and per colour (#11), against their twin on the squared
+              (#10) and per phase (#11), against their twin on the squared
               prior (kappa = 1) at 128^3 and 256^3 and at (11, 12, 13),
               noise on and off, b given and None (1e-4 relative max-norm
-              either way), #10 and #11 bit for bit against each other;
+              either way), #10 and #11 bit for bit against each other and
+              against the colour-by-colour check (one launch a colour);
               device times per call.
 11. patch moments -- bench.py's patch problem (16x10x128, kappa = 40,
               b = 5): the keyed chain through #10 and again through #11
@@ -97,7 +100,8 @@ Phases, in order; any failure raises and exits non-zero:
               #8 (streamed) == #6 bit for bit at each shape (the whole-plane
               kernels forced past the plane limit); device times (CUDA events)
               of #9, #8 (FD), #7, #8 (streamed), #6 and the twins at 768^3; the
-              launch geometry, blocks an SM and waves.
+              launch geometry, blocks an SM and waves; #7 (b, noise) at each
+              level below 0 of the 768^3 V(2,2) hierarchy, with its plan.
 17. large-plane sweep moments -- phase 7's problems with the plane limit
               patched below their finest plane: V(2,2) (#9 at level 0), Gibbs FD
               symmetric (#9) and Gibbs streamed forward (#8), each against phase
@@ -359,6 +363,12 @@ def phase_kernels(torch, dev, main_smp, v22_smp):
             print(f"  sweep {mode} {shape} omega {omega:g} kappa2 {kappa2:g} hinv2 {hinv2:g} "
                   f"forward/backward, b given/None: worst rel "
                   f"{rels[False]:.2e} noise off (tol 1e-05), {rels[True]:.2e} noise on (tol 0.0001)")
+            if mode == "fd":
+                # every level's V(2,2) call (b, noise), on the full sweep's plan
+                p = rb_gibbs.full_sweep_plan(shape)
+                t = queued_ms(torch, lambda: kern(x, b, *args), 20)
+                print(f"  #7 at {shape} (b, noise): {t:.4f} ms; plan: {p.items} work items of {p.tile} "
+                      f"(+{p.halo} planes each side), {'TMA' if p.tma else 'cp.async'}")
             if main:
                 # what the main paths run: V(2,2) level 0 sweeps with b (FD);
                 # the streamed Gibbs chain on the prior (b = None)
@@ -373,6 +383,28 @@ def phase_kernels(torch, dev, main_smp, v22_smp):
                       f"noise): {ms:.4f} ms, twin {plain:.4f} ms, bound {bms:.4f} ms ({by})")
         del x, b, diag
     return rec
+
+
+def queued_ms(torch, fn, n):
+    """Device ms per call of fn over n calls after one warm-up, the calls
+    queued behind a sleeping kernel so that they run back to back (CUDA
+    events around a run of small kernels otherwise time the host's launch
+    gaps)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0  # an upper bound on the enqueue time
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host * 2e9))  # cycles: twice the enqueue at 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def event_ms(torch, fn, n):
@@ -700,18 +732,23 @@ def phase_patch_kernels(torch, dev, smps):
                 args, kw = (x, bb, k2, h2, 1234, 77), dict(with_noise=noise)
                 g10 = whole(*args, **kw)
                 g11 = ps.fused_patch_sweep_sqfd_streamed(*args, **kw)
+                gcw = ps.fused_patch_sweep_sqfd_colourwise(*args, **kw)
                 want = ps.fused_patch_sweep_sqfd_reference(*args, **kw)
                 torch.cuda.synchronize()
                 check(g10.shape == want.shape == g11.shape, f"patch sweep shape {g10.shape} != {want.shape}")
                 check(torch.equal(g10, g11), f"#10 and #11 differ at {shape} (noise={noise}, "
                                              f"b={'yes' if bb is not None else 'None'})")
+                check(torch.equal(g11, gcw), f"#11 differs from the colour-by-colour order at {shape} "
+                                             f"(noise={noise}, b={'yes' if bb is not None else 'None'})")
+                del gcw
                 r, d = rel_err(g10, want)
                 check(r <= 1e-4, f"patch sweep kernel ({shape}, noise={noise}, b="
                                  f"{'yes' if bb is not None else 'None'}) disagrees with its twin: {r:.3e} > 1e-4")
                 check(bool(torch.isfinite(g10).all()), f"patch sweep at {shape} is not finite")
                 rels.append(r)
                 worst = max(worst, d)
-        print(f"  patch {shape} kappa2 {k2:g} hinv2 {h2:g}: #10 == #11 bit for bit; worst rel "
+        print(f"  patch {shape} kappa2 {k2:g} hinv2 {h2:g}: #10 == #11 == the colour order bit for bit; "
+              f"worst rel "
               f"against the twin {max(rels):.2e} (tol 1e-4), noise on/off, b given/None")
         n = x.numel()
         bms, by = bound(4 * 2 * n, FLOPS_PATCH * n)
@@ -758,6 +795,7 @@ def phase_patch_moments(torch, dev):
 def phase_patch_path(torch, smps):
     from parmgmc_tpu_torch import kernels
     from parmgmc_tpu_torch.chain import init_chain, sample_chain
+    from parmgmc_tpu_torch.kernels import patch_sweep as ps
 
     counts = {}
     for smp in smps:
@@ -801,7 +839,7 @@ def phase_patch_path(torch, smps):
         torch.cuda.synchronize()
         host_ms = sorted(host)[4] * 1e3
         per_call = 1 if route == "patch_sweep" else sum(
-            1 for c_ in range(125) if all(n > a for n, a in zip(shape, (c_ // 25, c_ // 5 % 5, c_ % 5))))
+            1 for ph in ps.patch_schedule(shape).phases if ph.lines)
         idle = max(0.0, 1.0 - busy / (dt * 1e3))
         print(f"  patch path {shape}: {dt * 1e3:.4f} ms/sweep wall ({N_PATCH_TIME} sweeps), device "
               f"{busy:.4f} ms/sweep, idle share ~{idle:.3f}, host {host_ms:.4f} ms/sweep to "
@@ -1139,6 +1177,20 @@ def phase_sweep2d_kernels(torch, dev, big22):
                   f"#8 {t['#8 streamed']:.4f}, #6 {t['#6']:.4f}, twin {t['twin streamed']:.4f} "
                   f"(bound {bms8:.4f}, {by8})")
         del x, b, diag
+
+    # #7 (b, noise) at the levels below 0 of the 768^3 V(2,2) hierarchy, each
+    # with its launch plan and coefficients: phase 18's 24 launches a step
+    step = 0.0
+    for o, sm in list(zip(big22.ops, big22.smoothers))[1:]:
+        shape = tuple(o.grid_shape)
+        x, b = randn(*shape), randn(*shape)
+        args = (sm._coeff6(), *sm.fd_params, sm.omega, 1234, 77)
+        t = queued_ms(torch, lambda: rg.fused_rb_gibbs_sweep_fd(x, b, *args), 20)
+        step += 4 * t
+        launch_report(f"#7 at {shape} (b)", "sweep_march", (1, 0), rg.full_sweep_plan(shape))
+        print(f"  #7 at {shape} (b, noise): {t:.4f} ms")
+        del x, b
+    print(f"  #7 over the 768^3 V(2,2) step's 24 launches (4 a level): {step:.4f} ms")
     return rec
 
 
@@ -1336,9 +1388,9 @@ def main():
          "parmgmc_tpu/kernels/mg_sweep.py:704"),
         ("fused_tail_down", "tail", "tail_down", "parmgmc_tpu_torch/csrc/tail_down.cu",
          "parmgmc_tpu/kernels/mg_tail.py:175"),
-        ("fused_rb_gibbs_sweep_fd", "sweep_fd", "rb_gibbs_fd", "parmgmc_tpu_torch/csrc/rb_gibbs.cu",
+        ("fused_rb_gibbs_sweep_fd", "sweep_fd", "rb_gibbs_fd", "parmgmc_tpu_torch/csrc/sweep_march.cu",
          "parmgmc_tpu/kernels/rb_gibbs.py:552"),
-        ("fused_rb_gibbs_sweep", "sweep_streamed", "rb_gibbs", "parmgmc_tpu_torch/csrc/rb_gibbs.cu",
+        ("fused_rb_gibbs_sweep", "sweep_streamed", "rb_gibbs", "parmgmc_tpu_torch/csrc/sweep_march.cu",
          "parmgmc_tpu/kernels/rb_gibbs.py:285"),
         ("fused_patch_sweep_sqfd", "patch", "patch_sweep", "parmgmc_tpu_torch/csrc/patch_sweep.cu",
          "parmgmc_tpu/kernels/patch_sweep.py:582"),

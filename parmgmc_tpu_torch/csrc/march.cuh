@@ -181,12 +181,15 @@ static inline bool encode_planes(CUtensorMap* map, const float* base, int n0, in
 // shared-memory alignment)
 constexpr int stage_floats(int rows, int cols) { return (rows * cols + 31) / 32 * 32; }
 
-// let a launch of kernel take smem dynamic bytes, with the SM's unified
-// memory split in favour of shared memory (a block slot is worth more than
-// L1 here)
+// let a launch of kernel take smem dynamic bytes (the limit is raised,
+// never lowered), with the SM's unified memory split in favour of shared
+// memory (a block slot is worth more than L1 here)
 template <typename K>
 static inline cudaError_t allow_smem(K kernel, int smem) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess || a.maxDynamicSharedSizeBytes >= smem) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);

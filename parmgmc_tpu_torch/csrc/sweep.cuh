@@ -1,9 +1,10 @@
 // The cell update of a stochastic red/black SOR (Gibbs) sweep, shared by
-// the full-sweep kernels: csrc/rb_gibbs.cu (#7, #6) and csrc/sweep_march.cu
-// (#9, #8).  Each kernel gathers a cell's value and its six neighbours from
-// its own shared-memory layout and calls sor_cell; one expression for all of
-// them keeps the float operations, and the compiler's FMA contractions, the
-// same, so the kernels agree bit for bit.
+// the four full-sweep entry points of csrc/sweep_march.cu (#9, #8, #7,
+// #6).  The kernel gathers a cell's value and its six neighbours from its
+// shared-memory rings and calls sor_cell (D streamed) or sor_cell_pre (FD,
+// the same roundings): one expression keeps the float operations, and the
+// compiler's FMA contractions, the same on every launch plan and entry,
+// so the entries agree bit for bit.
 #pragma once
 
 #include <stddef.h>

@@ -1,21 +1,25 @@
 // One full stochastic red/black SOR (Gibbs) sweep x -> x' by plane
-// marching, out of place, for grids with large planes.
+// marching, out of place, on any 3D grid.
 //
-// Replaces two Pallas kernels of parmgmc_tpu/kernels/rb_gibbs.py with one
+// Replaces four Pallas kernels of parmgmc_tpu/kernels/rb_gibbs.py with one
 // body, each with its own entry point, wrapper and launch counter:
 //
-//   fused_rb_gibbs_sweep_2d_staged (#9)  FD only: the diagonal rebuilt
-//                                        from (kappa2, hinv2) and the
-//                                        in-grid link count;
-//   fused_rb_gibbs_sweep_2d        (#8)  FD, or the diagonal streamed
-//                                        from a tensor (kStreamD).
+//   fused_rb_gibbs_sweep_2d_staged (#9)  planes over the plane limit, FD
+//                                        only: the diagonal rebuilt from
+//                                        (kappa2, hinv2) and the in-grid
+//                                        link count;
+//   fused_rb_gibbs_sweep_2d        (#8)  planes over the limit, FD or the
+//                                        diagonal streamed from a tensor
+//                                        (kStreamD);
+//   fused_rb_gibbs_sweep_fd        (#7)  smaller planes, FD;
+//   fused_rb_gibbs_sweep           (#6)  smaller planes, D streamed.
 //
-// The two share one launch geometry (kernels/_march.py, plan): a work
-// item is a (T1, T2) column strip over a segment of t0 planes of axis 0,
-// one block each, recomputing a 2-plane axis-0 halo on each side.
-//
-// Both compute what csrc/rb_gibbs.cu (#7, #6) computes: for b (b ==
-// nullptr: b = 0)
+// A work item is a (T1, T2) column strip over a segment of t0 planes of
+// axis 0, one block each, recomputing a 2-plane axis-0 halo on each side.
+// #9 and #8 take the long segments of kernels/_march.py's plan (up to 96
+// planes, for 768^3); #7 and #6 those of full_plan (a twentieth of axis 0,
+// at least 2 planes), which fill the card from 384^3 down to the 12^3 of
+// a V(2,2) hierarchy.  All four compute, for b (b == nullptr: b = 0)
 //
 //   b~ = b + nscale * sqrt(D) * eta                 (counter-hash noise)
 //   colour color0, then the other colour, each cell of the colour set to
@@ -23,7 +27,7 @@
 //
 // with the neighbours outside the grid taken as 0 and parity (i+j+k) % 2
 // of global indices.  Every cell is updated by sweep.cuh's sor_cell on
-// the same values as in rb_gibbs.cu, so #9, #8 and #7 (#8 and #6 with the
+// the same values whatever the plan, so #9, #8 and #7 (#8 and #6 with the
 // diagonal streamed) agree bit for bit.
 //
 // What bounds it on an H100: device memory by the count, instruction
@@ -58,7 +62,11 @@
 // has no branch (noise.cuh).  The in-plane halo is recomputed by the
 // neighbouring strips (578 colour-0 cells for 512), the axis-0 halo costs
 // 4 x planes a segment (4 % at 96 planes).  b~ is formed where a cell is
-// updated and the noise hash makes every recomputed draw identical.
+// updated and the noise hash makes every recomputed draw identical.  #7
+// and #6's short segments trade halo for items: 12 planes at 256^3 recompute
+// 2 colour-0 planes in 12 and give 1,408 work items (3.6 waves); at 64^3
+// and below a block's run of seg + 2 plane steps is the launch's latency,
+// and 2-plane segments keep it short.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -301,6 +309,15 @@ __global__ void __launch_bounds__(NT, 3)
   }
 }
 
+// the kernel's shared-memory limit, set once for the largest launch: a
+// driver call on every launch is host time that a V(2,2) step, 20 sweeps of
+// a few microseconds below 128^3, pays on its critical path
+template <bool kStreamD, bool kNoise>
+cudaError_t ready() {
+  static const cudaError_t e = pmg::allow_smem(sweep_march_kernel<kStreamD, kNoise>, smem_bytes(2));
+  return e;
+}
+
 template <bool kStreamD>
 int launch_mode(const float* x, const float* b, const float* d, float* out, int n0, int n1,
                 int n2, int t0, int use_tma, const pmg::StarCoeffs& q, float kappa2,
@@ -320,7 +337,7 @@ int launch_mode(const float* x, const float* b, const float* d, float* out, int 
   }
   auto kernel = with_noise ? sweep_march_kernel<kStreamD, true>
                            : sweep_march_kernel<kStreamD, false>;
-  const cudaError_t e = pmg::allow_smem(kernel, smem);
+  const cudaError_t e = with_noise ? ready<kStreamD, true>() : ready<kStreamD, false>();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((n2 + T2 - 1) / T2, (n1 + T1 - 1) / T1, (n0 + t0 - 1) / t0);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, b, d, out, n0, n1, n2, t0, use_tma, q,
@@ -380,6 +397,30 @@ int pmg_sweep_march_windowed(const float* x, const float* b, const float* d, flo
                              float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
                              float kappa2, float hinv2, float omega, float nscale,
                              unsigned int prefix, int color0, int with_noise, void* stream) {
+  const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
+  return launch(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
+                prefix, color0, with_noise, stream);
+}
+
+// #7: the full sweep below the plane limit, FD (d must be nullptr)
+int pmg_sweep_march_fd(const float* x, const float* b, const float* d, float* out, int n0,
+                       int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
+                       float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
+                       float hinv2, float omega, float nscale, unsigned int prefix, int color0,
+                       int with_noise, void* stream) {
+  if (d) return (int)cudaErrorInvalidValue;
+  const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
+  return launch(x, b, nullptr, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
+                prefix, color0, with_noise, stream);
+}
+
+// #6: the full sweep below the plane limit, D streamed (d is required)
+int pmg_sweep_march_diag(const float* x, const float* b, const float* d, float* out, int n0,
+                         int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
+                         float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
+                         float hinv2, float omega, float nscale, unsigned int prefix,
+                         int color0, int with_noise, void* stream) {
+  if (!d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
                 prefix, color0, with_noise, stream);

@@ -50,7 +50,7 @@ NVCC_FLAGS = (
 # marching kernels give (axis-0 halo, T1, T2): their segment of axis 0
 # comes from the launch plan (kernels/_march.py)
 TILES = {
-    "chain": (8, 8, 32), "tail": (8, 8, 32), "rb_gibbs": (8, 8, 32),
+    "chain": (8, 8, 32), "tail": (8, 8, 32),
     "chain_march": (3, 32, 32), "sweep_march": (2, 32, 32),
 }
 
@@ -59,12 +59,13 @@ _LIB = None
 # one count per wrapper: fused_chain_down_fd, fused_tail_down (per level),
 # fused_rb_gibbs_sweep_fd, fused_rb_gibbs_sweep, fused_patch_sweep_sqfd (one
 # cooperative launch), fused_patch_sweep_sqfd_streamed (one C call that
-# enqueues a launch per colour), fused_chain_down_2d_staged,
+# enqueues a launch per phase), the colourwise patch check (one C call, a
+# launch per colour; on no sampler path), fused_chain_down_2d_staged,
 # fused_chain_down_2d, fused_zero_gibbs_restrict_fd,
 # fused_rb_gibbs_sweep_2d_staged and fused_rb_gibbs_sweep_2d (either diagonal)
 _LAUNCHES = {
     "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
-    "patch_sweep": 0, "patch_sweep_streamed": 0,
+    "patch_sweep": 0, "patch_sweep_streamed": 0, "patch_sweep_colourwise": 0,
     "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
     "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0,
 }
@@ -73,11 +74,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
-# the full sweeps: (x, b, d, out, n0, n1, n2, six coefficients, kappa2,
-# hinv2, omega, nscale, prefix, color0, with_noise, stream)
-_SWEEP = ([_P] * 4 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I)
-# the marching sweeps: the same with (t0, use_tma) after the extents
+# the marching sweeps: (x, b, d, out, n0, n1, n2, t0, use_tma, six
+# coefficients, kappa2, hinv2, omega, nscale, prefix, color0, with_noise,
+# stream)
 _MARCH_SWEEP = ([_P] * 4 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I)
+# the patch sweeps: (x, b, out, n0, n1, n2, kappa2, hinv2, prefixes,
+# with_noise, stream)
+_PATCH = ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I)
 _SIGNATURES = {
     "pmg_chain_down": (
         [_P] * 7 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I,
@@ -86,14 +89,15 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I,
     ),
     "pmg_tail_down": ([_P] * 3 + [_I] * 3 + [_F] * 4 + [_U, _I, _I, _P], _I),
-    "pmg_rb_gibbs": _SWEEP,
     "pmg_sweep_march_staged": _MARCH_SWEEP,
     "pmg_sweep_march_windowed": _MARCH_SWEEP,
-    "pmg_patch_sweep": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
-    "pmg_patch_sweep_streamed": ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I),
+    "pmg_sweep_march_fd": _MARCH_SWEEP,
+    "pmg_sweep_march_diag": _MARCH_SWEEP,
+    "pmg_patch_sweep": _PATCH,
+    "pmg_patch_sweep_streamed": _PATCH,
+    "pmg_patch_sweep_colourwise": _PATCH,
     "pmg_chain_tile": ([ctypes.POINTER(_I)], None),
     "pmg_tail_tile": ([ctypes.POINTER(_I)], None),
-    "pmg_rb_gibbs_tile": ([ctypes.POINTER(_I)], None),
     "pmg_chain_march_tile": ([ctypes.POINTER(_I)], None),
     "pmg_sweep_march_tile": ([ctypes.POINTER(_I)], None),
     "pmg_chain_march_occupancy": ([_I, _I, _I, ctypes.POINTER(_I)], None),

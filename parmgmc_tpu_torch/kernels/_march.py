@@ -14,6 +14,16 @@ Segments are as long as :data:`SEG` planes while the grid still has
 tenth of the work on an H100: 132 SMs hold 396 to 528 of these blocks),
 and no shorter than :data:`MIN_SEG`; chain segments are even, so that an
 aggregate's two planes stay in one item.
+
+The full sweep below the plane limit (#7, #6) runs the same marching body
+on grids from 384^3 down to 12^3, where those rules leave most of the
+card idle.  :func:`full_plan` cuts axis 0 into about
+:data:`FULL_SEGMENTS` segments of at least 2 planes, whatever the rest of
+the shape: of the segment lengths the ``sweep-plans`` drive of
+``time_main_path.py`` timed on an H100 at every level of the 256^3 and
+768^3 V(2,2) hierarchies, that one was the fastest at 9 of 12 shapes and
+within 15 % at the others; strips of 16 or 8 rows and a target count of
+work items did no better.
 """
 
 from __future__ import annotations
@@ -21,11 +31,12 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-__all__ = ["SEG", "MIN_SEG", "MIN_ITEMS", "MarchPlan", "plan"]
+__all__ = ["SEG", "MIN_SEG", "MIN_ITEMS", "FULL_SEGMENTS", "MarchPlan", "plan", "full_plan"]
 
 SEG = 96  # longest segment: 6 halo planes cost the chain 6 % of its x loads
 MIN_SEG = 16  # shortest segment, whose halo planes already add 25 % (sweep) or 37 % (chain)
 MIN_ITEMS = 4096  # work items wanted before segments get shorter
+FULL_SEGMENTS = 20  # segments of axis 0 a full sweep (#7, #6) is cut into
 
 
 @dataclass(frozen=True)
@@ -87,5 +98,16 @@ def plan(shape, halo: int, strip=(32, 32), *, even: bool = False, row_words=()) 
         seg -= seg % 2
     return MarchPlan(
         shape=(n0, n1, n2), strip=tuple(strip), halo=halo, seg=seg,
+        tma=all(int(w) % 4 == 0 for w in row_words),
+    )
+
+
+def full_plan(shape, halo: int, strip=(32, 32), *, row_words=()) -> MarchPlan:
+    """The plan of a full sweep (#7, #6) on a grid of ``shape``: segments
+    of ``n0 // FULL_SEGMENTS`` planes, at least 2.  ``halo``, ``strip``
+    and ``row_words`` as for :func:`plan`."""
+    n0, n1, n2 = (int(s) for s in shape)
+    return MarchPlan(
+        shape=(n0, n1, n2), strip=tuple(strip), halo=halo, seg=max(2, n0 // FULL_SEGMENTS),
         tma=all(int(w) % 4 == 0 for w in row_words),
     )

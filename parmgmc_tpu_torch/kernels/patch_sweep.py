@@ -31,16 +31,25 @@ counterpart.
 Both wrappers launch one source, ``csrc/patch_sweep.cu``, whose note
 gives the bound and the design.  :func:`fused_patch_sweep_sqfd` takes
 the whole-sweep cooperative kernel (#10) when :func:`patch_sweep_resident`
-says the state stays in L2 and the per-colour kernel (#11) otherwise,
-as the TPU wrapper dispatches on VMEM.  The Mosaic window layout, the
-``N2 % 128`` and ``N1 % 8`` gates and the row groups are not copied: the
-CUDA kernels take any 3D shape.
+says the state stays in L2 and the per-phase kernel (#11) otherwise,
+as the TPU wrapper dispatches on VMEM.  Both follow
+:func:`patch_schedule`: the 125-colour order factorised into 25 phases
+(a0, a1) of independent (i, j) lines of axis 2, each line running its
+colours a2 = 0 .. 4 in turn; a patch on it reads and writes nothing
+another line of its phase touches, so the result is the colour order's
+bit for bit.  :func:`fused_patch_sweep_sqfd_colourwise` keeps the colour
+order itself, one launch a colour, as the kernels' check.  The Mosaic
+window layout, the ``N2 % 128`` and ``N1 % 8`` gates and the row groups
+are not copied: the CUDA kernels take any 3D shape whose rows of axis 2
+fit the staged lines (:data:`MAX_N2`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -50,10 +59,15 @@ from parmgmc_tpu_torch.operators.stencil import link_count
 
 __all__ = [
     "MEMBERS",
+    "MAX_N2",
+    "PatchPhase",
+    "PatchSchedule",
+    "patch_schedule",
     "patch_sweep_resident",
     "patch_prefixes",
     "fused_patch_sweep_sqfd",
     "fused_patch_sweep_sqfd_streamed",
+    "fused_patch_sweep_sqfd_colourwise",
     "fused_patch_sweep_sqfd_reference",
 ]
 
@@ -71,6 +85,58 @@ K = len(MEMBERS)
 M = 5  # colour base: stencil radius 2 + 3
 # the H100's L2 cache; the whole-sweep kernel wants the state in half of it
 L2_BYTES = 50 * 2**20
+# the kernels stage 25 rows of x and 5 of b a line, 4 zero columns on each
+# side, in a block's shared memory (227 KB on an H100): the longest row of
+# axis 2 they take
+MAX_N2 = 232_448 // (4 * 30) - 8
+
+
+def _centres(n: int, a: int) -> int:
+    """Centres of residue a along an axis of extent n."""
+    return -(-(n - a) // M) if n > a else 0
+
+
+@dataclass(frozen=True)
+class PatchPhase:
+    """One phase (a0, a1) of the factorised sweep."""
+
+    a0: int
+    a1: int
+    lines: tuple  # the (i, j) lines of axis 2, in the kernels' block order
+    centres: tuple  # centres[a2]: the k of the colour-a2 centres on each line
+
+
+@dataclass(frozen=True)
+class PatchSchedule:
+    """The order of the patch kernels (#10, #11).
+
+    The 25 phases run in turn (one launch each in #11, a grid barrier
+    between them in #10); in a phase, block g takes line g (and g + the
+    grid, ... where the grid is smaller) and runs the colours a2 = 0 .. 4
+    on it in turn, a thread a centre."""
+
+    shape: tuple
+    phases: tuple  # 25 PatchPhase in the order (a0, a1); some may hold no line
+
+
+def patch_schedule(shape) -> PatchSchedule:
+    """The factorised schedule of a patch sweep on ``shape``; depends on
+    the shape alone, and is kept per shape: a chain asks for it at every
+    sweep."""
+    return _patch_schedule(tuple(int(s) for s in shape))
+
+
+@functools.lru_cache(maxsize=16)
+def _patch_schedule(shape) -> PatchSchedule:
+    n0, n1, n2 = shape
+    phases = []
+    for a0 in range(M):
+        for a1 in range(M):
+            lines = tuple((a0 + M * p, a1 + M * q)
+                          for p in range(_centres(n0, a0)) for q in range(_centres(n1, a1)))
+            ks = tuple(tuple(range(a2, n2, M)) for a2 in range(M))
+            phases.append(PatchPhase(a0, a1, lines, ks))
+    return PatchSchedule((n0, n1, n2), tuple(phases))
 
 
 def patch_sweep_resident(shape, with_b: bool) -> bool:
@@ -101,44 +167,54 @@ def _fapply(v, d, h2):
     )
 
 
-def fused_patch_sweep_sqfd_reference(x, b, kappa2, hinv2, seed, step, *, with_noise=True):
-    """Plain-torch twin of :func:`fused_patch_sweep_sqfd` (any device).
+class _PatchTwin:
+    """The plain-torch patch update on any set of centres strided by 5 on
+    each axis: the twin's arithmetic, shared by the colour order
+    (:func:`fused_patch_sweep_sqfd_reference`) and by emulations of other
+    orders (the tests' run of :func:`patch_schedule`)."""
 
-    Follows the TPU kernel's closed form (``_group_slab``) on each
-    colour's strided subgrid of centres; the residual is F(F x) over the
-    whole grid.  It builds no stencil of A, so it is independent of
-    ``PatchGibbsSampler.step_with_noise``."""
-    _check_args(x, b)
-    shape, dt, dev = tuple(x.shape), x.dtype, x.device
-    k2, h2 = _twin.scalar(kappa2, dt, dev), _twin.scalar(hinv2, dt, dev)
-    hh = h2 * h2
-    links = link_count(shape, dt, dev)
-    d = k2 + h2 * links
-    pad = lambda v: torch.nn.functional.pad(v, [1, 1] * 3)
-    # padded by one ring: a member's values are a strided view of these
-    dp, lp, inp = pad(d), pad(links), pad(torch.ones(shape, dtype=dt, device=dev))
-    out = pad(x)
-    bt = torch.zeros_like(x) if b is None else b
-    flat = _twin.flat_index(shape, dev)
-    prefixes = patch_prefixes(seed, step)
+    def __init__(self, x, b, kappa2, hinv2, seed, step, with_noise):
+        _check_args(x, b)
+        shape, dt, dev = tuple(x.shape), x.dtype, x.device
+        self.shape = shape
+        self.k2, self.h2 = _twin.scalar(kappa2, dt, dev), _twin.scalar(hinv2, dt, dev)
+        links = link_count(shape, dt, dev)
+        self.d = self.k2 + self.h2 * links
+        pad = lambda v: torch.nn.functional.pad(v, [1, 1] * 3)
+        self.pad = pad
+        # padded by one ring: a member's values are a strided view of these
+        self.dp, self.lp = pad(self.d), pad(links)
+        self.inp = pad(torch.ones(shape, dtype=dt, device=dev))
+        self.out = pad(x)
+        self.bt = torch.zeros_like(x) if b is None else b
+        # every (centre, member) draw of the sweep, drawn once over the grid,
+        # so that a set's draws do not depend on how the centres are grouped
+        flat = _twin.flat_index(shape, dev)
+        self.eta = [_noise.eta_hash(p, flat, dt) for p in patch_prefixes(seed, step)] \
+            if with_noise else None
 
-    for c in range(M**3):
-        a = (c // (M * M), (c // M) % M, c % M)
-        cnt = [-(-(n - ai) // M) for n, ai in zip(shape, a)]
-        if min(cnt) <= 0:
-            continue
+    def result(self):
+        return self.out[1:-1, 1:-1, 1:-1].contiguous()
+
+    def update(self, start, count):
+        """Resample, in place, the patches centred at start[d] + 5 m,
+        m < count[d], on each axis d: every one from the current state."""
+        if min(count) <= 0:
+            return
+        out, d, h2 = self.out, self.d, self.h2
+        hh = h2 * h2
 
         def sel(vp, o):
-            """vp (padded) at centre + o for every centre of colour c."""
+            """vp (padded) at centre + o for every centre of the set."""
             return vp[tuple(slice(1 + ai + oi, 2 + ai + oi + M * (ci - 1), M)
-                            for ai, oi, ci in zip(a, o, cnt))]
+                            for ai, oi, ci in zip(start, o, count))]
 
-        res = pad(bt - _fapply(_fapply(out[1:-1, 1:-1, 1:-1], d, h2), d, h2))
-        masks = [sel(inp, o) for o in MEMBERS]
+        res = self.pad(self.bt - _fapply(_fapply(out[1:-1, 1:-1, 1:-1], d, h2), d, h2))
+        masks = [sel(self.inp, o) for o in MEMBERS]
         xs = [sel(out, o) for o in MEMBERS]
         rs = [sel(res, o) for o in MEMBERS]
-        ds = [sel(dp, o) for o in MEMBERS]
-        lk = [sel(lp, o) for o in MEMBERS]
+        ds = [sel(self.dp, o) for o in MEMBERS]
+        lk = [sel(self.lp, o) for o in MEMBERS]
 
         def ass(i, j):
             if i == j:
@@ -151,7 +227,7 @@ def fused_patch_sweep_sqfd_reference(x, b, kappa2, hinv2, seed, step, *, with_no
             if sum(q != 0 for q in rel) == 1:  # 2e apart: the path via the centre
                 return hh * mm
             corner = tuple(p + q for p, q in zip(oi, oj))
-            return hh * (1.0 + sel(inp, corner)) * mm
+            return hh * (1.0 + sel(self.inp, corner)) * mm
 
         A = [[ass(i, j) for j in range(i + 1)] for i in range(K)]
         rhs = []
@@ -174,9 +250,9 @@ def fused_patch_sweep_sqfd_reference(x, b, kappa2, hinv2, seed, step, *, with_no
             for j in range(i):
                 s = s - L[i][j] * z[j]
             z.append(s / L[i][i])
-        if with_noise:
-            idx = flat[tuple(slice(ai, None, M) for ai in a)]
-            ets = [_noise.eta_hash(p, idx, dt) for p in prefixes]
+        if self.eta is not None:
+            at = tuple(slice(ai, ai + M * (ci - 1) + 1, M) for ai, ci in zip(start, count))
+            ets = [e[at] for e in self.eta]
         else:
             ets = [torch.zeros_like(z[0])] * K
         y = [None] * K
@@ -186,47 +262,74 @@ def fused_patch_sweep_sqfd_reference(x, b, kappa2, hinv2, seed, step, *, with_no
                 s = s - L[j][i] * y[j]
             y[i] = s / L[i][i]
 
-        # same-colour patches never share a member: write them in place
+        # patches of the set never share a member: write them in place
         for i, o in enumerate(MEMBERS):
             view = sel(out, o)
             view.copy_(torch.where(masks[i] > 0.5, y[i], view))
-    return out[1:-1, 1:-1, 1:-1].contiguous()
 
 
-def _launch(x, b, kappa2, hinv2, seed, step, with_noise, whole):
+def fused_patch_sweep_sqfd_reference(x, b, kappa2, hinv2, seed, step, *, with_noise=True):
+    """Plain-torch twin of :func:`fused_patch_sweep_sqfd` (any device).
+
+    Follows the TPU kernel's closed form (``_group_slab``) on each
+    colour's strided subgrid of centres, in the colour order; the residual
+    is F(F x) over the whole grid.  It builds no stencil of A, so it is
+    independent of ``PatchGibbsSampler.step_with_noise``."""
+    twin = _PatchTwin(x, b, kappa2, hinv2, seed, step, with_noise)
+    for c in range(M**3):
+        a = (c // (M * M), (c // M) % M, c % M)
+        twin.update(a, [_centres(n, ai) for n, ai in zip(twin.shape, a)])
+    return twin.result()
+
+
+def _launch(x, b, kappa2, hinv2, seed, step, with_noise, entry):
+    """Launch the C function ``pmg_patch_sweep<entry>`` on CUDA tensors;
+    count it under ``patch_sweep<entry>``."""
     if x.device.type != "cuda":
         raise ValueError(f"no patch sweep kernel for device {x.device}")
     _check_args(x, b)
     for name, t in (("x", x), ("b", b)):
         if t is not None:
             kernels.check_input(name, t, x)
+    if entry != "_colourwise" and x.shape[2] > MAX_N2:
+        raise ValueError(f"rows of {x.shape[2]} cells do not fit the patch kernels' "
+                         f"staged lines (at most {MAX_N2})")
     lib = kernels.lib()
     out = torch.empty_like(x)
     prefixes = (ctypes.c_uint32 * K)(*patch_prefixes(seed, step))
-    fn, counter = (
-        (lib.pmg_patch_sweep, "patch_sweep") if whole
-        else (lib.pmg_patch_sweep_streamed, "patch_sweep_streamed")
-    )
     with torch.cuda.device(x.device):
-        err = fn(
+        err = getattr(lib, f"pmg_patch_sweep{entry}")(
             x.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), *x.shape,
             _twin.f32(kappa2), _twin.f32(hinv2), prefixes, int(with_noise),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    kernels.check_launch(err, counter)
+    kernels.check_launch(err, f"patch_sweep{entry}")
     return out
 
 
 def fused_patch_sweep_sqfd_streamed(x, b, kappa2, hinv2, seed, step, *, with_noise=True):
-    """x': one patch sweep with the state in device memory (#11): 125
-    colour launches, enqueued by one C call.  CPU tensors run the twin;
-    CUDA tensors (float32, contiguous) launch ``csrc/patch_sweep.cu`` or
-    raise."""
+    """x': one patch sweep with the state in device memory (#11): one
+    launch a phase of :func:`patch_schedule` (25), enqueued by one C call.
+    CPU tensors run the twin; CUDA tensors (float32, contiguous) launch
+    ``csrc/patch_sweep.cu`` or raise."""
     if x.device.type == "cpu":
         return fused_patch_sweep_sqfd_reference(
             x, b, kappa2, hinv2, seed, step, with_noise=with_noise
         )
-    return _launch(x, b, kappa2, hinv2, seed, step, with_noise, whole=False)
+    return _launch(x, b, kappa2, hinv2, seed, step, with_noise, "_streamed")
+
+
+def fused_patch_sweep_sqfd_colourwise(x, b, kappa2, hinv2, seed, step, *, with_noise=True):
+    """x': the sweep of :func:`fused_patch_sweep_sqfd` in the colour order
+    itself, one launch a colour (125), every read in device memory: the
+    check that #10 and #11 follow the colour order bit for bit.  No
+    sampler path calls it.  CPU tensors run the twin; CUDA tensors launch
+    ``csrc/patch_sweep.cu`` or raise."""
+    if x.device.type == "cpu":
+        return fused_patch_sweep_sqfd_reference(
+            x, b, kappa2, hinv2, seed, step, with_noise=with_noise
+        )
+    return _launch(x, b, kappa2, hinv2, seed, step, with_noise, "_colourwise")
 
 
 def fused_patch_sweep_sqfd(x, b, kappa2, hinv2, seed, step, *, with_noise=True):
@@ -245,4 +348,4 @@ def fused_patch_sweep_sqfd(x, b, kappa2, hinv2, seed, step, *, with_noise=True):
         return fused_patch_sweep_sqfd_streamed(
             x, b, kappa2, hinv2, seed, step, with_noise=with_noise
         )
-    return _launch(x, b, kappa2, hinv2, seed, step, with_noise, whole=True)
+    return _launch(x, b, kappa2, hinv2, seed, step, with_noise, "")

@@ -15,20 +15,23 @@ with parity (i + j + k) % 2 and c0 = 0 for ``sweep="forward"``, 1 for
 (seed, step, :data:`~._noise.SWEEP_DOMAIN`, flat index); the TPU kernels'
 row-keyed hardware PRNG has no counterpart.
 
-Both wrappers launch one source, ``csrc/rb_gibbs.cu`` (a template flag
-picks the diagonal's source); its note gives the byte bound and the tile
-design.  They route as the JAX package routes: a grid whose planes hold
-more than :data:`_PLANE_LIMIT` points goes to
-:func:`fused_rb_gibbs_sweep_2d` (#8), which sends FD calls on to
-:func:`fused_rb_gibbs_sweep_2d_staged` (#9).  Both large-plane kernels are
-entry points of ``csrc/sweep_march.cu``, which marches column strips down
-segments of axis 0 in the launch geometry of :func:`sweep_plan`; they
-compute the same function with the same draws as
-``rb_gibbs.cu``, bit for bit.  The Mosaic tile gates are not copied: the
-CUDA tiles take any 3D shape.
+All four wrappers launch one body, ``csrc/sweep_march.cu``, which marches
+column strips down segments of axis 0 (its note gives the bound and the
+design), each through its own entry point and counter.  They route as the
+JAX package routes: a grid whose planes hold more than
+:data:`_PLANE_LIMIT` points goes to :func:`fused_rb_gibbs_sweep_2d` (#8),
+which sends FD calls on to :func:`fused_rb_gibbs_sweep_2d_staged` (#9),
+in the launch geometry of :func:`sweep_plan`; the others run #7 (FD) or
+#6 (streamed diagonal) in that of :func:`full_sweep_plan`, whose shorter
+segments fill the card on the smaller grids.  The plan moves work, not
+arithmetic: every route computes the same function with the same draws,
+bit for bit.  The Mosaic tile gates are not copied: the CUDA kernels take
+any 3D shape.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -45,6 +48,7 @@ __all__ = [
     "fused_rb_gibbs_sweep_2d_staged",
     "fused_rb_gibbs_sweep_2d_staged_reference",
     "sweep_plan",
+    "full_sweep_plan",
 ]
 
 # planes above this many points take the large-plane kernels: the sweeps
@@ -122,11 +126,25 @@ def sweep_plan(shape) -> _march.MarchPlan:
     return _march.plan(shape, halo, strip, row_words=(shape[2],))
 
 
+def full_sweep_plan(shape) -> _march.MarchPlan:
+    """The launch plan of the full sweep below the plane limit on
+    ``shape``: #7 and #6 share it (:func:`_march.full_plan`: the strips of
+    #9, segments of about a twentieth of axis 0).  Kept per shape: a V(2,2)
+    step asks for it at every sweep."""
+    return _full_sweep_plan(tuple(int(n) for n in shape))
+
+
+@functools.lru_cache(maxsize=64)
+def _full_sweep_plan(shape) -> _march.MarchPlan:
+    halo, *strip = kernels.TILES["sweep_march"]
+    return _march.full_plan(shape, halo, strip, row_words=(shape[2],))
+
+
 def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sweep,
-            with_noise, counter, entry="pmg_rb_gibbs"):
-    """Launch the C function ``entry`` (a sweep kernel's entry point) on
-    CUDA tensors; count it under ``counter``.  The marching entries also
-    take the segment and the producer of :func:`sweep_plan`."""
+            with_noise, counter, entry, plan):
+    """Launch the C function ``entry`` (an entry point of
+    ``csrc/sweep_march.cu``) on CUDA tensors in the geometry of ``plan``
+    (a :class:`_march.MarchPlan`); count it under ``counter``."""
     if x.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {x.device}")
     color0 = _color0(sweep)
@@ -137,11 +155,8 @@ def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sw
     lib = kernels.lib()
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()
-    geometry = ()
-    if entry != "pmg_rb_gibbs":
-        p = sweep_plan(x.shape)
-        aligned = all(t.data_ptr() % 16 == 0 for t in (x, b, diag) if t is not None)
-        geometry = (p.seg, int(p.tma and aligned))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, b, diag) if t is not None)
+    geometry = (plan.seg, int(plan.tma and aligned))
     with torch.cuda.device(x.device):
         err = getattr(lib, entry)(
             ptr(x), ptr(b), ptr(diag), ptr(out), *x.shape, *geometry,
@@ -168,7 +183,7 @@ def fused_rb_gibbs_sweep_fd(
     Planes over :data:`_PLANE_LIMIT` points go to
     :func:`fused_rb_gibbs_sweep_2d` (#9 for this FD form).  Otherwise CPU
     tensors run :func:`fused_rb_gibbs_sweep_fd_reference`; CUDA tensors
-    launch ``csrc/rb_gibbs.cu`` in FD mode (float32, contiguous) or
+    launch ``csrc/sweep_march.cu`` in FD mode (float32, contiguous) or
     raise."""
     if _large_plane(x):
         return fused_rb_gibbs_sweep_2d(
@@ -181,7 +196,8 @@ def fused_rb_gibbs_sweep_fd(
             sweep=sweep, with_noise=with_noise,
         )
     return _launch(x, b, None, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
-                   sweep, with_noise, "rb_gibbs_fd")
+                   sweep, with_noise, "rb_gibbs_fd", "pmg_sweep_march_fd",
+                   full_sweep_plan(x.shape))
 
 
 def fused_rb_gibbs_sweep(
@@ -194,7 +210,7 @@ def fused_rb_gibbs_sweep(
     Planes over :data:`_PLANE_LIMIT` points go to
     :func:`fused_rb_gibbs_sweep_2d` (#8).  Otherwise CPU tensors run
     :func:`fused_rb_gibbs_sweep_reference`; CUDA tensors launch
-    ``csrc/rb_gibbs.cu`` in streamed-diagonal mode (float32, contiguous)
+    ``csrc/sweep_march.cu`` in streamed-diagonal mode (float32, contiguous)
     or raise."""
     if _large_plane(x):
         return fused_rb_gibbs_sweep_2d(
@@ -209,7 +225,8 @@ def fused_rb_gibbs_sweep(
     if diag is None:
         raise ValueError("fused_rb_gibbs_sweep streams the diagonal: diag is required")
     return _launch(x, b, diag, coeffs, 0.0, 0.0, omega, seed, step, noise_mult,
-                   sweep, with_noise, "rb_gibbs")
+                   sweep, with_noise, "rb_gibbs", "pmg_sweep_march_diag",
+                   full_sweep_plan(x.shape))
 
 
 # -- large planes: the marching sweep kernel (csrc/sweep_march.cu) ------------
@@ -281,7 +298,8 @@ def fused_rb_gibbs_sweep_2d(
         )
     kappa2, hinv2 = (0.0, 0.0) if fd_params is None else _fd_pair(fd_params)
     return _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
-                   sweep, with_noise, "rb_gibbs_2d", "pmg_sweep_march_windowed")
+                   sweep, with_noise, "rb_gibbs_2d", "pmg_sweep_march_windowed",
+                   sweep_plan(x.shape))
 
 
 def fused_rb_gibbs_sweep_2d_staged(
@@ -305,4 +323,5 @@ def fused_rb_gibbs_sweep_2d_staged(
             with_noise=with_noise, fd_params=fd_params,
         )
     return _launch(x, b, None, coeffs, *_fd_pair(fd_params), omega, seed, step, noise_mult,
-                   sweep, with_noise, "rb_gibbs_2d_staged", "pmg_sweep_march_staged")
+                   sweep, with_noise, "rb_gibbs_2d_staged", "pmg_sweep_march_staged",
+                   sweep_plan(x.shape))

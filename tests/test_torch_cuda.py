@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from parmgmc_tpu_torch import kernels
-from parmgmc_tpu_torch.kernels import rb_gibbs
+from parmgmc_tpu_torch.kernels import _march, patch_sweep, rb_gibbs
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
 from parmgmc_tpu_torch.kernels.mg_sweep import (
     fused_chain_down_2d,
@@ -39,6 +39,7 @@ from parmgmc_tpu_torch.kernels.mg_sweep import (
 from parmgmc_tpu_torch.kernels.mg_tail import fused_tail_down, tail_down_reference
 from parmgmc_tpu_torch.kernels.patch_sweep import (
     fused_patch_sweep_sqfd,
+    fused_patch_sweep_sqfd_colourwise,
     fused_patch_sweep_sqfd_reference,
     fused_patch_sweep_sqfd_streamed,
 )
@@ -185,6 +186,48 @@ def test_sweep_kernels_match_twins(dev, shape):
                        fused_rb_gibbs_sweep_fd(x, zeros, coeffs, 1.0, h, 1.3, 3, 5))
 
 
+@pytest.mark.parametrize("shape", [(16, 24, 96), (10, 6, 34), (12, 12, 12)])
+def test_full_sweep_is_the_large_plane_sweep(dev, shape):
+    """#7 = #9 (FD) and #6 = #8 (streamed D) bit for bit at ragged shapes
+    below the plane limit, each on its own launch plan."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, b, f = (torch.randn(*shape, generator=g, device=dev) for _ in range(3))
+    h = float((shape[0] - 1) ** 2)
+    diag = (shifted_laplace_fd(shape, 1.0, device=dev).diag * (1.5 + 0.5 * torch.tanh(f))).contiguous()
+    coeffs = [-h] * 6
+    for sweep in ("forward", "backward"):
+        for noise in (False, True):
+            for bb in (b, None):
+                kw = dict(sweep=sweep, with_noise=noise)
+                r7 = fused_rb_gibbs_sweep_fd(x, bb, coeffs, 1.0, h, 1.3, 3, 5, **kw)
+                r9 = fused_rb_gibbs_sweep_2d_staged(x, bb, coeffs, 1.3, 3, 5, fd_params=(1.0, h), **kw)
+                assert torch.equal(r7, r9), (sweep, noise, bb is None)
+                r6 = fused_rb_gibbs_sweep(x, bb, diag, coeffs, 1.3, 3, 5, **kw)
+                r8 = fused_rb_gibbs_sweep_2d(x, bb, diag, coeffs, 1.3, 3, 5, **kw)
+                assert torch.equal(r6, r8), (sweep, noise, bb is None)
+
+
+@pytest.mark.parametrize("shape", [(16, 24, 96), (13, 40, 36)])
+def test_full_sweep_plans_agree_bitwise(dev, shape):
+    """#7 and #6 on short and long segments: the same bits (the plan moves
+    work, not arithmetic)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    x, b = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
+    h = float((shape[0] - 1) ** 2)
+    diag = (shifted_laplace_fd(shape, 1.0, device=dev).diag * 1.25).contiguous()
+    coeffs = [-h] * 6
+    outs = {}
+    for seg in (1, 2, 5, 16):
+        plan = _march.full_plan(shape, 2, row_words=(shape[2],))
+        plan = _march.MarchPlan(shape=plan.shape, strip=plan.strip, halo=plan.halo, seg=seg, tma=plan.tma)
+        with mock.patch.object(rb_gibbs, "full_sweep_plan", lambda s, p=plan: p):
+            outs[seg] = (fused_rb_gibbs_sweep_fd(x, b, coeffs, 1.0, h, 1.3, 3, 5),
+                         fused_rb_gibbs_sweep(x, None, diag, coeffs, 1.3, 3, 5, sweep="backward"))
+    first = outs[1]
+    for seg, (fd, st) in outs.items():
+        assert torch.equal(fd, first[0]) and torch.equal(st, first[1]), seg
+
+
 # n2 % 4 != 0 streams through cp.async, the others through TMA
 @pytest.mark.parametrize("shape", [(12, 66, 34), (37, 40, 70), (37, 40, 72), (12, 770, 774)])
 def test_sweep_march_modes_match_twins(dev, shape):
@@ -223,8 +266,8 @@ def test_sweep_march_modes_match_twins(dev, shape):
 
 @pytest.mark.parametrize("shape", [(11, 12, 13), (16, 10, 128)])
 def test_patch_kernels_match_twin(dev, shape):
-    """#10 (cooperative) and #11 (per colour) against the twin, and bit
-    for bit against each other."""
+    """#10 (cooperative) and #11 (per phase) against the twin, and bit for
+    bit against each other and the colour-by-colour check."""
     g = torch.Generator(device=dev).manual_seed(8)
     x, b = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
     k2, h2 = 1.69, float((shape[0] - 1) ** 2)
@@ -232,15 +275,38 @@ def test_patch_kernels_match_twin(dev, shape):
         for bb in (b, None):
             kernels.reset_launch_counts()
             whole = fused_patch_sweep_sqfd(x, bb, k2, h2, 3, 5, with_noise=noise)
-            per_colour = fused_patch_sweep_sqfd_streamed(x, bb, k2, h2, 3, 5, with_noise=noise)
+            per_phase = fused_patch_sweep_sqfd_streamed(x, bb, k2, h2, 3, 5, with_noise=noise)
+            colourwise = fused_patch_sweep_sqfd_colourwise(x, bb, k2, h2, 3, 5, with_noise=noise)
             counts = kernels.launch_counts()
             assert counts["patch_sweep"] == 1 and counts["patch_sweep_streamed"] == 1
+            assert counts["patch_sweep_colourwise"] == 1
             want = fused_patch_sweep_sqfd_reference(x, bb, k2, h2, 3, 5, with_noise=noise)
             assert _rel(whole, want) <= 1e-4, (noise, bb is None)
-            assert torch.equal(whole, per_colour), (noise, bb is None)
+            assert torch.equal(whole, per_phase), (noise, bb is None)
+            assert torch.equal(per_phase, colourwise), (noise, bb is None)
     zeros = torch.zeros_like(x)
     assert torch.equal(fused_patch_sweep_sqfd(x, None, k2, h2, 3, 5),
                        fused_patch_sweep_sqfd(x, zeros, k2, h2, 3, 5))
+
+
+@pytest.mark.parametrize("shape", [(12, 16, 72), (11, 12, 13)])
+def test_patch_staging_does_not_depend_on_alignment(dev, shape):
+    """#10 and #11 on tensors whose base is not 16-B aligned (the staging's
+    __ldcg path) equal the aligned ones (16-B cp.async where n2 % 4 == 0)
+    and the colour order bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    n = shape[0] * shape[1] * shape[2]
+    x, b = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
+    xo, bo = (torch.empty(n + 1, device=dev)[1:].view(shape) for _ in range(2))
+    xo.copy_(x)
+    bo.copy_(b)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    k2, h2 = 1.69, float((shape[0] - 1) ** 2)
+    want = fused_patch_sweep_sqfd_colourwise(x, b, k2, h2, 3, 5)
+    for xx, bb in ((x, b), (xo, bo), (xo, None)):
+        ref = want if bb is not None else fused_patch_sweep_sqfd_colourwise(x, None, k2, h2, 3, 5)
+        assert torch.equal(fused_patch_sweep_sqfd(xx, bb, k2, h2, 3, 5), ref)
+        assert torch.equal(fused_patch_sweep_sqfd_streamed(xx, bb, k2, h2, 3, 5), ref)
 
 
 def test_keyed_patch_chain_launches(dev):
@@ -316,10 +382,14 @@ def test_wrappers_refuse_bad_cuda_input(dev):
         fused_rb_gibbs_sweep_2d_staged(x.transpose(0, 1), None, h, 1.0, 1, 2, fd_params=(1.0, 49.0))
     with pytest.raises(ValueError):
         fused_rb_gibbs_sweep_2d(x, None, torch.ones(8, 8, 32), h, 1.0, 1, 2)
-    for fn in (fused_patch_sweep_sqfd, fused_patch_sweep_sqfd_streamed):
+    for fn in (fused_patch_sweep_sqfd, fused_patch_sweep_sqfd_streamed,
+               fused_patch_sweep_sqfd_colourwise):
         with pytest.raises(TypeError):
             fn(x.double(), None, 1.0, 49.0, 1, 2)
         with pytest.raises(ValueError):
             fn(x.transpose(0, 1), None, 1.0, 49.0, 1, 2)
         with pytest.raises(ValueError):
             fn(x, torch.zeros(8, 8, 32), 1.0, 49.0, 1, 2)
+    long_rows = torch.zeros(2, 2, patch_sweep.MAX_N2 + 1, device=dev)
+    with pytest.raises(ValueError):
+        fused_patch_sweep_sqfd_streamed(long_rows, long_rows, 1.0, 49.0, 1, 2)

@@ -8,7 +8,10 @@ exactly one owner, a work item streams its own planes and the halo planes
 around them and no others, chain segments start on even planes, the
 streamed halo costs at most 6.25 % at 768^3, the last wave of blocks is
 under a tenth of the work there, and the producer is TMA exactly where
-every streamed row is a multiple of 16 B.
+every streamed row is a multiple of 16 B.  The full sweep below the plane
+limit (#7, #6) plans every level of the 256^3 and 768^3 V(2,2)
+hierarchies and the ragged (16, 24, 96) the same way, with the segments
+and work items its rule gives.
 """
 
 import math
@@ -25,6 +28,7 @@ LEVELS = [(384 >> k,) * 3 for k in range(6)]  # 384^3 .. 12^3
 # kind: (plan of a shape, axis-0 halo, even segments)
 KINDS = {
     "sweep": (rb_gibbs.sweep_plan, 2, False),
+    "full": (rb_gibbs.full_sweep_plan, 2, False),
     "chain": (mg_sweep.chain_plan, 3, True),
     "chain_z": (lambda s: mg_sweep.chain_plan(s, with_z=True), 3, True),
 }
@@ -37,7 +41,16 @@ def _one_thread():
 
 # the marching sweep runs only level 0 (past the plane limit); the chain
 # kernel level 0 (with the carry z) and, as #3, the levels below it
-CASES = [(k, s) for k in KINDS for s in SHAPES] + [("chain", s) for s in LEVELS]
+# the full sweep (#7, #6): every smoothed level of the 256^3 and 768^3 V(2,2)
+# hierarchies below the plane limit, and a ragged shape; (segment, work
+# items) of the plan: segments of n0 // 20 planes, at least 2
+FULL = {
+    (256,) * 3: (12, 1408), (128,) * 3: (6, 352), (64,) * 3: (3, 88), (32,) * 3: (2, 16),
+    (16,) * 3: (2, 8), (384,) * 3: (19, 3024), (192,) * 3: (9, 792), (96,) * 3: (4, 216),
+    (48,) * 3: (2, 96), (24,) * 3: (2, 12), (12,) * 3: (2, 6), (16, 24, 96): (2, 24),
+}
+CASES = ([(k, s) for k in KINDS if k != "full" for s in SHAPES] + [("chain", s) for s in LEVELS]
+         + [("full", s) for s in FULL])
 
 
 @pytest.mark.parametrize("kind,shape", CASES)
@@ -66,7 +79,7 @@ def test_every_plane_strip_has_one_owner(kind, shape):
     assert (owners == 1).all()
 
 
-@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("kind", [k for k in KINDS if k != "full"])
 def test_segments_fill_the_card_at_768(kind):
     make, halo, _ = KINDS[kind]
     p = make((768,) * 3)
@@ -78,10 +91,28 @@ def test_segments_fill_the_card_at_768(kind):
         assert (math.ceil(waves) - waves) / math.ceil(waves) < 0.1
 
 
+@pytest.mark.parametrize("shape", list(FULL))
+def test_full_sweep_plan_at_every_level(shape):
+    p = rb_gibbs.full_sweep_plan(shape)
+    seg, items = FULL[shape]
+    assert p.seg == seg == max(2, shape[0] // _march.FULL_SEGMENTS)
+    assert p.items == items and p.strip == tuple(kernels.TILES["sweep_march"][1:])
+    assert p.tma == (shape[2] % 4 == 0)
+    # the 256^3 and 384^3 levels fill 3 blocks on each of the H100's 132 SMs
+    # several times over; the latency-bound small levels keep 2-plane segments
+    waves = p.items / (3 * 132)
+    if shape[0] >= 256:
+        assert waves >= 3
+    if shape[0] <= 48:
+        assert p.seg == 2
+    assert rb_gibbs.full_sweep_plan(list(shape)) is p  # kept per shape
+
+
 @pytest.mark.parametrize("n2", [768, 772, 774, 770, 776, 36, 34])
 def test_producer_follows_the_row_stride(n2):
     shape = (12, 40, n2)
     assert rb_gibbs.sweep_plan(shape).tma == (n2 % 4 == 0)
+    assert rb_gibbs.full_sweep_plan(shape).tma == (n2 % 4 == 0)
     assert mg_sweep.chain_plan(shape).tma == (n2 % 4 == 0)
     # the compact carry z has rows of n2 / 2 words
     assert mg_sweep.chain_plan(shape, with_z=True).tma == (n2 % 8 == 0)

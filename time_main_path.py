@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 time_main_path.py --trees OLD NEW --pairs 4 \\
-        [--drive 256-v10 768-v10 768-v22 kernels] [--out FILE]
+        [--drive 256-v10 256-v22 768-v10 768-v22 patch-256 patch-128 kernels]
+        [--out FILE]
 
 Each run is its own process, so every checkout imports its own
 ``parmgmc_tpu_torch`` (and builds its kernels under its own ``build/``);
@@ -18,13 +19,33 @@ with ``coarsening="aggregate"``, coarsest 128 DOF requested):
   ``--repeats`` windows of 512 steps;
 * ``768-v10``: the same chain on gmrf_3d(768) (phase 15); 8 warm-up
   steps, windows of 32;
-* ``768-v22``: MGMC V(2,2) on gmrf_3d(768) through ``sample_chain`` with
-  the mean as QOI (phase 18); 2 warm-up steps, windows of 8;
+* ``256-v22``: MGMC V(2,2) on gmrf_3d(256) through ``sample_chain`` with
+  the mean as QOI (phase 8); 8 warm-up steps, windows of 64;
+* ``768-v22``: the same on gmrf_3d(768) (phase 18); 2 warm-up steps,
+  windows of 8;
+* ``patch-256``, ``patch-128``: the patch-Gibbs chain on the squared prior
+  squared_shifted_laplace_fd(n^3, kappa=1) through ``sample_chain`` with
+  the mean as QOI (phase 12: #11 at 256^3, #10 at 128^3); 2 warm-up
+  sweeps, windows of 16 (256^3) or 32 (128^3); ms/sweep;
 * ``kernels``: device ms per call (CUDA events over 10 calls after one
   warm-up) at 768^3 of #9 (b, noise), #8 (FD with b, and streamed D with
   b = None), #5 and #4 (the main path's call: b = None, z, sums, noise)
   and #3 summed over the six levels below 0 (b, noise), each with the
-  coefficients of the 768^3 hierarchy.
+  coefficients of the 768^3 hierarchy; #7 (b, noise) at every smoothed
+  level of the 256^3 and 768^3 V(2,2) hierarchies (the 768^3 one below
+  level 0) with that level's coefficients, and summed over a step's
+  launches (4 a level), and at (16, 24, 96), and #6 (b = None, noise, the FD diagonal times a
+  field in [1.25, 1.75]) at 256^3, each over 20 calls queued behind a
+  sleeping kernel (``device_ms``: CUDA events around a run of the small
+  levels' kernels otherwise time the host's launch gaps), and the host
+  microseconds a #7 call takes to return at 16^3; #11 at 256^3
+  and #10 at 128^3 (b = None, noise), CUDA events;
+* ``sweep-plans``: #7 (b, noise) at every level shape of both V(2,2)
+  hierarchies and at (16, 24, 96) with each segment length of
+  ``PLAN_SEGS`` and the one ``kernels/_march.py``'s rule picks
+  (``device_ms``): the measurements behind the rule;
+* ``patch-kernels``: #11 at 256^3 and 128^3 and #10 at 128^3, noise on
+  and off, b given and None, CUDA events.
 
 A window is timed on the host clock and ended by
 ``torch.cuda.synchronize()``.  The last line is a JSON object with every
@@ -39,12 +60,15 @@ import subprocess
 import sys
 import time
 
-DRIVES = ("256-v10", "768-v10", "768-v22", "kernels")
+DRIVES = ("256-v10", "256-v22", "768-v10", "768-v22", "patch-256", "patch-128", "kernels",
+          "sweep-plans", "patch-kernels")
 DEV = "cuda"
 N_BIG = 768
 # (grid, n_pre, n_post, warm-up steps, steps a window)
-CHAINS = {"256-v10": (256, 1, 0, 64, 512), "768-v10": (768, 1, 0, 8, 32),
-          "768-v22": (768, 2, 2, 2, 8)}
+CHAINS = {"256-v10": (256, 1, 0, 64, 512), "256-v22": (256, 2, 2, 8, 64),
+          "768-v10": (768, 1, 0, 8, 32), "768-v22": (768, 2, 2, 2, 8)}
+# patch chains: (grid, warm-up sweeps, sweeps a window)
+PATCH_CHAINS = {"patch-256": (256, 2, 16), "patch-128": (128, 2, 32)}
 
 
 def time_chain(torch, drive, repeats):
@@ -72,6 +96,63 @@ def time_chain(torch, drive, repeats):
     if not bool(torch.isfinite(st.x).all()):
         raise RuntimeError(f"{drive}: the chain state is not finite")
     return out
+
+
+def time_patch_chain(torch, drive, repeats):
+    """ms/sweep of ``repeats`` windows of one patch-Gibbs chain."""
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+    from parmgmc_tpu_torch.models.problems import squared_shifted_laplace_fd
+    from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler
+
+    n, warm, steps = PATCH_CHAINS[drive]
+    smp = PatchGibbsSampler.create(squared_shifted_laplace_fd((n,) * 3, 1.0, device=DEV))
+    run = lambda st, k: sample_chain(smp, st, None, k, extract=torch.mean)[0]
+    st = run(init_chain(smp, 0), warm)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        st = run(st, steps)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+    if not bool(torch.isfinite(st.x).all()):
+        raise RuntimeError(f"{drive}: the chain state is not finite")
+    return out
+
+
+def device_ms(torch, fn, n=20):
+    """Device ms per call of fn over n calls after one warm-up, the calls
+    queued behind a sleeping kernel so that they run back to back: CUDA
+    events around a run of small kernels otherwise time the host's launch
+    gaps (and the profiler drops records over many sessions)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0  # an upper bound on the enqueue time
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host * 2e9))  # cycles: twice the enqueue at 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds a call of fn takes to return, over n calls after
+    one warm-up, not waiting for the card (whose work per call is shorter)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
 
 
 def event_ms(torch, fn, n=10):
@@ -125,6 +206,116 @@ def time_kernels(torch):
         a = (sm._coeff6(), sm.fd_params[0], sm.fd_params[1], sm.omega, 99, 5)
         total += event_ms(torch, lambda: ms.fused_zero_gibbs_restrict_fd(bl, *a), 20)
     out["#3 (6 levels)"] = total
+    del smp
+    out.update(time_small_kernels(torch, randn))
+    return out
+
+
+def v22_levels(torch, n):
+    """[(shape, coeffs, (kappa2, hinv2), omega)] of every smoothed level of
+    the gmrf_3d(n) V(2,2) hierarchy."""
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    smp = MGMCSampler.create(gmrf_3d(n, kappa=1.0, device=DEV), n_pre=2, n_post=2,
+                             coarsest_size=128, coarsening="aggregate")
+    return [(tuple(o.grid_shape), s._coeff6(), s.fd_params, s.omega)
+            for o, s in zip(smp.ops, smp.smoothers)]
+
+
+def time_small_kernels(torch, randn):
+    """Device ms per call of #7 at every level below the plane limit of
+    both V(2,2) hierarchies, #6 at 256^3, #11 at 256^3 and #10 at 128^3."""
+    from parmgmc_tpu_torch.kernels import _twin
+    from parmgmc_tpu_torch.kernels import patch_sweep as ps
+    from parmgmc_tpu_torch.kernels import rb_gibbs as rg
+
+    out = {}
+    for n in (256, N_BIG):
+        step = 0.0
+        for shape, coeffs, fd, omega in v22_levels(torch, n):
+            if shape[1] * shape[2] > rg._PLANE_LIMIT:
+                continue  # level 0 at 768^3 runs #9
+            x, b = randn(*shape), randn(*shape)
+            t = device_ms(torch, lambda: rg.fused_rb_gibbs_sweep_fd(x, b, coeffs, *fd, omega, 1234, 77))
+            out[f"#7 {shape[0]}^3"] = t
+            step += 4 * t
+            if shape == (256,) * 3:
+                d = _twin.fd_diag(shape, *fd, torch.float32, DEV) * (1.5 + 0.25 * torch.tanh(b))
+                out["#6 256^3"] = device_ms(torch, lambda: rg.fused_rb_gibbs_sweep(
+                    x, None, d, coeffs, omega, 1234, 77))
+                del d
+            del x, b
+        out[f"#7 {n}-v22 step"] = step
+    h = 15.0**2  # chip_smoke.py phase 3's ragged shape
+    x, b = randn(16, 24, 96), randn(16, 24, 96)
+    out["#7 (16, 24, 96)"] = device_ms(torch, lambda: rg.fused_rb_gibbs_sweep_fd(
+        x, b, [-h] * 6, 1.0, h, 1.3, 1234, 77))
+    # the wrapper's host time a call, which a V(2,2) step pays 20 times
+    x, b = randn(16, 16, 16), randn(16, 16, 16)
+    out["#7 16^3 host us/call"] = host_us(torch, lambda: rg.fused_rb_gibbs_sweep_fd(
+        x, b, [-h] * 6, 1.0, h, 1.3, 1234, 77))
+    for n, fn, key in ((256, ps.fused_patch_sweep_sqfd_streamed, "#11 256^3"),
+                       (128, ps.fused_patch_sweep_sqfd, "#10 128^3")):
+        x = randn(n, n, n)
+        h2 = float((n - 1) ** 2)
+        out[key] = event_ms(torch, lambda: fn(x, None, 1.0, h2, 1234, 77))
+        del x
+    return out
+
+
+# the segments the sweep-plans drive times #7 on
+PLAN_SEGS = (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96)
+
+
+def time_sweep_plans(torch):
+    """Device ms of #7 (b, noise) with each segment length of PLAN_SEGS at
+    every level shape of both V(2,2) hierarchies below the plane limit."""
+    from unittest import mock
+
+    from parmgmc_tpu_torch.kernels import _march
+    from parmgmc_tpu_torch.kernels import rb_gibbs as rg
+
+    gen = torch.Generator(device=DEV).manual_seed(2025)
+    cases = [c for n in (256, N_BIG) for c in v22_levels(torch, n)
+             if c[0][1] * c[0][2] <= rg._PLANE_LIMIT]
+    h = 15.0**2
+    cases.append(((16, 24, 96), [-h] * 6, (1.0, h), 1.3))
+    out = {}
+    for shape, coeffs, fd, omega in cases:
+        x = torch.randn(*shape, generator=gen, device=DEV)
+        b = torch.randn(*shape, generator=gen, device=DEV)
+        chosen = rg.full_sweep_plan(shape)
+        for seg in sorted({min(s, shape[0]) for s in PLAN_SEGS} | {chosen.seg}):
+            plan = _march.MarchPlan(shape=shape, strip=chosen.strip, halo=chosen.halo, seg=seg,
+                                    tma=chosen.tma)
+            with mock.patch.object(rg, "full_sweep_plan", lambda s: plan):
+                t = device_ms(torch, lambda: rg.fused_rb_gibbs_sweep_fd(
+                    x, b, coeffs, *fd, omega, 1234, 77))
+            mark = " (rule)" if seg == chosen.seg else ""
+            out[f"#7 {shape} seg {seg}{mark}"] = t
+        del x, b
+    return out
+
+
+def time_patch_kernels(torch):
+    """Device ms of #11 at 256^3 and 128^3 and #10 at 128^3 with the noise
+    on and off and b given and None."""
+    from parmgmc_tpu_torch.kernels import patch_sweep as ps
+
+    gen = torch.Generator(device=DEV).manual_seed(2026)
+    out = {}
+    for n, fn, key in ((256, ps.fused_patch_sweep_sqfd_streamed, "#11"),
+                       (128, ps.fused_patch_sweep_sqfd, "#10"),
+                       (128, ps.fused_patch_sweep_sqfd_streamed, "#11")):
+        x = torch.randn(n, n, n, generator=gen, device=DEV)
+        b = torch.randn(n, n, n, generator=gen, device=DEV)
+        h2 = float((n - 1) ** 2)
+        for bb, tag in ((None, "b=None"), (b, "b")):
+            for noise in (True, False):
+                out[f"{key} {n}^3 {tag} noise {'on' if noise else 'off'}"] = event_ms(
+                    torch, lambda: fn(x, bb, 1.0, h2, 1234, 77, with_noise=noise))
+        del x, b
     return out
 
 
@@ -137,6 +328,12 @@ def run_one(root, drives, repeats):
     for drive in drives:
         if drive == "kernels":
             res.update({k: [v] for k, v in time_kernels(torch).items()})
+        elif drive == "sweep-plans":
+            res.update({k: [v] for k, v in time_sweep_plans(torch).items()})
+        elif drive == "patch-kernels":
+            res.update({k: [v] for k, v in time_patch_kernels(torch).items()})
+        elif drive in PATCH_CHAINS:
+            res[f"{drive} ms/sweep"] = time_patch_chain(torch, drive, repeats)
         else:
             res[f"{drive} ms/cycle"] = time_chain(torch, drive, repeats)
         torch.cuda.empty_cache()
