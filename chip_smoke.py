@@ -15,8 +15,12 @@ Phases, in order; any failure raises and exits non-zero:
               the main paths' shapes and coefficients (every level) and at a
               small shape; deterministic
               outputs to 1e-5, noisy outputs and partial sums to 1e-4
-              (relative max-norm); kernel and twin device times per call
-              from torch.profiler.  The full sweep runs in both modes (FD
+              (relative max-norm); twin device times per call from
+              torch.profiler.  #1 bit for bit #5 (b given, and b = None
+              with z) with its launch plan; #1 and #2 timed at the main
+              path's shapes (calls queued behind a sleeping kernel), with
+              #2's launches a call (exactly one) and #3 over the same four
+              levels beside it.  The full sweep runs in both modes (FD
               diagonal, #7; streamed diagonal, #6, with the FD diagonal
               times a smooth field in [1, 2]), forward and backward, noise
               on and off, b given and None; #7 (b, noise) timed at every
@@ -30,7 +34,8 @@ Phases, in order; any failure raises and exits non-zero:
 6. main    -- gmrf_3d(256), MGMC V(1,0), aggregate hierarchy, coarsest 512
               DOF, prior (b = None) through sample_chain_deferred: ms/cycle
               over 512 steps, tau and ESS/sec from a 4096-step mean-QOI
-              chain, the launch counts of both kernels (each must be > 0),
+              chain, exactly one #1 and one #2 launch a step and no other
+              kernel,
               the exact law of the QOI: mean(x) ~ N(0, 1/(kappa^2 N)),
               the device time of a step by kernel, and the same keyed
               cycle with the twins in place of the kernels.
@@ -280,18 +285,29 @@ def phase_kernels(torch, dev, main_smp, v22_smp):
                 check(r <= tol, f"chain kernel {name} disagrees with its twin: {r:.3e} > {tol:g}")
                 if main:
                     worst = max(worst, d)
+        # #1 equals #5 (the same body on another plan) bit for bit
+        for bb, zz in ((b, None), (None, z)):
+            kw = dict(z=zz, with_xsum=True, with_zsum=zz is not None)
+            one = mg_sweep.fused_chain_down_fd(x, bb, *args, **kw)
+            five = mg_sweep.fused_chain_down_2d_staged(x, bb, *args, **kw)
+            check(torch.equal(one[0], five[0]) and torch.equal(one[1], five[1]),
+                  f"#1 and #5 differ at {shape}")
+        plan = mg_sweep.chain_fd_plan(shape, with_z=True)
+        print(f"  #1 at {shape}: == #5 bit for bit (xpy, rc); plan {plan.items} work items of "
+              f"{plan.tile} (+{plan.halo} planes each side), {'TMA' if plan.tma else 'cp.async'}")
         if main:
             kw = dict(z=z, with_xsum=True, with_zsum=True)
-            ms, _ = device_ms(torch, lambda: mg_sweep.fused_chain_down_fd(x, None, *args, **kw), 50)
+            ms = queued_ms(torch, lambda: mg_sweep.fused_chain_down_fd(x, None, *args, **kw), 20)
             plain, _ = device_ms(
                 torch, lambda: mg_sweep.fused_chain_down_fd_reference(x, None, *args, **kw), 5
             )
             n = x.numel()
-            nblk = math.prod(-(-d // t) for d, t in zip(shape, mg_sweep.CHAIN_TILE))
-            bms, by = bound(4 * (n + n // 8 + n + n // 8 + 2 * nblk), FLOPS_CHAIN * n)
+            bms, by = bound(march_bytes(n, True, False, True, plan.items), FLOPS_CHAIN * n)
             rec["chain"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
                                 bound_by=by, library_ms=None)
-            print(f"  chain kernel at {shape} (b=None, z, sums, noise): {ms:.4f} ms, twin {plain:.4f} ms")
+            launch_report(f"#1 at {shape} (x, z)", "chain_march", (1, 0, 1), plan)
+            print(f"  chain kernel at {shape} (b=None, z, sums, noise): {ms:.4f} ms (queued), "
+                  f"twin {plain:.4f} ms, bound {bms:.4f} ms ({by})")
         del x, b, z
 
     # tail kernel: the main path's levels 1..4, plus the small test shapes
@@ -301,12 +317,17 @@ def phase_kernels(torch, dev, main_smp, v22_smp):
         params += [s.omega, s.fd_params[0], s.fd_params[1]]
     small_shapes = ((32, 32, 64), (16, 16, 32), (8, 8, 16), (4, 4, 8))
     small_params = [1.0, 1.0, 961.0, 1.0, 8.0, 3844.0, 1.0, 64.0, 15376.0]
+    from parmgmc_tpu_torch import kernels
+
     for shp, prm, main in ((shapes, params, True), (small_shapes, small_params, False)):
         bl = randn(*shp[0])
         worst = 0.0
         for noise in (False, True):
             for color0 in (0, 1):
+                kernels.reset_launch_counts()
                 ys, rhs = mg_tail.fused_tail_down(bl, prm, 99, 5, color0, shp, with_noise=noise)
+                launched = kernels.launch_counts()["tail_down"]
+                check(launched == 1, f"a tail call over {len(shp) - 1} levels launched {launched} kernels")
                 ys_r, rhs_r = mg_tail.tail_down_reference(bl, prm, 99, 5, color0, shp, with_noise=noise)
                 torch.cuda.synchronize()
                 tol = 1e-4 if noise else 1e-5
@@ -315,15 +336,31 @@ def phase_kernels(torch, dev, main_smp, v22_smp):
                     check(r <= tol, f"tail kernel output {li} disagrees with its twin: {r:.3e} > {tol:g}")
                     if main:
                         worst = max(worst, d)
-                print(f"  tail {shp[0]}.. noise={noise} color0={color0}: outputs agree (tol {tol:g})")
+                print(f"  tail {shp[0]}.. noise={noise} color0={color0}: outputs agree (tol {tol:g}); "
+                      f"{launched} launch a call over {len(shp) - 1} levels")
         if main:
-            ms, _ = device_ms(torch, lambda: mg_tail.fused_tail_down(bl, prm, 99, 5, 0, shp), 50)
+            ms = queued_ms(torch, lambda: mg_tail.fused_tail_down(bl, prm, 99, 5, 0, shp), 20)
             plain, _ = device_ms(torch, lambda: mg_tail.tail_down_reference(bl, prm, 99, 5, 0, shp), 5)
             sizes = [math.prod(sh) for sh in shp[:-1]]
             bms, by = bound(sum(4 * (2 * m + m // 8) for m in sizes), FLOPS_TAIL * sum(sizes))
             rec["tail"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bms,
                                bound_by=by, library_ms=None)
-            print(f"  tail kernels over {len(shp) - 1} levels from {shp[0]}: {ms:.4f} ms, twin {plain:.4f} ms")
+            occ = kernels.occupancy("tail_grid")
+            slots = occ["blocks_per_sm"] * occ["sms"]
+            print(f"  #2 over {len(shp) - 1} levels: one cooperative launch of "
+                  f"{min(slots, mg_tail.tail_blocks(shp))} blocks ({occ['blocks_per_sm']} an SM x "
+                  f"{occ['sms']} SMs; the largest phase has work for {mg_tail.tail_blocks(shp)})")
+            # #3 over the same levels (the V(1,0) cycle's other route, the
+            # shape rule patched): data for the routing rules, not a check
+            t3 = 0.0
+            cur = bl
+            for sm, sh in zip(main_smp.smoothers[1:], shp[:-1]):
+                a3 = (sm._coeff6(), sm.fd_params[0], sm.fd_params[1], sm.omega, 99, 5)
+                t3 += queued_ms(torch, lambda c=cur, a3=a3: mg_sweep.fused_zero_gibbs_restrict_fd(c, *a3), 20)
+                cur = randn(*(d // 2 for d in sh))
+            print(f"  tail kernel over {len(shp) - 1} levels from {shp[0]}: {ms:.4f} ms (queued; one launch), "
+                  f"#3 over the same levels {t3:.4f} ms ({len(shp) - 1} launches), twin {plain:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by})")
 
     # the full sweep in FD mode (#7) and with the diagonal streamed (#6): at
     # every smoothed level of the V(2,2) path with that level's coefficients
@@ -549,8 +586,12 @@ def phase_main(torch, dev, smp, n=N_MAIN, n_time=N_TIME, n_iact=N_IACT, want=Non
     busy, per = busy / n_win, {k: v / n_win for k, v in per.items()}
     for name, t in sorted(per.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  device per step: {t:.4f} ms  {name}")
-    idle = max(0.0, 1.0 - busy / (dt * 1e3))
-    print(f"  device busy {busy:.4f} ms/step of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f}")
+    # the profiler drops records of cooperative launches (#2): the step's
+    # device time is also read from windows queued behind a sleeping kernel
+    queued = queued_ms(torch, window, 2) / n_win
+    idle = max(0.0, 1.0 - queued / (dt * 1e3))
+    print(f"  device busy {busy:.4f} ms/step (profiler), {queued:.4f} ms/step back to back (queued), "
+          f"of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f}")
     if not twin:
         return counts
 
@@ -1312,7 +1353,15 @@ def main():
     phase("5. deferred chain")
     phase_deferred(torch, smp, b, main_smp)
     phase("6. main path")
-    counts = phase_main(torch, dev, main_smp)
+
+    def want_main(steps):  # one #1 and one #2 launch a step, no other kernel
+        w = dict.fromkeys(kernels.launch_counts(), 0)
+        w.update(chain_down=steps, tail_down=steps)
+        return w
+
+    check(all(main_smp._tail_fused_eligible(l) for l in range(1, main_smp.n_levels - 1)),
+          "the 256^3 hierarchy's levels below 0 do not all take the tail kernel")
+    counts = phase_main(torch, dev, main_smp, want=want_main)
     phase("7. moments gates: V(2,2) and Gibbs")
     gates = phase_moments_general(torch, dev, b)
     phase("8. V(2,2) path")
@@ -1384,9 +1433,9 @@ def main():
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 
     meta = (
-        ("fused_chain_down_fd", "chain", "chain_down", "parmgmc_tpu_torch/csrc/chain_down.cu",
+        ("fused_chain_down_fd", "chain", "chain_down", "parmgmc_tpu_torch/csrc/chain_march.cu",
          "parmgmc_tpu/kernels/mg_sweep.py:704"),
-        ("fused_tail_down", "tail", "tail_down", "parmgmc_tpu_torch/csrc/tail_down.cu",
+        ("fused_tail_down", "tail", "tail_down", "parmgmc_tpu_torch/csrc/tail_grid.cu",
          "parmgmc_tpu/kernels/mg_tail.py:175"),
         ("fused_rb_gibbs_sweep_fd", "sweep_fd", "rb_gibbs_fd", "parmgmc_tpu_torch/csrc/sweep_march.cu",
          "parmgmc_tpu/kernels/rb_gibbs.py:552"),

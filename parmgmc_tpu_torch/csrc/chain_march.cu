@@ -1,21 +1,26 @@
 // MGMC down-phase of one level by plane marching, one launch.
 //
-// Replaces three Pallas kernels of parmgmc_tpu/kernels/mg_sweep.py with
-// one body, each with its own entry mode, wrapper and launch counter:
+// Replaces four Pallas kernels of parmgmc_tpu/kernels/mg_sweep.py with one
+// body, each with its own entry mode, wrapper and launch counter:
 //
-//   fused_chain_down_2d_staged  (#5)  the chain's level 0 (deferred chain);
-//   fused_chain_down_2d         (#4)  the same function (sample_chain);
-//   fused_zero_gibbs_restrict_fd (#3) no x stream: the level's cycle from
-//                                     zero.
+//   fused_chain_down_fd          (#1)  the chain's level 0 up to the plane
+//                                      limit (the 256^3 main path);
+//   fused_chain_down_2d_staged   (#5)  the chain's level 0 past it
+//                                      (deferred chain);
+//   fused_chain_down_2d          (#4)  the same function (sample_chain);
+//   fused_zero_gibbs_restrict_fd (#3)  no x stream: the level's cycle from
+//                                      zero.
 //
-// The three share one launch geometry (kernels/_march.py, plan): a work
-// item is a (T1, T2) column strip over a segment of t0 planes of axis 0
-// (t0 even, so an aggregate's two planes stay in one segment), one block
-// each, recomputing a 3-plane axis-0 halo on each side.
+// A work item is a (T1, T2) column strip over a segment of t0 planes of
+// axis 0 (t0 even, so an aggregate's two planes stay in one segment), one
+// block each, recomputing a 3-plane axis-0 halo on each side.  #5, #4 and
+// #3 take the long segments of kernels/_march.py's plan (up to 96 planes,
+// for 768^3); #1 those of mg_sweep.chain_fd_plan, whose shorter segments
+// fill the card at 256^3.
 //
 // For the chain state x = x_in + P z (x_in == nullptr: x = 0; z optional,
 // compact (N0/2, N1/2, N2/2), P the 2x2x2 aggregate prolongation) it
-// computes, as csrc/chain_down.cu does,
+// computes
 //
 //   r    = b - A x                                (b == nullptr: b = 0)
 //   r~   = r + nscale * sqrt(D) * eta             (counter-hash noise)
@@ -25,8 +30,8 @@
 //
 // plus optional partial sums of xpy (xsum) and of z (zsum), one slot per
 // work item, each summed in a fixed order.  Every grid point is computed
-// by the same instructions in every mode, so #4 equals #5 bit for bit and
-// #3(b) equals #5(x = 0, b).
+// by the same instructions in every mode and plan, so #1, #4 and #5 agree
+// bit for bit and #3(b) equals #5(x = 0, b).
 //
 // What bounds it on an H100: device memory by the count, instruction
 // issue in fact.  At 768^3 the chain (#5, b = None, z) reads x (1.81 GB)
@@ -36,7 +41,10 @@
 // each (noise.cuh), at half the float rate (~0.3 ms); counted in issued
 // instructions (the draw ~70, A x and A y, the colour-1 update, the
 // bookkeeping; 1.2 draws a strip cell for the halo) it is ~3 ms at the
-// SMs' 4 warp-instructions a clock.
+// SMs' 4 warp-instructions a clock.  At 256^3 (#1) the same counts give a
+// byte bound of 0.045 ms and ~0.11 ms of issue; a segment of t0 planes
+// draws r~ on t0 + 4 of them, so the short segments that fill the card
+// there cost more draws a cell.
 //
 // Design (csrc/march.cuh).  Loads issued by the computing threads stall
 // their phase, and whole-axis strips (576 at 768^3) leave a partial last
@@ -496,33 +504,13 @@ __global__ void __launch_bounds__(NT, 3)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// (axis-0 halo, T1, T2), so the loader can check them
-void pmg_chain_march_tile(int* out) {
-  out[0] = HALO;
-  out[1] = T1;
-  out[2] = T2;
-}
-
-// (blocks an SM, SMs, dynamic shared bytes) of a launch with the given
-// streams
-void pmg_chain_march_occupancy(int with_x, int with_b, int with_z, int* out) {
-  if (with_x)
-    pmg::occupancy(chain_march_kernel<true, true>, NT, smem_bytes(true, with_b, with_z), out);
-  else
-    pmg::occupancy(chain_march_kernel<false, true>, NT, smem_bytes(false, with_b, with_z), out);
-}
-
 // t0 = planes a work item (even); use_tma: stream through TMA (else
 // cp.async); x == nullptr is the from-zero level (#3)
-int pmg_chain_march(const float* x, const float* b, const float* z, float* xpy, float* rc,
-                    float* xsum, float* zsum, int n0, int n1, int n2, int t0, int use_tma,
-                    float c0lo, float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
-                    float kappa2, float hinv2, float omega, float nscale, unsigned int prefix,
-                    int color0, int with_noise, void* stream) {
+int launch(const float* x, const float* b, const float* z, float* xpy, float* rc,
+           float* xsum, float* zsum, int n0, int n1, int n2, int t0, int use_tma,
+           float c0lo, float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
+           float kappa2, float hinv2, float omega, float nscale, unsigned int prefix,
+           int color0, int with_noise, void* stream) {
   if (n0 <= 0 || n1 <= 0 || n2 <= 0 || (n0 | n1 | n2) & 1 || t0 <= 0 || (t0 & 1) ||
       (z && !x))
     return (int)cudaErrorInvalidValue;
@@ -550,5 +538,46 @@ int pmg_chain_march(const float* x, const float* b, const float* z, float* xpy, 
                                                    (uint32_t)prefix, color0, mx, mb, mz);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+extern "C" {
+
+// (axis-0 halo, T1, T2), so the loader can check them
+void pmg_chain_march_tile(int* out) {
+  out[0] = HALO;
+  out[1] = T1;
+  out[2] = T2;
+}
+
+// (blocks an SM, SMs, dynamic shared bytes) of a launch with the given
+// streams
+void pmg_chain_march_occupancy(int with_x, int with_b, int with_z, int* out) {
+  if (with_x)
+    pmg::occupancy(chain_march_kernel<true, true>, NT, smem_bytes(true, with_b, with_z), out);
+  else
+    pmg::occupancy(chain_march_kernel<false, true>, NT, smem_bytes(false, with_b, with_z), out);
+}
+
+#define PMG_CHAIN_ARGS                                                                     \
+  const float *x, const float *b, const float *z, float *xpy, float *rc, float *xsum,      \
+      float *zsum, int n0, int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,    \
+      float c1lo, float c1hi, float c2lo, float c2hi, float kappa2, float hinv2,           \
+      float omega, float nscale, unsigned int prefix, int color0, int with_noise, void *stream
+#define PMG_CHAIN_PASS                                                                   \
+  x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0, use_tma, c0lo, c0hi, c1lo, c1hi, c2lo, c2hi, \
+      kappa2, hinv2, omega, nscale, prefix, color0, with_noise, stream
+
+// #5, #4, #3
+int pmg_chain_march(PMG_CHAIN_ARGS) { return launch(PMG_CHAIN_PASS); }
+
+// #1: the chain's level 0 up to the plane limit (x required), in the
+// geometry of mg_sweep.chain_fd_plan
+int pmg_chain_march_fd(PMG_CHAIN_ARGS) {
+  return x ? launch(PMG_CHAIN_PASS) : (int)cudaErrorInvalidValue;
+}
+
+#undef PMG_CHAIN_PASS
+#undef PMG_CHAIN_ARGS
 
 }  // extern "C"

@@ -45,19 +45,15 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-# output tile of one CUDA block per kernel (T0, T1, T2 in csrc/*.cu); the
-# twins' partial sums use the same tiles, so the loader checks them.  The
-# marching kernels give (axis-0 halo, T1, T2): their segment of axis 0
-# comes from the launch plan (kernels/_march.py)
-TILES = {
-    "chain": (8, 8, 32), "tail": (8, 8, 32),
-    "chain_march": (3, 32, 32), "sweep_march": (2, 32, 32),
-}
+# strips of the marching kernels, (axis-0 halo, T1, T2) in csrc/*.cu; the
+# twins' partial sums follow the launch plans built on them
+# (kernels/_march.py), so the loader checks them
+TILES = {"chain_march": (3, 32, 32), "sweep_march": (2, 32, 32)}
 
 _LOCK = threading.Lock()
 _LIB = None
-# one count per wrapper: fused_chain_down_fd, fused_tail_down (per level),
-# fused_rb_gibbs_sweep_fd, fused_rb_gibbs_sweep, fused_patch_sweep_sqfd (one
+# one count per wrapper: fused_chain_down_fd, fused_tail_down (one
+# cooperative launch a call, every tail level), fused_rb_gibbs_sweep_fd, fused_rb_gibbs_sweep, fused_patch_sweep_sqfd (one
 # cooperative launch), fused_patch_sweep_sqfd_streamed (one C call that
 # enqueues a launch per phase), the colourwise patch check (one C call, a
 # launch per colour; on no sampler path), fused_chain_down_2d_staged,
@@ -81,14 +77,16 @@ _MARCH_SWEEP = ([_P] * 4 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I)
 # the patch sweeps: (x, b, out, n0, n1, n2, kappa2, hinv2, prefixes,
 # with_noise, stream)
 _PATCH = ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I)
+# the marching chain: (x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0,
+# use_tma, six coefficients, kappa2, hinv2, omega, nscale, prefix, color0,
+# with_noise, stream)
+_MARCH_CHAIN = ([_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I)
 _SIGNATURES = {
-    "pmg_chain_down": (
-        [_P] * 7 + [_I] * 3 + [_F] * 10 + [_U, _I, _I, _P], _I,
-    ),
-    "pmg_chain_march": (
-        [_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I,
-    ),
-    "pmg_tail_down": ([_P] * 3 + [_I] * 3 + [_F] * 4 + [_U, _I, _I, _P], _I),
+    "pmg_chain_march": _MARCH_CHAIN,
+    "pmg_chain_march_fd": _MARCH_CHAIN,
+    # (b, out, shapes, params, prefixes, offsets, nlev, need, color0,
+    # with_noise, stream)
+    "pmg_tail_grid": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "pmg_sweep_march_staged": _MARCH_SWEEP,
     "pmg_sweep_march_windowed": _MARCH_SWEEP,
     "pmg_sweep_march_fd": _MARCH_SWEEP,
@@ -96,12 +94,11 @@ _SIGNATURES = {
     "pmg_patch_sweep": _PATCH,
     "pmg_patch_sweep_streamed": _PATCH,
     "pmg_patch_sweep_colourwise": _PATCH,
-    "pmg_chain_tile": ([ctypes.POINTER(_I)], None),
-    "pmg_tail_tile": ([ctypes.POINTER(_I)], None),
     "pmg_chain_march_tile": ([ctypes.POINTER(_I)], None),
     "pmg_sweep_march_tile": ([ctypes.POINTER(_I)], None),
     "pmg_chain_march_occupancy": ([_I, _I, _I, ctypes.POINTER(_I)], None),
     "pmg_sweep_march_occupancy": ([_I, _I, ctypes.POINTER(_I)], None),
+    "pmg_tail_grid_occupancy": ([ctypes.POINTER(_I)], None),
 }
 
 

@@ -24,6 +24,14 @@ the shape: of the segment lengths the ``sweep-plans`` drive of
 768^3 V(2,2) hierarchies, that one was the fastest at 9 of 12 shapes and
 within 15 % at the others; strips of 16 or 8 rows and a target count of
 work items did no better.
+
+The chain's level 0 below the plane limit (#1) recomputes four r~ planes a
+segment, so short segments cost it more than they cost the sweep.
+:func:`wave_plan` cuts each strip's column of planes into as few even
+segments as still give every one of :data:`SLOTS` block slots an item,
+so the launch runs in one wave (the ``chain-plans`` drive of
+``time_main_path.py`` timed each segment length at 256^3 and (16, 24,
+96)).
 """
 
 from __future__ import annotations
@@ -31,12 +39,16 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-__all__ = ["SEG", "MIN_SEG", "MIN_ITEMS", "FULL_SEGMENTS", "MarchPlan", "plan", "full_plan"]
+__all__ = [
+    "SEG", "MIN_SEG", "MIN_ITEMS", "FULL_SEGMENTS", "SLOTS", "MarchPlan", "plan", "full_plan",
+    "wave_plan",
+]
 
 SEG = 96  # longest segment: 6 halo planes cost the chain 6 % of its x loads
 MIN_SEG = 16  # shortest segment, whose halo planes already add 25 % (sweep) or 37 % (chain)
 MIN_ITEMS = 4096  # work items wanted before segments get shorter
 FULL_SEGMENTS = 20  # segments of axis 0 a full sweep (#7, #6) is cut into
+SLOTS = 3 * 132  # block slots of a 32-row chain launch: 3 blocks on each of an H100's 132 SMs
 
 
 @dataclass(frozen=True)
@@ -109,5 +121,20 @@ def full_plan(shape, halo: int, strip=(32, 32), *, row_words=()) -> MarchPlan:
     n0, n1, n2 = (int(s) for s in shape)
     return MarchPlan(
         shape=(n0, n1, n2), strip=tuple(strip), halo=halo, seg=max(2, n0 // FULL_SEGMENTS),
+        tma=all(int(w) % 4 == 0 for w in row_words),
+    )
+
+
+def wave_plan(shape, halo: int, strip=(32, 32), *, row_words=(), slots=SLOTS) -> MarchPlan:
+    """The plan of #1 on a grid of ``shape``: even segments, as long as
+    still gives each of ``slots`` block slots a work item, between 2 and
+    :data:`SEG` planes (a grid with fewer strips than slots has 2-plane
+    segments; one with more strips than slots, :data:`SEG`-plane ones).
+    ``halo``, ``strip`` and ``row_words`` as for :func:`plan`."""
+    n0, n1, n2 = (int(s) for s in shape)
+    strips = -(-n1 // strip[0]) * -(-n2 // strip[1])
+    seg = -(-n0 // max(1, slots // strips))
+    return MarchPlan(
+        shape=(n0, n1, n2), strip=tuple(strip), halo=halo, seg=min(SEG, max(2, seg + seg % 2)),
         tma=all(int(w) % 4 == 0 for w in row_words),
     )

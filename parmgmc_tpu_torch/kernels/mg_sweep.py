@@ -10,31 +10,32 @@ N2/2), P the 2x2x2 aggregate prolongation) one launch computes
     xpy = x_true + y0
     rc  = R (r - A y0)                        (N0/2, N1/2, N2/2)
 
-and, on request, per-block partial sums of xpy (``with_xsum``) and of the
-z input (``with_zsum``) over the kernel's :data:`CHAIN_TILE` blocks, each
-summed in a fixed order, so the chain's QOI needs no extra pass over the
-fine grid.  A is the link-count FD star operator (kappa2, hinv2) with the
+and, on request, partial sums of xpy (``with_xsum``) and of the z input
+(``with_zsum``), one a work item of the launch plan, each summed in a
+fixed order, so the chain's QOI needs no extra pass over the fine grid.
+A is the link-count FD star operator (kappa2, hinv2) with the
 off-diagonal scalars ``coeffs`` ordered (-e0, +e0, -e1, +e1, -e2, +e2).
 eta is the counter-hash draw of :mod:`._noise` keyed by (seed, step,
 :data:`~._noise.CHAIN_DOMAIN`, flat index).
 
 The TPU kernel's lane pair-sum of ``rq`` is not copied: ``rc`` comes out
-restricted.  The CUDA source is ``csrc/chain_down.cu``; its note gives the
-byte bound and the tile design.
-
-Large planes take the same function from ``csrc/chain_march.cu``, a
-kernel that marches column strips down segments of axis 0 in the launch
-geometry of :func:`chain_plan`, in three wrappers with the JAX names:
+restricted.  Every chain wrapper launches one body, ``csrc/chain_march.cu``
+(its note gives the bound and the design), which marches column strips
+down segments of axis 0, each through its own entry and counter:
+:func:`fused_chain_down_fd` (#1, planes up to the plane limit) in the
+launch geometry of :func:`chain_fd_plan`, whose short segments fill the
+card at 256^3; and, for large planes, in that of :func:`chain_plan`,
 :func:`fused_chain_down_2d_staged` (the deferred chain's),
 :func:`fused_chain_down_2d` (``sample_chain``'s) and
 :func:`fused_zero_gibbs_restrict_fd` (a level from zero: x = 0, no z, b
-required).  Each has its own twin and launch counter; their xpy/y and rc
-agree bit for bit, and the partial sums are one per work item of the
-plan.
+required).  Each has its own twin; their xpy/y and rc agree bit for bit
+(the plan moves work, not arithmetic), and the partial sums are one per
+work item of the plan.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -43,9 +44,9 @@ from parmgmc_tpu_torch import kernels
 from parmgmc_tpu_torch.kernels import _march, _noise, _twin
 
 __all__ = [
-    "CHAIN_TILE",
     "MARCH_TILE",
     "chain_down_2d_supported",
+    "chain_fd_plan",
     "chain_plan",
     "fused_chain_down_fd",
     "fused_chain_down_fd_reference",
@@ -56,10 +57,6 @@ __all__ = [
     "fused_zero_gibbs_restrict_fd",
     "fused_zero_gibbs_restrict_fd_reference",
 ]
-
-# output tile of one CUDA block; the partial sums are per tile
-CHAIN_TILE = kernels.TILES["chain"]
-
 
 def _check_args(x, b, z, with_zsum):
     if x.ndim != 3 or any(s % 2 for s in x.shape):
@@ -120,20 +117,23 @@ def fused_chain_down_fd_reference(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
 ):
-    """Plain-torch twin of :func:`fused_chain_down_fd` (any device)."""
+    """Plain-torch twin of :func:`fused_chain_down_fd` (any device):
+    partial sums per work item of :func:`chain_fd_plan`."""
     _check_args(x, b, z, with_zsum)
     xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
-    return _with_sums(xpy, rc, z, CHAIN_TILE, with_xsum, with_zsum)
+    return _with_sums(xpy, rc, z, chain_fd_plan(x.shape).tile, with_xsum, with_zsum)
 
 
 def fused_chain_down_fd(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
 ):
-    """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase.
+    """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase,
+    partial sums per work item of :func:`chain_fd_plan`.
 
     CPU tensors run :func:`fused_chain_down_fd_reference`; CUDA tensors
-    launch ``csrc/chain_down.cu`` (float32, contiguous) or raise."""
+    launch ``csrc/chain_march.cu``'s #1 entry (float32, contiguous) or
+    raise."""
     if x.device.type == "cpu":
         return fused_chain_down_fd_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
@@ -141,38 +141,9 @@ def fused_chain_down_fd(
         )
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
-    if sweep not in ("forward", "backward"):
-        raise ValueError(f"chain kernel runs one forward/backward sweep, got {sweep!r}")
     _check_args(x, b, z, with_zsum)
-    for name, t in (("x", x), ("b", b), ("z", z)):
-        if t is not None:
-            kernels.check_input(name, t, x)
-    lib = kernels.lib()
-    n0, n1, n2 = x.shape
-    nblk = 1
-    for s, t in zip(x.shape, CHAIN_TILE):
-        nblk *= -(-s // t)
-    xpy = torch.empty_like(x)
-    rc = torch.empty((n0 // 2, n1 // 2, n2 // 2), dtype=x.dtype, device=x.device)
-    xsum = torch.empty(nblk, dtype=x.dtype, device=x.device) if with_xsum else None
-    zsum = torch.empty(nblk, dtype=x.dtype, device=x.device) if with_zsum else None
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
-        err = lib.pmg_chain_down(
-            ptr(x), ptr(b), ptr(z), ptr(xpy), ptr(rc), ptr(xsum), ptr(zsum),
-            n0, n1, n2, *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
-            _twin.noise_factor(omega),
-            _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN),
-            0 if sweep == "forward" else 1, int(with_noise),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    kernels.check_launch(err, "chain_down")
-    out = [xpy, rc]
-    if with_xsum:
-        out.append(xsum)
-    if with_zsum:
-        out.append(zsum)
-    return tuple(out)
+    return _launch_march("chain_down", x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
+                         with_noise, z, with_xsum, with_zsum)
 
 
 # -- large planes: the marching kernel (csrc/chain_march.cu) ------------------
@@ -180,6 +151,21 @@ def fused_chain_down_fd(
 # (axis-0 halo, T1, T2): a block owns a (T1, T2) column strip over a
 # segment of axis 0 (chain_plan) and recomputes the halo planes around it
 MARCH_TILE = kernels.TILES["chain_march"]
+
+
+def chain_fd_plan(shape, with_z=False) -> _march.MarchPlan:
+    """The launch plan of #1 on ``shape``: the strips of :func:`chain_plan`
+    over the longest even segments that still fill the card's block slots
+    in one wave (:func:`_march.wave_plan`), TMA as in :func:`chain_plan`;
+    kept per shape."""
+    return _chain_fd_plan(tuple(int(n) for n in shape), bool(with_z))
+
+
+@functools.lru_cache(maxsize=64)
+def _chain_fd_plan(shape, with_z) -> _march.MarchPlan:
+    n2 = shape[2]
+    return _march.wave_plan(shape, MARCH_TILE[0], MARCH_TILE[1:],
+                            row_words=(n2, n2 // 2) if with_z else (n2,))
 
 
 def chain_plan(shape, with_z=False) -> _march.MarchPlan:
@@ -233,8 +219,10 @@ def fused_zero_gibbs_restrict_fd_reference(
 
 def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
                   with_noise, z, with_xsum, with_zsum):
-    """Launch ``csrc/chain_march.cu`` in the geometry of :func:`chain_plan`
-    on CUDA tensors; count it under ``counter``."""
+    """Launch ``csrc/chain_march.cu`` on CUDA tensors, #1 (``counter``
+    ``chain_down``) in the geometry of :func:`chain_fd_plan` through its own
+    entry, the others in that of :func:`chain_plan`; count it under
+    ``counter``."""
     like = b if x is None else x
     if sweep not in ("forward", "backward"):
         raise ValueError(f"chain kernel runs one forward/backward sweep, got {sweep!r}")
@@ -243,7 +231,8 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
             kernels.check_input(name, t, like)
     lib = kernels.lib()
     n0, n1, n2 = like.shape
-    plan = chain_plan(like.shape, with_z=z is not None)
+    fd = counter == "chain_down"
+    plan = (chain_fd_plan if fd else chain_plan)(like.shape, with_z=z is not None)
     tma = plan.tma and all(t.data_ptr() % 16 == 0 for t in (x, b, z) if t is not None)
     nblk = plan.items
     xpy = torch.empty_like(like)
@@ -252,9 +241,9 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
     zsum = torch.empty(nblk, dtype=like.dtype, device=like.device) if with_zsum else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(like.device):
-        err = lib.pmg_chain_march(
-            ptr(x), ptr(b), ptr(z), ptr(xpy), ptr(rc), ptr(xsum), ptr(zsum),
-            n0, n1, n2, plan.seg, int(tma), *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
+        err = (lib.pmg_chain_march_fd if fd else lib.pmg_chain_march)(
+            ptr(x), ptr(b), ptr(z), ptr(xpy), ptr(rc), ptr(xsum), ptr(zsum), n0, n1, n2,
+            plan.seg, int(tma), *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _twin.noise_factor(omega),
             _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN),
             0 if sweep == "forward" else 1, int(with_noise),

@@ -10,8 +10,9 @@ Each kernel against its plain twin at small shapes with ragged tiles
 1e-4 either way), the two patch sweep routes bit for bit, the keyed
 chain's deferred form bit for bit against the plain form, the launches
 of the general keyed cycle, the keyed Gibbs step and the keyed patch
-chain, the marching kernel's three modes (#5 staged, #4 windowed, #3
-from zero) and their bitwise identities, the marching sweep's two modes
+chain, the marching kernel's chain modes (#1 on its own plans, #5
+staged, #4 windowed, #3 from zero) and their bitwise identities, its
+tail mode (#2, one launch a call), the marching sweep's two modes
 (#9 staged, #8 windowed with the diagonal rebuilt or streamed) bit for
 bit against each other and the whole-plane sweeps (#7, #6), and the
 wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from parmgmc_tpu_torch import kernels
-from parmgmc_tpu_torch.kernels import _march, patch_sweep, rb_gibbs
+from parmgmc_tpu_torch.kernels import _march, _twin, mg_sweep, patch_sweep, rb_gibbs
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
 from parmgmc_tpu_torch.kernels.mg_sweep import (
     fused_chain_down_2d,
@@ -135,28 +136,81 @@ def test_march_kernel_modes_match_twins(dev, shape):
                        fused_chain_down_2d_staged(x, zero, *args)[0])
 
 
-def test_march_kernel_matches_chain_kernel(dev):
-    """On the same inputs the marching kernel computes #1's function."""
-    shape = (16, 24, 96)
+@pytest.mark.parametrize("shape", [(16, 24, 96), (10, 6, 34)])
+def test_march_kernel_matches_chain_kernel(dev, shape):
+    """#1 is the marching body on its own plan: bit for bit #5 and #4."""
     g = torch.Generator(device=dev).manual_seed(10)
+    x, b = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
+    z = torch.randn(*(s // 2 for s in shape), generator=g, device=dev)
+    h = float((shape[0] - 1) ** 2)
+    args = ([-h] * 6, 1.0, h, 1.0, 3, 5)
+    for sweep in ("forward", "backward"):
+        for noise in (False, True):
+            for bb, zz in ((b, None), (None, z)):
+                kw = dict(sweep=sweep, with_noise=noise, z=zz)
+                a = fused_chain_down_fd(x, bb, *args, **kw)
+                for fn in (fused_chain_down_2d_staged, fused_chain_down_2d):
+                    c = fn(x, bb, *args, **kw)
+                    assert torch.equal(c[0], a[0]) and torch.equal(c[1], a[1]), (sweep, noise, bb is None)
+
+
+@pytest.mark.parametrize("shape", [(16, 24, 96), (36, 40, 70)])
+def test_chain_fd_plans_agree_bitwise(dev, shape):
+    """#1 on segments of 2 to 16 planes: the same xpy and rc, and partial
+    sums that follow each plan."""
+    g = torch.Generator(device=dev).manual_seed(14)
     x = torch.randn(*shape, generator=g, device=dev)
     z = torch.randn(*(s // 2 for s in shape), generator=g, device=dev)
-    args = ([-225.0] * 6, 1.0, 225.0, 1.0, 3, 5)
-    a = fused_chain_down_fd(x, None, *args, z=z)
-    c = fused_chain_down_2d_staged(x, None, *args, z=z)
-    assert _rel(c[0], a[0]) <= 1e-6 and _rel(c[1], a[1]) <= 1e-5
+    h = float((shape[0] - 1) ** 2)
+    args = ([-h] * 6, 1.0, h, 1.3, 3, 5)
+    kw = dict(z=z, with_xsum=True, with_zsum=True)
+    first = None
+    for seg in (2, 4, 16):
+        p = mg_sweep.chain_fd_plan(shape, with_z=True)
+        plan = _march.MarchPlan(shape=p.shape, strip=p.strip, halo=p.halo, seg=seg, tma=p.tma)
+        with mock.patch.object(mg_sweep, "chain_fd_plan", lambda s, with_z=False, p=plan: p):
+            out = fused_chain_down_fd(x, None, *args, **kw)
+        first = first or out
+        assert torch.equal(out[0], first[0]) and torch.equal(out[1], first[1]), seg
+        want_x = _twin.tile_sums(out[0], plan.tile)
+        want_z = _twin.tile_sums(z, tuple(t // 2 for t in plan.tile))
+        assert out[2].shape == want_x.shape == (plan.items,)
+        assert _rel(out[2], want_x) <= 1e-4 and _rel(out[3], want_z) <= 1e-4, seg
 
 
-def test_tail_kernel_matches_twin(dev):
-    shapes = ((20, 12, 36), (10, 6, 18), (5, 3, 9))
+# ragged levels: rows of 18 and 34 words stream through cp.async, the
+# others through TMA; the 4-level hierarchy's first level has several
+# segments and strips a level
+@pytest.mark.parametrize("shapes", [
+    ((20, 12, 36), (10, 6, 18), (5, 3, 9)),
+    ((72, 40, 68), (36, 20, 34), (18, 10, 17)),
+    ((64, 48, 80), (32, 24, 40), (16, 12, 20), (8, 6, 10), (4, 3, 5)),
+])
+def test_tail_kernel_matches_twin(dev, shapes):
+    """#2 against its twin, one launch a call for every level; from a
+    caller's b whose base is not 16-B aligned too (level 0 through
+    cp.async)."""
     bl = torch.randn(*shapes[0], generator=torch.Generator(device=dev).manual_seed(5), device=dev)
-    params = [1.0, 1.0, 361.0, 1.0, 8.0, 1444.0]
+    params = []
+    for shp in shapes[:-1]:
+        h = float((shp[0] - 1) ** 2)
+        params += [1.0, 1.0 + h / 400.0, h]
+    n = bl.numel()
+    bo = torch.empty(n + 1, device=dev)[1:].view(bl.shape)
+    bo.copy_(bl)
+    assert bo.data_ptr() % 16 != 0 and bo.is_contiguous()
     for noise in (False, True):
         for color0 in (0, 1):
+            kernels.reset_launch_counts()
             ys, rhs = fused_tail_down(bl, params, 9, 2, color0, shapes, with_noise=noise)
+            assert kernels.launch_counts()["tail_down"] == 1
             ys_r, rhs_r = tail_down_reference(bl, params, 9, 2, color0, shapes, with_noise=noise)
             for a, w in zip([*ys, rhs], [*ys_r, rhs_r]):
+                assert a.shape == w.shape
                 assert _rel(a, w) <= (1e-4 if noise else 1e-5)
+            yo, rho = fused_tail_down(bo, params, 9, 2, color0, shapes, with_noise=noise)
+            assert all(torch.equal(a, c) for a, c in zip([*ys, rhs], [*yo, rho]))
+    assert kernels.launch_counts()["tail_down"] == 2
 
 
 @pytest.mark.parametrize("shape", [(16, 24, 96), (10, 6, 34)])

@@ -177,8 +177,9 @@ def test_wrappers_run_the_twins_on_cpu():
     ys_r, rhs_r = tail_down_reference(torch.from_numpy(bl), params, 1, 2, 0, _TAIL_SHAPES)
     assert all(torch.equal(a, b) for a, b in zip(ys, ys_r)) and torch.equal(rhs, rhs_r)
     assert all(v == 0 for v in kernels.launch_counts().values())
-    # partial sums are per CHAIN_TILE block and add up to the totals
-    assert got[2].shape == (1,) and torch.allclose(got[2].sum(), got[0].sum(), rtol=1e-5)
+    # partial sums are one a work item of chain_fd_plan (four 2-plane
+    # segments of the one strip) and add up to the totals
+    assert got[2].shape == (4,) and torch.allclose(got[2].sum(), got[0].sum(), rtol=1e-5)
     with pytest.raises(ValueError):
         fused_chain_down_fd(x[:, :, :31], None, [-49.0] * 6, 1.0, 49.0, 1.0, 4, 9)
     with pytest.raises(ValueError):

@@ -27,8 +27,13 @@ with ``coarsening="aggregate"``, coarsest 128 DOF requested):
   squared_shifted_laplace_fd(n^3, kappa=1) through ``sample_chain`` with
   the mean as QOI (phase 12: #11 at 256^3, #10 at 128^3); 2 warm-up
   sweeps, windows of 16 (256^3) or 32 (128^3); ms/sweep;
-* ``kernels``: device ms per call (CUDA events over 10 calls after one
-  warm-up) at 768^3 of #9 (b, noise), #8 (FD with b, and streamed D with
+* ``kernels``: device ms per call of the 256^3 main path's two kernels,
+  queued behind a sleeping kernel (``device_ms``): #1 at 256^3 (b = None,
+  z, both sums, noise; also at 128^3 and (16, 24, 96)) and #2 over the
+  256^3 hierarchy's four tail levels, the whole call and each level
+  alone (a one-level call), with the host microseconds a #2 call takes
+  to return; then device ms per call (CUDA events over 10 calls after
+  one warm-up) at 768^3 of #9 (b, noise), #8 (FD with b, and streamed D with
   b = None), #5 and #4 (the main path's call: b = None, z, sums, noise)
   and #3 summed over the six levels below 0 (b, noise), each with the
   coefficients of the 768^3 hierarchy; #7 (b, noise) at every smoothed
@@ -40,6 +45,10 @@ with ``coarsening="aggregate"``, coarsest 128 DOF requested):
   levels' kernels otherwise time the host's launch gaps), and the host
   microseconds a #7 call takes to return at 16^3; #11 at 256^3
   and #10 at 128^3 (b = None, noise), CUDA events;
+* ``chain-plans``: #1 (b = None, z, both sums, noise) at 256^3, 128^3 and
+  (16, 24, 96) with each even segment length of ``CHAIN_SEGS``
+  (``device_ms``), beside the plan the rule picks: the measurements
+  behind ``_march.wave_plan``;
 * ``sweep-plans``: #7 (b, noise) at every level shape of both V(2,2)
   hierarchies and at (16, 24, 96) with each segment length of
   ``PLAN_SEGS`` and the one ``kernels/_march.py``'s rule picks
@@ -48,7 +57,9 @@ with ``coarsening="aggregate"``, coarsest 128 DOF requested):
   and off, b given and None, CUDA events.
 
 A window is timed on the host clock and ended by
-``torch.cuda.synchronize()``.  The last line is a JSON object with every
+``torch.cuda.synchronize()``.  ``256-v10`` also reports the device time
+of a step (windows of 32 steps queued behind a sleeping kernel,
+``device_ms``) and the card's idle share of the step.  The last line is a JSON object with every
 run's numbers and, per checkout and metric, the median and the range.
 """
 
@@ -61,8 +72,9 @@ import sys
 import time
 
 DRIVES = ("256-v10", "256-v22", "768-v10", "768-v22", "patch-256", "patch-128", "kernels",
-          "sweep-plans", "patch-kernels")
+          "chain-plans", "sweep-plans", "patch-kernels")
 DEV = "cuda"
+N_MAIN = 256
 N_BIG = 768
 # (grid, n_pre, n_post, warm-up steps, steps a window)
 CHAINS = {"256-v10": (256, 1, 0, 64, 512), "256-v22": (256, 2, 2, 8, 64),
@@ -72,7 +84,8 @@ PATCH_CHAINS = {"patch-256": (256, 2, 16), "patch-128": (128, 2, 32)}
 
 
 def time_chain(torch, drive, repeats):
-    """ms/cycle of ``repeats`` windows of one MGMC drive."""
+    """{metric: [numbers]}: ms/cycle of ``repeats`` windows of one MGMC
+    drive (256-v10: and its device busy time a step and idle share)."""
     from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
@@ -95,7 +108,19 @@ def time_chain(torch, drive, repeats):
         out.append((time.perf_counter() - t0) / steps * 1e3)
     if not bool(torch.isfinite(st.x).all()):
         raise RuntimeError(f"{drive}: the chain state is not finite")
-    return out
+    if drive != "256-v10":
+        return {f"{drive} ms/cycle": out}
+    # the device time of a step: windows of 32 steps queued behind a
+    # sleeping kernel run back to back, without the host's gaps (the
+    # profiler drops records of cooperative launches, as #2's)
+    holder, n_win = [st], 32
+
+    def window():
+        holder[0] = run(holder[0], n_win)
+
+    busy = device_ms(torch, window, 2) / n_win
+    return {f"{drive} ms/cycle": out, f"{drive} device busy ms/step": [busy],
+            f"{drive} idle share": [max(0.0, 1.0 - busy / statistics.median(out))]}
 
 
 def time_patch_chain(torch, drive, repeats):
@@ -167,14 +192,61 @@ def event_ms(torch, fn, n=10):
     return start.elapsed_time(end) / n
 
 
+def main_path_kernels(torch):
+    """[(name, shape, fn)]: the 256^3 main path's calls of #1 (b = None, z, both
+    sums, noise; also at 128^3 and (16, 24, 96)) and #2 (its four tail
+    levels, and each alone), with the hierarchy's coefficients."""
+    from parmgmc_tpu_torch.kernels import mg_sweep as ms
+    from parmgmc_tpu_torch.kernels import mg_tail
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    n = N_MAIN
+    smp = MGMCSampler.create(gmrf_3d(n, kappa=1.0, device=DEV), n_pre=1, n_post=0,
+                             coarsest_size=128, coarsening="aggregate")
+    gen = torch.Generator(device=DEV).manual_seed(2027)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
+    s0 = smp.smoothers[0]
+    calls = []
+    h = 15.0**2  # chip_smoke.py phase 3's ragged shape
+    for shape, args in (((n,) * 3, (s0._coeff6(), *s0.fd_params, s0.omega, 1234, 77)),
+                        ((n // 2,) * 3, (s0._coeff6(), *s0.fd_params, s0.omega, 1234, 77)),
+                        ((16, 24, 96), ([-h] * 6, 1.0, h, 1.0, 1234, 77))):
+        x, z = randn(*shape), randn(*(n // 2 for n in shape))
+        kw = dict(z=z, with_xsum=True, with_zsum=True)
+        calls.append((f"#1 {shape}", shape,
+                      lambda x=x, a=args, kw=kw: ms.fused_chain_down_fd(x, None, *a, **kw)))
+    shapes = tuple(tuple(o.grid_shape) for o in smp.ops[1:])
+    params = [v for s in smp.smoothers[1:] for v in (s.omega, *s.fd_params)]
+    bl = randn(*shapes[0])
+    calls.append((f"#2 {len(shapes) - 1} levels", shapes,
+                  lambda: mg_tail.fused_tail_down(bl, params, 99, 5, 0, shapes)))
+    rhs = bl
+    for li in range(len(shapes) - 1):
+        one, prm = shapes[li:li + 2], params[3 * li:3 * li + 3]
+        calls.append((f"#2 level {shapes[li][0]}^3 alone", one,
+                      lambda b=rhs, one=one, prm=prm: mg_tail.fused_tail_down(b, prm, 99, 5, 0, one)))
+        rhs = randn(*shapes[li + 1])
+    return calls, (bl, params, shapes)
+
+
 def time_kernels(torch):
-    """Device ms per call of the large-plane kernels at 768^3."""
+    """Device ms per call of the 256^3 main path's kernels (#1, #2) and of
+    the large-plane kernels at 768^3."""
     from parmgmc_tpu_torch.kernels import _twin
     from parmgmc_tpu_torch.kernels import mg_sweep as ms
     from parmgmc_tpu_torch.kernels import rb_gibbs as rg
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
+    from parmgmc_tpu_torch.kernels import mg_tail
+
+    out = {}
+    calls, (bl, params, shapes) = main_path_kernels(torch)
+    for name, _, fn in calls:
+        out[name] = device_ms(torch, fn)
+    out["#2 host us/call"] = host_us(torch, lambda: mg_tail.fused_tail_down(bl, params, 99, 5, 0, shapes))
+    del calls, bl
     n = N_BIG
     smp = MGMCSampler.create(gmrf_3d(n, kappa=1.0, device=DEV), n_pre=1, n_post=0,
                              coarsest_size=128, coarsening="aggregate")
@@ -182,7 +254,6 @@ def time_kernels(torch):
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEV)
     s0 = smp.smoothers[0]
     coeffs, fd, omega = s0._coeff6(), s0.fd_params, s0.omega
-    out = {}
     x, b = randn(n, n, n), randn(n, n, n)
     out["#9"] = event_ms(torch, lambda: rg.fused_rb_gibbs_sweep_2d_staged(
         x, b, coeffs, omega, 1234, 77, fd_params=fd))
@@ -264,6 +335,34 @@ def time_small_kernels(torch, randn):
     return out
 
 
+# the segments the chain-plans drive times #1 on
+CHAIN_SEGS = (2, 4, 6, 8, 12, 16, 24, 32, 40, 44, 48, 64)
+
+
+def time_chain_plans(torch):
+    """Device ms of #1 at 256^3, 128^3 and (16, 24, 96) on each even
+    segment of CHAIN_SEGS."""
+    from unittest import mock
+
+    from parmgmc_tpu_torch.kernels import _march
+    from parmgmc_tpu_torch.kernels import mg_sweep as ms
+
+    calls, _ = main_path_kernels(torch)
+    out = {}
+    for name, shape, fn in calls:
+        if not name.startswith("#1"):
+            continue
+        chosen = ms.chain_fd_plan(shape, with_z=True)
+        for seg in sorted({min(s, shape[0]) for s in CHAIN_SEGS} | {chosen.seg}):
+            plan = _march.MarchPlan(shape=shape, strip=chosen.strip, halo=chosen.halo, seg=seg,
+                                    tma=chosen.tma)
+            with mock.patch.object(ms, "chain_fd_plan", lambda s, with_z=False, p=plan: p):
+                t = device_ms(torch, fn)
+            mark = " (rule)" if seg == chosen.seg else ""
+            out[f"#1 {shape} seg {seg}{mark}"] = t
+    return out
+
+
 # the segments the sweep-plans drive times #7 on
 PLAN_SEGS = (2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96)
 
@@ -328,6 +427,8 @@ def run_one(root, drives, repeats):
     for drive in drives:
         if drive == "kernels":
             res.update({k: [v] for k, v in time_kernels(torch).items()})
+        elif drive == "chain-plans":
+            res.update({k: [v] for k, v in time_chain_plans(torch).items()})
         elif drive == "sweep-plans":
             res.update({k: [v] for k, v in time_sweep_plans(torch).items()})
         elif drive == "patch-kernels":
@@ -335,7 +436,7 @@ def run_one(root, drives, repeats):
         elif drive in PATCH_CHAINS:
             res[f"{drive} ms/sweep"] = time_patch_chain(torch, drive, repeats)
         else:
-            res[f"{drive} ms/cycle"] = time_chain(torch, drive, repeats)
+            res.update(time_chain(torch, drive, repeats))
         torch.cuda.empty_cache()
     return res
 
