@@ -123,6 +123,31 @@ Phases, in order; any failure raises and exits non-zero:
               Gibbs chains at 768^3 (b = None): FD forward (one #9 a sweep),
               FD symmetric (two) and streamed forward (one #8), wall ms per
               sweep and exact launches.
+19. posterior gates -- bench.py's LRC selftest problem (16x16x128, three
+              ball observations, sigma^2 = 0.05, radii 0.2, default_rng(5)),
+              MGMC V(1,0): the probed route engaged (Mb_pv; the union packs
+              CW_pv and FW_pv wherever every factor has a patch view); the
+              keyed step against its materialised form under the same keys
+              (testing.lrc_chain_oracle), probed and b_eff routes, b = f and
+              None (< 1e-3 relative max-norm); the deferred chain against
+              sample_chain over 8 steps (state and QOI < 1e-3); the keyed
+              chain against its explicit-noise chain, 20000 steps after 200
+              burn-in (the phase-4 gates); the keyed LRC Gibbs chain
+              (kappa = 40 base, dense B, symmetric sweeps) against its
+              explicit-noise chain, 20000 steps after 500 burn-in (variance
+              gap < 0.25); exact launches of each chain (one #1 and one #7 a
+              MGMC step, two #7 a Gibbs step; none in the explicit chains).
+20. 256^3 posterior path -- bench.py --posterior's problem (gmrf_3d(256),
+              five balls of radius 0.12, sigma^2 = 0.01, default_rng(0)),
+              MGMC V(1,0) through sample_chain_deferred with b = f: set-up
+              time by part, the probed route with both union packs,
+              ms/cycle over 512 steps, tau and ESS/sec from 4096 steps, the
+              exact law of the QOI (mean and variance of mean(x) under the
+              posterior, from the base's eigenvectors in float64), exactly
+              one #1 and four #7 launches a step and no other kernel, the
+              device time of a step by kernel and the idle share, a finite
+              state, and the same keyed steps on the twins over 8 steps
+              (state < 1e-4).
 
 Each phase prints its wall time.  The last lines are the kernels' JSON
 record (launches from the main path that runs each kernel: phase 6 for
@@ -133,6 +158,7 @@ at the card's published peaks), the card as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -158,6 +184,8 @@ N_MOMENTS_2D = 4000
 N_BIG_V22_TIME = 32
 N_BIG_V22_IACT = 512
 N_BIG_GIBBS = 32
+N_POST_MOMENTS = 20_000
+POST_V10 = dict(n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
 RAGGED_BIG = (12, 770, 772)  # a large plane whose extents the strips do not divide
 # and one whose rows are not a multiple of 16 B: the marching kernels' cp.async producer
 RAGGED_ODD = (12, 770, 774)
@@ -1295,6 +1323,257 @@ def phase_sweep2d_moments(torch, dev, b, gates):
           f"bit for bit the chain with #7 there over 8 steps")
 
 
+def lrc_selftest_problem():
+    """bench.py selftest_lrc's problem: (op, f), three balls of radius 0.2
+    on (16, 16, 128) with sigma^2 = 0.05, from default_rng(5)."""
+    import numpy as np
+
+    from parmgmc_tpu_torch.models.obs import make_posterior_operator
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+
+    rng = np.random.default_rng(5)
+    coords = 0.2 + 0.6 * rng.random((3, 3))
+    return make_posterior_operator(shifted_laplace_fd((16, 16, 128), 1.0), 0.05, coords,
+                                   np.full(3, 0.2), rng.standard_normal(3))
+
+
+def counted_moments(torch, label, smp, b, n, burnin, per_step):
+    """chain_moments of smp, checking that the chain launched exactly
+    per_step[counter] kernels a step of each counter and no other."""
+    from parmgmc_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = chain_moments(torch, label, smp, b, n, burnin)
+    counts = kernels.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update({k: v * (n + burnin) for k, v in per_step.items()})
+    check(counts == expect, f"{label}: launched {counts}, expected {per_step} a step")
+    return out
+
+
+def phase_posterior_gates(torch, dev):
+    from parmgmc_tpu_torch.chain import ExplicitNoise, init_chain, sample_chain, sample_chain_deferred
+    from parmgmc_tpu_torch.operators.lrc import LRCOperator
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+    from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+    from parmgmc_tpu_torch.testing import lrc_chain_oracle
+
+    op, f = lrc_selftest_problem()
+    check(op.patch_vals is not None, "the selftest's observations have no patch view")
+    smp = MGMCSampler.create(op, **POST_V10)
+    aux = smp.lrc_aux
+    check(smp._lrc_chain_eligible() and smp.deferred_eligible() and "Mb_pv" in aux,
+          "the probed posterior chain route is not engaged")
+    # a union pack needs a patch view of each of its factors (the JAX rule)
+    can = {"CW_pv": smp.ops[1].patch_vals is not None, "FW_pv": smp.smoothers[0].Bb_fw_patches is not None}
+    check(all((name in aux) == ok for name, ok in can.items()), f"union packs {sorted(aux)} against {can}")
+    print(f"  levels {[o.grid_shape for o in smp.ops]}; probed route: Mb {tuple(aux['Mb_pv'].shape)}, "
+          f"RB {tuple(aux['RB_pv'].shape)}; CW_pv {'CW_pv' in aux}, FW_pv {'FW_pv' in aux} (B_c at level 1 "
+          f"patched: {can['CW_pv']}, Bb patched: {can['FW_pv']})")
+    legacy = dataclasses.replace(smp, lrc_aux={k: aux[k] for k in ("H", "RABb", "Bb_colsum")})
+    x0 = torch.randn(op.grid_shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    for route, s in (("probed", smp), ("b_eff", legacy)):
+        for tag, b in (("b=f", f), ("b=None", None)):
+            _, got = s.step(3, x0, b)
+            rel, _ = rel_err(got, lrc_chain_oracle(s, 3, x0, b))
+            print(f"  chain step vs its materialised form ({route}, {tag}): rel {rel:.3e} (gate 1e-3)")
+            check(rel < 1e-3, f"the LRC chain step's rank-k algebra disagrees ({route}, {tag})")
+    st = init_chain(smp, 5)
+    sa, qa = sample_chain(smp, st, f, 8, extract=torch.mean)
+    sb, qb = sample_chain_deferred(smp, st, f, 8)
+    rs, rq = rel_err(sb.x, sa.x)[0], rel_err(qb, qa)[0]
+    print(f"  deferred posterior chain vs sample_chain over 8 steps: state rel {rs:.3e}, QOI rel {rq:.3e} "
+          "(gates 1e-3)")
+    check(rs < 1e-3 and rq < 1e-3, "the deferred posterior chain diverged from sample_chain")
+
+    smoothed = smp.n_levels - 2
+    kern = counted_moments(torch, "posterior MGMC kernel chain", smp, f, N_POST_MOMENTS, 200,
+                           {"chain_down": 1, "rb_gibbs_fd": smoothed})
+    plain = counted_moments(torch, "posterior MGMC plain chain", ExplicitNoise(smp), f, N_POST_MOMENTS, 200, {})
+    moments_check(torch, "posterior MGMC", kern, plain, 0.2)
+    # standalone Gibbs needs a well-conditioned base, as in bench.py
+    g = GibbsSampler.create(LRCOperator(shifted_laplace_fd(op.grid_shape, 40.0), op.B, op.sigma_inv),
+                            sweep="symmetric")
+    check(g.has_kernel and g.is_lrc, "the LRC Gibbs sampler does not take the sweep kernel")
+    kern = counted_moments(torch, "posterior Gibbs kernel chain", g, f, N_POST_MOMENTS, 500, {"rb_gibbs_fd": 2})
+    plain = counted_moments(torch, "posterior Gibbs plain chain", ExplicitNoise(g), f, N_POST_MOMENTS, 500, {})
+    moments_check(torch, "posterior Gibbs", kern, plain, 0.25)
+
+
+def fd_eigen_solve(torch, v, kappa2, hinv2):
+    """A^{-1} v for the link-count FD operator kappa2 + hinv2 L on v's
+    grid: L is a sum of path-graph Laplacians, one an axis, so the
+    eigenvectors of the three small ones diagonalise A (float64)."""
+    eig = []
+    for n in v.shape:
+        lap = torch.diag(torch.full((n,), 2.0, dtype=torch.float64, device=v.device))
+        lap -= torch.diag(torch.ones(n - 1, dtype=torch.float64, device=v.device), 1)
+        lap -= torch.diag(torch.ones(n - 1, dtype=torch.float64, device=v.device), -1)
+        lap[0, 0] = lap[-1, -1] = 1.0
+        eig.append(torch.linalg.eigh(lap))
+    w = v.double()
+    for ax, (_, Q) in enumerate(eig):  # into the eigenbasis, axis by axis
+        w = torch.movedim(torch.tensordot(w, Q, dims=([ax], [0])), -1, ax)
+    lam = eig[0][0].reshape(-1, 1, 1) + eig[1][0].reshape(1, -1, 1) + eig[2][0].reshape(1, 1, -1)
+    w = w / (kappa2 + hinv2 * lam)
+    for ax, (_, Q) in enumerate(eig):
+        w = torch.movedim(torch.tensordot(w, Q.T, dims=([ax], [0])), -1, ax)
+    return w
+
+
+def posterior_qoi_law(torch, op, obsvals):
+    """(E, Var) of mean(x) for x ~ N(A_post^{-1} f, A_post^{-1}), A_post =
+    A + B Sigma^{-1} B^T, f = B Sigma^{-1} y, A link-count FD (A 1 = kappa2
+    1): with u = B^T A^{-1} 1 = B^T 1 / kappa2, S = (Sigma + B^T A^{-1}
+    B)^{-1} and g = Sigma^{-1} y,
+        1^T A_post^{-1} 1 = N / kappa2 - u^T S u,
+        1^T A_post^{-1} f = u^T (I - S B^T A^{-1} B) g,
+    in float64, A^{-1} B by the base's eigendecomposition."""
+    from parmgmc_tpu_torch.operators.stencil import detect_fd_params
+
+    kappa2, hinv2 = detect_fd_params(op.base)
+    B = op.B.double()
+    n = op.n
+    grid = list(range(op.ndim))
+    AiB = torch.stack([fd_eigen_solve(torch, B[..., j], kappa2, hinv2) for j in range(op.k)], dim=-1)
+    BtAiB = torch.tensordot(B, AiB, dims=(grid, grid))
+    s_inv = op.sigma_inv.double()
+    S = torch.linalg.inv(torch.diag(1.0 / s_inv) + BtAiB)
+    u = B.sum(dim=grid) / kappa2
+    g = s_inv * torch.as_tensor(obsvals, dtype=torch.float64, device=B.device)
+    var_sum = n / kappa2 - u @ S @ u
+    mean_sum = u @ (g - S @ (BtAiB @ g))
+    return (mean_sum / n).item(), (var_sum / n**2).item()
+
+
+def phase_posterior_path(torch, dev):
+    """bench.py --posterior at 256^3 through sample_chain_deferred (b = f)."""
+    import numpy as np
+
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain_deferred
+    from parmgmc_tpu_torch.diagnostics.iact import iact
+    from parmgmc_tpu_torch.kernels import mg_sweep, rb_gibbs
+    from parmgmc_tpu_torch.models.obs import make_posterior_operator
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.samplers import gibbs, mgmc
+    from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
+    from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    k = 5
+    rng = np.random.default_rng(0)
+    coords = 0.15 + 0.7 * rng.random((k, 3))
+    obsvals = rng.standard_normal(k)
+    (op, f), t_obs = timed(lambda: make_posterior_operator(gmrf_3d(N_MAIN, kappa=1.0), 0.01, coords,
+                                                           np.full(k, 0.12), obsvals))
+    check(op.device.type == "cuda" and op.patch_vals is not None, "the 256^3 posterior operator")
+    smp, t_create = timed(lambda: MGMCSampler.create(op, **POST_V10))
+    aux = smp.lrc_aux
+    check(smp._lrc_chain_eligible() and smp.deferred_eligible()
+          and all(name in aux for name in ("Mb_pv", "FW_pv", "CW_pv")),
+          f"the probed posterior route with both union packs is not engaged: {sorted(aux or ())}")
+    print(f"  levels {[o.grid_shape for o in smp.ops]}; B windows {tuple(op.patch_vals.shape)}; "
+          f"Mb {tuple(aux['Mb_pv'].shape)}, RB {tuple(aux['RB_pv'].shape)}, FW {tuple(aux['FW_pv'].shape)}, "
+          f"CW {tuple(aux['CW_pv'].shape)}")
+    # the same set-up again, part by part
+    (ops, trs), t_hier = timed(lambda: mgmc.build_hierarchy(op, coarsest_size=128, coarsening="aggregate"))
+    t_bb = [timed(lambda o=o: GibbsSampler.create(o))[1] for o in ops[:-1]]
+    _, t_chol = timed(lambda: CholeskySampler.create(ops[-1]))
+    _, t_aux = timed(lambda: mgmc.compute_lrc_aux(smp.ops, smp.transfers, smp.smoothers))
+    bare = dataclasses.replace(smp, lrc_aux={name: aux[name] for name in ("H", "RABb", "Bb_colsum")})
+    _, t_attach = timed(lambda: mgmc.attach_chain_b_response(bare))
+    x0 = torch.zeros(op.grid_shape, device=dev)
+    cols = [x0] + [op.B[..., j].contiguous() for j in range(k)]
+    _, t_probe = timed(lambda: [smp._fused_chain_down(x0, c, 0) for c in cols])
+    print(f"  set-up: observations {t_obs:.2f} s; MGMCSampler.create {t_create:.2f} s; part by part: "
+          f"hierarchy (B_c) {t_hier:.2f} s, Bb by level " + ", ".join(f"{t:.2f}" for t in t_bb)
+          + f" s, coarse Cholesky {t_chol:.2f} s, rank-k matrices {t_aux:.2f} s, probe and packs "
+          f"{t_attach:.2f} s (of which the {k + 1} probe calls of #1 {t_probe:.2f} s)")
+    del bare
+
+    st = init_chain(smp, 0)
+    st, _ = sample_chain_deferred(smp, st, f, 64)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, _ = sample_chain_deferred(smp, st, f, N_TIME)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / N_TIME
+    st, q = sample_chain_deferred(smp, st, f, N_IACT)
+    q = q.double().cpu()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    steps = N_TIME + N_IACT
+    print(f"  launches during the posterior path ({steps} steps): {counts}")
+    expect = dict(dict.fromkeys(counts, 0), chain_down=steps, rb_gibbs_fd=(smp.n_levels - 2) * steps)
+    check(counts == expect, f"the posterior path launched {counts}, expected {expect}")
+    x = st.x
+    check(tuple(x.shape) == op.grid_shape and bool(torch.isfinite(x).all()), "final posterior state not finite")
+    check(bool(torch.isfinite(q).all()) and q.shape == (N_IACT,), "posterior QOI chain not finite")
+    dq = abs(q[-1].item() - x.double().mean().item())
+    check(dq < 1e-6 + 1e-4 * q.abs().max().item(), f"last QOI != mean of final state ({dq:.2e})")
+    m, v = posterior_qoi_law(torch, op, obsvals)
+    tau, valid = iact(q)
+    tau_c = max(tau, 1.0)
+    var_ratio = q.var().item() / v
+    zmean = (q.mean().item() - m) / math.sqrt(v / N_IACT)
+    print(f"  QOI: mean {q.mean().item():.6e} (exact {m:.6e}), mean / SE off {zmean:.3f}, var / exact "
+          f"{var_ratio:.4f}, tau {tau:.4f} (valid {valid})")
+    check(0.8 < var_ratio < 1.25, "posterior QOI variance is off its exact value")
+    check(abs(zmean) < 5.0 * math.sqrt(tau_c), "posterior QOI mean is off its exact value")
+    ess = 1.0 / (tau_c * dt)
+    print(f"  {N_MAIN}^3 posterior path: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f}, ESS/sec {ess:.2f}")
+
+    holder, n_win = [st], 32
+    del st, x
+
+    def window():
+        holder[0], _ = sample_chain_deferred(smp, holder[0], f, n_win)
+
+    busy, per = device_ms(torch, window, 1)
+    busy, per = busy / n_win, {name: t / n_win for name, t in per.items()}
+    for name, t in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device per step: {t:.4f} ms  {name}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window()
+        torch.cuda.synchronize()
+    launched = sum(a.count for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"  device kernels and copies a step: {launched / n_win:.1f} (profiler, a window of {n_win})")
+    # a step launches ~200 kernels: queue single steps behind the sleeping
+    # kernel (a window of many fills the launch queue and waits on the host)
+    carry = [holder[0].x, smp.deferred_init(torch.float32, holder[0].x)]
+
+    def one_step():
+        _, carry[0], carry[1], _, _ = smp.step_deferred(1, carry[0], carry[1], f)
+
+    queued = queued_ms(torch, one_step, 2)
+    idle = max(0.0, 1.0 - busy / (dt * 1e3))
+    print(f"  device busy {busy:.4f} ms/step (profiler), {queued:.4f} ms/step back to back (queued), "
+          f"of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f} (profiler)")
+    del carry
+
+    # the same keyed steps with the twins in place of the kernels
+    st = holder[0]
+    sa, _ = sample_chain_deferred(smp, st, f, 8)
+    with mock.patch.object(mg_sweep, "fused_chain_down_fd", mg_sweep.fused_chain_down_fd_reference), \
+            mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
+        sb, _ = sample_chain_deferred(smp, st, f, 8)
+    rel, _ = rel_err(sa.x, sb.x)
+    print(f"  8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
+    check(rel < 1e-4, "the posterior path on the kernels disagrees with its twins")
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -1429,6 +1708,11 @@ def main():
     g = phase_gibbs(torch, big_op, cases, N_BIG_GIBBS)
     counts.update(rb_gibbs_2d_staged=c["rb_gibbs_2d_staged"] + g["rb_gibbs_2d_staged"], rb_gibbs_2d=g["rb_gibbs_2d"])
     del big22, big_op
+    torch.cuda.empty_cache()
+    phase("19. posterior gates")
+    phase_posterior_gates(torch, dev)
+    phase(f"20. {N_MAIN}^3 posterior path")
+    phase_posterior_path(torch, dev)
     print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 

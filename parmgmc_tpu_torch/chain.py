@@ -92,7 +92,9 @@ def sample_chain_deferred(sampler, state: ChainState, b, n_samples: int):
     if n_samples == 0:
         return state, torch.zeros((0,), dtype=state.x.dtype, device=state.x.device)
     key, xpy = state.key, state.x
-    z = sampler.deferred_init(state.x.dtype)
+    # the starting state seeds the carry (the probed posterior route
+    # carries B^T x beside z, zero only for a zero start)
+    z = sampler.deferred_init(state.x.dtype, state.x)
     sx_prev = torch.zeros((), dtype=state.x.dtype, device=state.x.device)
     q = []
     for _ in range(n_samples):

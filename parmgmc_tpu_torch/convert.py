@@ -9,8 +9,11 @@ so both packages can run on the very same numbers:
 * a Cholesky coarse sampler from its factor ``L`` and inverse ``Li``,
 * an MGMC sampler from its per-level operators and the coarse factors,
 * a patch-Gibbs sampler from its operator and squared-FD parameters,
+* an LRC operator from its base, B, Sigma^{-1} and patch view, and a
+  Woodbury sampler from its prior sampler and factors,
 * the deferred chain carry ``z`` in the port's compact layout from
-  either JAX layout (``zx2`` and ``zf``),
+  either JAX layout (``zx2`` and ``zf``), or the posterior's (z, B^T x)
+  pair,
 * noise trees of numpy arrays.
 """
 
@@ -20,11 +23,13 @@ import numpy as np
 import torch
 
 from parmgmc_tpu_torch import resolve_device
+from parmgmc_tpu_torch.operators.lrc import LRCOperator
 from parmgmc_tpu_torch.operators.stencil import StencilOperator, fd_stencil
 from parmgmc_tpu_torch.operators.transfer import AggregateTransfer
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler, star_patch
+from parmgmc_tpu_torch.samplers.woodbury import WoodburySampler
 
 __all__ = [
     "tensor",
@@ -34,6 +39,8 @@ __all__ = [
     "cholesky_sampler",
     "mgmc_sampler",
     "patch_gibbs_sampler",
+    "lrc_operator",
+    "woodbury_sampler",
     "deferred_carry_from_jax",
 ]
 
@@ -101,11 +108,32 @@ def patch_gibbs_sampler(offsets, coeffs, diag, sq_fd_params, device=None) -> Pat
     )
 
 
-def deferred_carry_from_jax(z, layout, device=None) -> torch.Tensor:
+def lrc_operator(base, B, sigma_inv, patch_vals=None, patch_starts=None, device=None) -> LRCOperator:
+    """LRC operator over the port operator ``base`` from numpy B (*grid, k),
+    Sigma^{-1} (k,) and, optionally, the patch view (values (k, *box),
+    starts (k, ndim))."""
+    if patch_vals is not None:
+        patch_vals = tensor(patch_vals, device)
+        patch_starts = tuple(tuple(int(v) for v in st) for st in np.asarray(patch_starts))
+    return LRCOperator(base=base, B=tensor(B, device), sigma_inv=tensor(sigma_inv, device),
+                       patch_vals=patch_vals, patch_starts=patch_starts)
+
+
+def woodbury_sampler(sampler, B, sqrt_sigma_inv, G, device=None) -> WoodburySampler:
+    """Woodbury sampler around the port sampler ``sampler`` from numpy B,
+    sqrt(Sigma^{-1}) and G (*grid, k)."""
+    return WoodburySampler(sampler=sampler, B=tensor(B, device),
+                           sqrt_sigma_inv=tensor(sqrt_sigma_inv, device), G=tensor(G, device))
+
+
+def deferred_carry_from_jax(z, layout, device=None):
     """The port's compact carry (N0/2, N1/2, N2/2) from a JAX deferred
     carry: ``layout="zx2"`` (N0/2, N1/2, N2), lanes duplicated, as the
     whole-plane and staged kernels take it; ``layout="zf"`` (N0/2, N1,
-    N2), only axis 0 compressed, as the 2D kernels take it."""
+    N2), only axis 0 compressed, as the 2D kernels take it.  The probed
+    posterior's pair (z, B^T x) comes across as the pair (carry, B^T x)."""
+    if isinstance(z, tuple):
+        return deferred_carry_from_jax(z[0], layout, device), tensor(z[1], device)
     z = np.asarray(z)
     if layout == "zx2":
         return tensor(z[..., ::2], device)

@@ -1,11 +1,20 @@
-"""Stochastic SOR / Gibbs sampler on stencil operators (port of
-``GibbsSampler`` in ``parmgmc_tpu.samplers.gibbs``, without the LRC
-posterior parts).
+"""Stochastic SOR / Gibbs sampler on stencil and low-rank-corrected
+operators (port of ``GibbsSampler`` and ``build_lrc_correction`` in
+``parmgmc_tpu.samplers.gibbs``).
 
 One Gibbs sweep targeting N(A^{-1} b, A^{-1}) is one SOR sweep applied to
 the stochastic right-hand side
 
     b~ = b + sqrt((2 - omega)/omega) * D^{1/2} eta,      eta ~ N(0, I).
+
+On an LRC operator A + B Sigma^{-1} B^T the sweep runs on the base A with
+the extra low-rank noise B w, w = sqrt(Sigma^{-1}) eta_lr, in its
+right-hand side, followed by the Woodbury post-correction
+x <- x - Bb (B^T x) with Bb = M^{-1} B (Sigma + B^T M^{-1} B)^{-1} built
+from the sweep's own iteration operator M (:func:`build_lrc_correction`).
+The keyed step feeds b + B w to the sweep kernel's b stream and applies
+the rank-k correction in plain torch, on the device; the k draws of w
+come from one generator seeded by the step's key (:func:`_lowrank_draw`).
 
 ``step_with_noise(x, b, noises)`` is the deterministic affine map given
 explicit standard-normal draws -- the oracle side of the tests and the
@@ -32,6 +41,7 @@ import torch
 from parmgmc_tpu_torch import keys
 from parmgmc_tpu_torch.kernels._twin import f32, noise_factor
 from parmgmc_tpu_torch.kernels.rb_gibbs import fused_rb_gibbs_sweep, fused_rb_gibbs_sweep_fd
+from parmgmc_tpu_torch.operators.lrc import LRCOperator, column_patches, patch_apply_add_
 from parmgmc_tpu_torch.operators.stencil import (
     FDStencilOperator,
     StencilOperator,
@@ -39,14 +49,45 @@ from parmgmc_tpu_torch.operators.stencil import (
 )
 from parmgmc_tpu_torch.samplers.sor import sor_sweep
 
-__all__ = ["GibbsSampler"]
+__all__ = ["GibbsSampler", "build_lrc_correction"]
 
 _STAR3 = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
 
 
+def build_lrc_correction(base: StencilOperator, B, sigma_inv, omega: float, sweep: str):
+    """Bb = M^{-1} B (Sigma + B^T M^{-1} B)^{-1}, ``(*grid, k)``, for the
+    sweep direction: M^{-1} B_j is one deterministic sweep from zero on
+    column j, then one k x k solve."""
+    k = B.shape[-1]
+    C = torch.stack(
+        [sor_sweep(base, B[..., j], torch.zeros_like(B[..., j]), omega, sweep) for j in range(k)],
+        dim=-1,
+    )
+    grid = list(range(B.ndim - 1))
+    small = torch.diag(1.0 / sigma_inv) + torch.tensordot(B, C, dims=(grid, grid))
+    Sb = torch.linalg.solve(small, torch.eye(k, dtype=B.dtype, device=B.device))
+    return C @ Sb
+
+
+def _lowrank_draw(key: int, scale, n: int):
+    """(n, k) draws of w = sqrt(Sigma^{-1}) eta, eta ~ N(0, I), from one
+    generator seeded by ``key`` on ``scale``'s device (``scale`` is
+    sqrt(Sigma^{-1}), (k,)); nothing is read back to the host."""
+    g = keys.generator(key, scale.device)
+    eta = torch.randn((n, scale.shape[0]), generator=g, dtype=scale.dtype, device=scale.device)
+    return scale * eta
+
+
 @dataclass(frozen=True, eq=False)
 class GibbsSampler:
-    """Multicolour SOR-Gibbs sampler for N(A^{-1} b, A^{-1})."""
+    """Multicolour SOR-Gibbs sampler for N(A^{-1} b, A^{-1}).
+
+    On an :class:`~parmgmc_tpu_torch.operators.lrc.LRCOperator` ``lrc``
+    holds the operator (with its patch view of B), ``sqrt_sigma_inv`` its
+    sqrt(Sigma^{-1}), and ``Bb_fw``/``Bb_bw`` the Woodbury factors of the
+    sweep directions in use, each with the patch view of its exactly
+    compact columns (``Bb_*_patches``) when they are localized; all None
+    on a stencil operator."""
 
     base: StencilOperator
     omega: float
@@ -56,34 +97,50 @@ class GibbsSampler:
     # off-diagonal scalars in the kernels' order, read once at create time
     # (a keyed step must not wait on the device to read coefficients)
     coeff6: "tuple | None" = None
+    lrc: "LRCOperator | None" = None
+    sqrt_sigma_inv: "torch.Tensor | None" = None
+    Bb_fw: "torch.Tensor | None" = None
+    Bb_bw: "torch.Tensor | None" = None
+    Bb_fw_patches: "tuple | None" = None  # (vals (k, *box), starts)
+    Bb_bw_patches: "tuple | None" = None
 
     @staticmethod
     def create(op, omega: float = 1.0, sweep: str = "forward") -> "GibbsSampler":
         if sweep not in ("forward", "backward", "symmetric"):
             raise ValueError(f"unknown sweep {sweep!r}")
-        if not isinstance(op, StencilOperator):
-            raise NotImplementedError(
-                "GibbsSampler on LRC (posterior) operators is ROADMAP.md item 12"
-            )
+        lrc = op if isinstance(op, LRCOperator) else None
+        base = op.base if lrc is not None else op
+        if not isinstance(base, StencilOperator):
+            raise NotImplementedError("GibbsSampler on graph operators is ROADMAP.md item 19")
         fd_params = coeff6 = None
-        if isinstance(op, FDStencilOperator):  # scalars only, nothing on the device
-            fd_params = op.fd_params()
-            if op.ndim == 3:
-                coeff6 = (f32(-op.hinv2),) * 6
-        elif op.is_star() and op.radius == 1:
-            fd_params = detect_fd_params(op)
-            if set(op.offsets) == set(_STAR3) and all(c.ndim == 0 for c in op.coeffs):
-                m = dict(zip(op.offsets, op.coeffs))
+        if isinstance(base, FDStencilOperator):  # scalars only, nothing on the device
+            fd_params = base.fd_params()
+            if base.ndim == 3:
+                coeff6 = (f32(-base.hinv2),) * 6
+        elif base.is_star() and base.radius == 1:
+            fd_params = detect_fd_params(base)
+            if set(base.offsets) == set(_STAR3) and all(c.ndim == 0 for c in base.coeffs):
+                m = dict(zip(base.offsets, base.coeffs))
                 coeff6 = tuple(float(m[o].to(torch.float32)) for o in _STAR3)
         # omega at the operator's precision, as the JAX sampler stores it
-        om = float(torch.tensor(float(omega), dtype=op.dtype))
-        if isinstance(op, FDStencilOperator):
+        om = float(torch.tensor(float(omega), dtype=base.dtype))
+        if isinstance(base, FDStencilOperator):
             noise_scale = None  # made on use: the operator holds no grid
         else:
-            noise_scale = noise_factor(om, op.dtype) * torch.sqrt(op.diag)
+            noise_scale = noise_factor(om, base.dtype) * torch.sqrt(base.diag)
+        lr = {}
+        if lrc is not None:
+            lr["lrc"], lr["sqrt_sigma_inv"] = lrc, torch.sqrt(lrc.sigma_inv)
+            # only the factors the sweep uses: each is a dense (*grid, k) stack
+            for d, name in (("forward", "fw"), ("backward", "bw")):
+                if sweep in (d, "symmetric"):
+                    Bb = build_lrc_correction(base, lrc.B, lrc.sigma_inv, om, d)
+                    lr[f"Bb_{name}"] = Bb
+                    if lrc.patch_vals is not None:
+                        lr[f"Bb_{name}_patches"] = column_patches(Bb)
         return GibbsSampler(
-            base=op, omega=om, sweep=sweep, noise_scale=noise_scale,
-            fd_params=fd_params, coeff6=coeff6,
+            base=base, omega=om, sweep=sweep, noise_scale=noise_scale,
+            fd_params=fd_params, coeff6=coeff6, **lr,
         )
 
     @property
@@ -98,10 +155,28 @@ class GibbsSampler:
     def device(self):
         return self.base.device
 
+    @property
+    def is_lrc(self) -> bool:
+        return self.lrc is not None
+
     def noise_shapes(self):
         """Tree of standard-normal shapes consumed by one step."""
         halves = 2 if self.sweep == "symmetric" else 1
-        return [{"eta": self.grid_shape} for _ in range(halves)]
+        per_half = {"eta": self.grid_shape}
+        if self.is_lrc:
+            per_half["eta_lr"] = (self.lrc.k,)
+        return [dict(per_half) for _ in range(halves)]
+
+    def _bb_apply_sub_(self, direction, x, c):
+        """x -= Bb_direction c, in place: k windows with the factor's patch
+        view, a dense product without."""
+        if direction == "forward":
+            Bb, patches = self.Bb_fw, self.Bb_fw_patches
+        else:
+            Bb, patches = self.Bb_bw, self.Bb_bw_patches
+        if patches is not None:
+            return patch_apply_add_(patches[0], patches[1], -c, x)
+        return x.sub_(Bb @ c)
 
     def _half_step(self, x, b, noise, direction):
         if b is None:  # zero-RHS (prior) convention
@@ -110,7 +185,12 @@ class GibbsSampler:
         if ns is None:
             ns = noise_factor(self.omega, x.dtype) * torch.sqrt(self.base.diag)
         btilde = b + ns * noise["eta"]
-        return sor_sweep(self.base, btilde, x, self.omega, direction)
+        if self.is_lrc:
+            btilde = btilde + self.lrc.B @ (self.sqrt_sigma_inv * noise["eta_lr"])
+        x = sor_sweep(self.base, btilde, x, self.omega, direction)
+        if self.is_lrc:
+            x = self._bb_apply_sub_(direction, x, torch.tensordot(x, self.lrc.B, dims=x.ndim))
+        return x
 
     def step_with_noise(self, x, b, noises):
         """One Gibbs iteration with explicit N(0,1) draws (deterministic)."""
@@ -139,17 +219,27 @@ class GibbsSampler:
         # 62 bits of per-step keying; the kernel hashes (seed, step, index)
         seed, extra = keys.randint31(k1), keys.randint31(k2)
         dirs = ("forward", "backward") if self.sweep == "symmetric" else (self.sweep,)
+        if self.is_lrc:
+            # per half-sweep the low-rank noise rides the kernel's b stream,
+            # b_eff = b + B w, and the Woodbury correction follows the sweep
+            key, klr = keys.split(key)
+            w_all = _lowrank_draw(klr, self.sqrt_sigma_inv, len(dirs))
+            if b is None:  # the low-rank noise still needs a b stream
+                b = torch.zeros_like(x)
         for i, d in enumerate(dirs):
+            b_eff = self.lrc.b_apply_add(w_all[i], b) if self.is_lrc else b
             if self.fd_params is not None:
                 x = fused_rb_gibbs_sweep_fd(
-                    x, b, self.coeff6, self.fd_params[0], self.fd_params[1], self.omega,
+                    x, b_eff, self.coeff6, self.fd_params[0], self.fd_params[1], self.omega,
                     seed, extra * 2 + i, sweep=d,
                 )
             else:
                 x = fused_rb_gibbs_sweep(
-                    x, b, self.base.diag, self.coeff6, self.omega, seed, extra * 2 + i,
+                    x, b_eff, self.base.diag, self.coeff6, self.omega, seed, extra * 2 + i,
                     sweep=d,
                 )
+            if self.is_lrc:
+                x = self._bb_apply_sub_(d, x, self.lrc.bt_apply(x))
         return key, x
 
     def step(self, key: int, x, b, aux=None):

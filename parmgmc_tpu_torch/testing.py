@@ -6,7 +6,8 @@ x' = G x + K eta + h.  It targets N(A^{-1} b, A^{-1}) exactly iff
     G A^{-1} b + h = A^{-1} b     and     G A^{-1} G^T + K K^T = A^{-1}.
 
 ``torch.func.jacfwd`` recovers G and K exactly, so correctness becomes a
-machine-precision identity on small grids (use float64).
+machine-precision identity on small grids (use float64).  The LRC chain
+step is held against its materialised form (:func:`lrc_chain_oracle`).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import math
 
 import torch
 
-__all__ = ["transition_matrices", "invariance_error"]
+__all__ = ["transition_matrices", "invariance_error", "lrc_chain_oracle"]
 
 
 def _leaves(shapes):
@@ -72,3 +73,28 @@ def invariance_error(sampler, op, b):
         float(mean_err / torch.clamp(torch.max(torch.abs(mu)), min=1e-30)),
         float(cov_err / scale),
     )
+
+
+def lrc_chain_oracle(smp, key: int, x, b):
+    """The state ``smp.step(key, x, b)`` should give on an LRC posterior
+    (``smp._lrc_chain_eligible()``), computed the long way: the same keys
+    and so the same kernel calls and draws, with b_eff = b + B wv formed
+    on the grid, the Woodbury correction applied to the smoothed state
+    and the coarse right-hand side restricted from the full LRC residual.
+    What differs from the step is its rank-k algebra alone."""
+    from parmgmc_tpu_torch import keys
+    from parmgmc_tpu_torch.samplers import gibbs
+
+    s, op = smp.smoothers[0], smp.fine_op
+    _, sub = keys.split(key)
+    sub, klr = keys.split(sub)
+    w = gibbs._lowrank_draw(klr, s.sqrt_sigma_inv, 1)[0]
+    b_eff = op.b_apply(w - op.sigma_inv * op.bt_apply(x))
+    if b is not None:
+        b_eff = b_eff + b
+    xpy, _, sub = smp._fused_chain_down(x, b_eff, sub)
+    Bb = s.Bb_fw if s.sweep == "forward" else s.Bb_bw
+    x_sm = xpy - Bb @ op.bt_apply(xpy - x)
+    r = (0.0 if b is None else b) - op.apply(x_sm)
+    sub, sub2 = keys.split(sub)
+    return x_sm + smp.transfers[0].prolong(smp._cycle_keyed(1, smp.transfers[0].restrict(r), sub2))

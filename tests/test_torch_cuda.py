@@ -14,8 +14,10 @@ chain, the marching kernel's chain modes (#1 on its own plans, #5
 staged, #4 windowed, #3 from zero) and their bitwise identities, its
 tail mode (#2, one launch a call), the marching sweep's two modes
 (#9 staged, #8 windowed with the diagonal rebuilt or streamed) bit for
-bit against each other and the whole-plane sweeps (#7, #6), and the
-wrappers' refusals.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+bit against each other and the whole-plane sweeps (#7, #6), the
+wrappers' refusals, and the posterior chain step (#1 and #7 with rank-k
+corrections) against its materialised form and its deferred form against
+the plain chain (1e-3, relative max-norm), with its launches.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -61,6 +63,7 @@ from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler
 
 pytestmark = pytest.mark.cuda
+V10 = dict(n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
 
 
 @pytest.fixture
@@ -447,3 +450,48 @@ def test_wrappers_refuse_bad_cuda_input(dev):
     long_rows = torch.zeros(2, 2, patch_sweep.MAX_N2 + 1, device=dev)
     with pytest.raises(ValueError):
         fused_patch_sweep_sqfd_streamed(long_rows, long_rows, 1.0, 49.0, 1, 2)
+
+
+def _posterior(dev):
+    """chip_smoke.py phase 19's problem (bench.py's LRC selftest) at half
+    its first extent: three ball observations on (8, 16, 128)."""
+    import numpy as np
+
+    from parmgmc_tpu_torch.models.obs import make_posterior_operator
+
+    rng = np.random.default_rng(5)
+    return make_posterior_operator(shifted_laplace_fd((8, 16, 128), 1.0, device=dev), 0.05,
+                                   0.2 + 0.6 * rng.random((3, 3)), np.full(3, 0.2),
+                                   rng.standard_normal(3))
+
+
+@pytest.mark.parametrize("route", ["probed", "b_eff"])
+def test_posterior_chain_step_matches_its_oracle(dev, route):
+    """The same kernel calls under the same keys: what differs from the
+    materialised step is the rank-k algebra alone.  One #1 and one #7 (the
+    one level between 0 and the coarsest) a step, no other kernel."""
+    import dataclasses
+
+    from parmgmc_tpu_torch.testing import lrc_chain_oracle
+
+    op, f = _posterior(dev)
+    smp = MGMCSampler.create(op, **V10)
+    assert smp._lrc_chain_eligible() and "Mb_pv" in smp.lrc_aux and smp.n_levels == 3
+    if route == "b_eff":
+        smp = dataclasses.replace(smp, lrc_aux={k: smp.lrc_aux[k] for k in ("H", "RABb", "Bb_colsum")})
+    x = torch.randn(op.grid_shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    for b in (f, None):
+        kernels.reset_launch_counts()
+        _, got = smp.step(3, x, b)
+        counts = kernels.launch_counts()
+        assert counts == dict(dict.fromkeys(counts, 0), chain_down=1, rb_gibbs_fd=1), counts
+        assert _rel(got, lrc_chain_oracle(smp, 3, x, b)) < 1e-3, (route, b is None)
+
+
+def test_posterior_deferred_chain_matches_plain_chain(dev):
+    op, f = _posterior(dev)
+    smp = MGMCSampler.create(op, **V10)
+    st = init_chain(smp, 5)
+    sa, qa = sample_chain(smp, st, f, 8, extract=torch.mean)
+    sb, qb = sample_chain_deferred(smp, st, f, 8)
+    assert _rel(sb.x, sa.x) < 1e-3 and _rel(qb, qa) < 1e-3

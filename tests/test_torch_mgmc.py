@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from parmgmc_tpu.models.problems import gmrf_2d as jax_gmrf_2d
 from parmgmc_tpu.models.problems import gmrf_3d as jax_gmrf_3d
 from parmgmc_tpu.operators.transfer import GeometricTransfer as JaxGeometricTransfer
 from parmgmc_tpu.samplers.mgmc import MGMCSampler as JaxMGMCSampler
@@ -30,9 +31,10 @@ from parmgmc_tpu_torch.chain import (
     sample_moments,
 )
 from parmgmc_tpu_torch.diagnostics.iact import iact
-from parmgmc_tpu_torch.models.problems import gmrf_3d
+from parmgmc_tpu_torch.models.problems import gmrf_2d, gmrf_3d
 from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
-from parmgmc_tpu_torch.samplers import mgmc
+from parmgmc_tpu_torch.samplers import gibbs, mgmc
+from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 from parmgmc_tpu_torch.testing import invariance_error
 
@@ -159,11 +161,68 @@ def test_keyed_path_refuses_out_of_slice_configs():
     assert not smp64.deferred_eligible() and not smp64.smoothers[0].has_kernel
     _, x64 = smp64.step(0, x.double(), None)
     assert x64.dtype == F64 and bool(torch.isfinite(x64).all())
-    # 2D grids stay out of slice (ROADMAP item 18)
-    smp2d = MGMCSampler.create(shifted_laplace_fd((8, 16), 1.0, device=DEV), n_post=0, coarsest_size=8,
-                                coarsening="aggregate")
-    with pytest.raises(NotImplementedError):
-        smp2d.step(0, torch.zeros(8, 16), None)
+    # grids with an odd extent stay out of slice (ROADMAP item 18), in 2D
+    # as in 3D: the aggregate hierarchy refuses to coarsen them, and a
+    # keyed step refuses levels built by hand with one
+    with pytest.raises(NotImplementedError, match="item 18"):
+        MGMCSampler.create(shifted_laplace_fd((8, 14), 1.0, device=DEV), coarsest_size=4,
+                           coarsening="aggregate")
+    ops = [shifted_laplace_fd(s, 1.0, device=DEV) for s in ((6, 10), (3, 5), (2, 3))]
+    chol = CholeskySampler.create(ops[-1])
+    smp2d = convert.mgmc_sampler(ops, chol.L.numpy(), chol.Li.numpy(), n_post=0, device=DEV)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        smp2d.step(0, torch.zeros(6, 10), None)
+
+
+_V22 = dict(n_pre=2, n_post=2, coarsening="aggregate")
+
+
+def test_keyed_2d_cycle_without_noise_is_the_explicit_cycle(monkeypatch):
+    """gmrf_2d(64) V(2,2) (64^2, 32^2, 16^2): the keyed step runs the
+    general keyed cycle, its smoothers' explicit-noise steps; with their
+    draws and the coarse draw switched off it is JAX's step_with_noise
+    with zero noises (float32, 1e-5)."""
+
+    def zeros(key, shapes, dtype, device):
+        if isinstance(shapes, tuple):
+            return torch.zeros(shapes, dtype=dtype, device=device)
+        if isinstance(shapes, dict):
+            return {k: zeros(key, v, dtype, device) for k, v in shapes.items()}
+        return [zeros(key, v, dtype, device) for v in shapes]
+
+    monkeypatch.setattr(gibbs, "_draw", zeros)
+    monkeypatch.setattr(CholeskySampler, "step", lambda self, key, x, b, aux=None: (
+        key, self.step_with_noise(x, b, [{"eta": torch.zeros(self.n, dtype=self.dtype)}], aux)))
+    jsmp = JaxMGMCSampler.create(jax_gmrf_2d(64, dtype=jnp.float32), impl="lax", **_V22)
+    ops = [convert.stencil_operator(o.offsets, [np.asarray(c) for c in o.coeffs], np.asarray(o.diag), DEV)
+           for o in jsmp.ops]
+    smp = convert.mgmc_sampler(ops, np.asarray(jsmp.coarse.L), np.asarray(jsmp.coarse.Li), device=DEV,
+                               n_pre=2, n_post=2)
+    assert [o.grid_shape for o in smp.ops] == [(64, 64), (32, 32), (16, 16)]
+    assert smp._keyed_unsupported() is None and not smp.deferred_eligible()
+    rs = np.random.RandomState(12)
+    x, b = rs.randn(64, 64).astype(np.float32), rs.randn(64, 64).astype(np.float32)
+    zero_noises = jax.tree_util.tree_map(
+        lambda s: jnp.zeros(s, jnp.float32), jsmp.noise_shapes(), is_leaf=lambda s: isinstance(s, tuple))
+    for tb in (None, torch.from_numpy(b)):
+        _, got = smp.step(3, torch.from_numpy(x), tb)
+        want = np.asarray(jsmp.step_with_noise(jnp.asarray(x), None if tb is None else jnp.asarray(b),
+                                               zero_noises))
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_keyed_2d_chain_moments():
+    """gmrf_2d(64) V(2,2) keyed chain, b = 1: A 1 = kappa^2 1, so the mean
+    of each sample is exactly N(1/kappa^2, 1/(kappa^2 N))."""
+    smp = MGMCSampler.create(gmrf_2d(64, device=DEV), **_V22)
+    b = torch.ones(64, 64)
+    n, npts = 1000, 64 * 64
+    _, q = sample_chain(smp, init_chain(smp, 5, b.clone()), b, n, extract=torch.mean)
+    q = q.double()
+    tau, _ = iact(q)
+    var_ratio = q.var().item() * npts
+    zmean = (q.mean().item() - 1.0) * np.sqrt(npts * n / max(tau, 1.0))
+    assert 0.8 < var_ratio < 1.25 and abs(zmean) < 5.0, (var_ratio, zmean, tau)
 
 
 def test_default_coarsening_is_the_jax_default():

@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 time_main_path.py --trees OLD NEW --pairs 4 \\
-        [--drive 256-v10 256-v22 768-v10 768-v22 patch-256 patch-128 kernels]
+        [--drive 256-v10 256-post 256-v22 768-v10 768-v22 patch-256 patch-128 kernels]
         [--out FILE]
 
 Each run is its own process, so every checkout imports its own
@@ -12,13 +12,18 @@ Each run is its own process, so every checkout imports its own
 one run times every drive asked for, in the order given.  The runs go OLD
 NEW NEW OLD, OLD NEW NEW OLD, ... so that a drift of the host over the
 call falls on both alike.  The drives (b = None, the aggregate hierarchy
-with ``coarsening="aggregate"``, coarsest 128 DOF requested):
+with ``coarsening="aggregate"``, coarsest 128 DOF requested; b = None but
+on the posterior drive):
 
 * ``256-v10``: ``chip_smoke.py`` phase 6's main path, gmrf_3d(256), MGMC
   V(1,0) through ``sample_chain_deferred``; 64 warm-up steps, then
   ``--repeats`` windows of 512 steps;
 * ``768-v10``: the same chain on gmrf_3d(768) (phase 15); 8 warm-up
   steps, windows of 32;
+* ``256-post``: ``chip_smoke.py`` phase 20's posterior path: bench.py
+  --posterior's problem (gmrf_3d(256) with five ball observations, b = f),
+  MGMC V(1,0) through ``sample_chain_deferred``; 64 warm-up steps, then
+  ``--repeats`` windows of 512 steps;
 * ``256-v22``: MGMC V(2,2) on gmrf_3d(256) through ``sample_chain`` with
   the mean as QOI (phase 8); 8 warm-up steps, windows of 64;
 * ``768-v22``: the same on gmrf_3d(768) (phase 18); 2 warm-up steps,
@@ -57,8 +62,9 @@ with ``coarsening="aggregate"``, coarsest 128 DOF requested):
   and off, b given and None, CUDA events.
 
 A window is timed on the host clock and ended by
-``torch.cuda.synchronize()``.  ``256-v10`` also reports the device time
-of a step (windows of 32 steps queued behind a sleeping kernel,
+``torch.cuda.synchronize()``.  ``256-v10`` and ``256-post`` also report
+the device time of a step (windows of 32 steps, or of one
+``step_deferred`` on the posterior, queued behind a sleeping kernel,
 ``device_ms``) and the card's idle share of the step.  The last line is a JSON object with every
 run's numbers and, per checkout and metric, the median and the range.
 """
@@ -71,33 +77,52 @@ import subprocess
 import sys
 import time
 
-DRIVES = ("256-v10", "256-v22", "768-v10", "768-v22", "patch-256", "patch-128", "kernels",
+DRIVES = ("256-v10", "256-post", "256-v22", "768-v10", "768-v22", "patch-256", "patch-128", "kernels",
           "chain-plans", "sweep-plans", "patch-kernels")
 DEV = "cuda"
 N_MAIN = 256
 N_BIG = 768
 # (grid, n_pre, n_post, warm-up steps, steps a window)
-CHAINS = {"256-v10": (256, 1, 0, 64, 512), "256-v22": (256, 2, 2, 8, 64),
+CHAINS = {"256-v10": (256, 1, 0, 64, 512), "256-post": (256, 1, 0, 64, 512),
+          "256-v22": (256, 2, 2, 8, 64),
           "768-v10": (768, 1, 0, 8, 32), "768-v22": (768, 2, 2, 2, 8)}
 # patch chains: (grid, warm-up sweeps, sweeps a window)
 PATCH_CHAINS = {"patch-256": (256, 2, 16), "patch-128": (128, 2, 32)}
 
 
+def posterior_problem(n):
+    """bench.py --posterior's problem on gmrf_3d(n): (LRC operator, f),
+    five balls of radius 0.12, sigma^2 = 0.01, from default_rng(0)."""
+    import numpy as np
+
+    from parmgmc_tpu_torch.models.obs import make_posterior_operator
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+
+    rng = np.random.default_rng(0)
+    coords = 0.15 + 0.7 * rng.random((5, 3))
+    return make_posterior_operator(gmrf_3d(n, kappa=1.0, device=DEV), 0.01, coords, np.full(5, 0.12),
+                                   rng.standard_normal(5))
+
+
 def time_chain(torch, drive, repeats):
     """{metric: [numbers]}: ms/cycle of ``repeats`` windows of one MGMC
-    drive (256-v10: and its device busy time a step and idle share)."""
+    drive (256-v10, 256-post: and its device busy time a step and idle
+    share)."""
     from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
     n, n_pre, n_post, warm, steps = CHAINS[drive]
-    op = gmrf_3d(n, kappa=1.0, device=DEV)
+    if drive == "256-post":
+        op, b = posterior_problem(n)
+    else:
+        op, b = gmrf_3d(n, kappa=1.0, device=DEV), None
     smp = MGMCSampler.create(op, n_pre=n_pre, n_post=n_post, coarsest_size=128,
                              coarsening="aggregate")
     if n_post == 0:
-        run = lambda st, k: sample_chain_deferred(smp, st, None, k)[0]
+        run = lambda st, k: sample_chain_deferred(smp, st, b, k)[0]
     else:
-        run = lambda st, k: sample_chain(smp, st, None, k, extract=torch.mean)[0]
+        run = lambda st, k: sample_chain(smp, st, b, k, extract=torch.mean)[0]
     st = run(init_chain(smp, 0), warm)
     torch.cuda.synchronize()
     out = []
@@ -108,7 +133,7 @@ def time_chain(torch, drive, repeats):
         out.append((time.perf_counter() - t0) / steps * 1e3)
     if not bool(torch.isfinite(st.x).all()):
         raise RuntimeError(f"{drive}: the chain state is not finite")
-    if drive != "256-v10":
+    if drive not in ("256-v10", "256-post"):
         return {f"{drive} ms/cycle": out}
     # the device time of a step: windows of 32 steps queued behind a
     # sleeping kernel run back to back, without the host's gaps (the
@@ -117,6 +142,16 @@ def time_chain(torch, drive, repeats):
 
     def window():
         holder[0] = run(holder[0], n_win)
+
+    if drive == "256-post":
+        # a posterior step launches ~200 kernels: a window of one step, or
+        # the launch queue fills behind the sleeping kernel and waits on
+        # the host
+        carry = [st.x, smp.deferred_init(st.x.dtype, st.x)]
+        n_win = 1
+
+        def window():
+            _, carry[0], carry[1], _, _ = smp.step_deferred(1, carry[0], carry[1], b)
 
     busy = device_ms(torch, window, 2) / n_win
     return {f"{drive} ms/cycle": out, f"{drive} device busy ms/step": [busy],
