@@ -149,9 +149,39 @@ Phases, in order; any failure raises and exits non-zero:
               state, and the same keyed steps on the twins over 8 steps
               (state < 1e-4).
 
+21. linear hierarchy -- build_hierarchy(gmrf_3d(n)) with every default
+              (coarsening="linear": GeometricTransfer, the comb-probed
+              Galerkin product, compress_stencil) at 256^3 and 768^3: set-up
+              time by level, the offsets each level keeps and how many of
+              them are fields, peak device memory; at both sizes the coarse
+              stencils of levels 1 and 2 against R(A(P x)) on three seeded
+              fields (< 1e-5 relative max-norm); no chain at 768^3.  The keyed
+              default V(2,2) chain on gmrf_3d(16) (16^3 on #7, 8^3 the exact
+              coarse sample of the Galerkin operator) against its
+              explicit-noise chain, 20000 steps after 200 burn-in (the
+              phase-4 gates), with exact launches (four #7 a step; none in
+              the explicit chain).  Odd extents: gmrf_3d(129) V(2,2) linear
+              (129 -> 65 -> 33 -> 17 -> 9), eight keyed steps against the
+              same steps on the twins (< 1e-4), exactly four #7 a step, a
+              finite state; gmrf_3d(33) V(2,2) aggregate (the probed 17^3 and
+              9^3 levels have coefficient fields, no kernel): exactly four #7
+              a step and no other kernel.  Fault F3: a two-level linear V(1,0)
+              sampler is not deferred-eligible, its keyed step launches one
+              #7 and no #1, #2 or #3, and step_deferred refuses it.
+22. 256^3 default V(2,2) path -- MGMCSampler.create(gmrf_3d(256), n_pre=2,
+              n_post=2) with no device and every other argument at its
+              default (the linear hierarchy 256^3 ... 8^3; levels 128^3 ...
+              16^3 are 27-point stencils on the plain-torch 8-colour sweep)
+              through sample_chain with the mean as QOI: ms/cycle over 64
+              steps after a warm-up, tau and ESS/sec and var(QOI) N in
+              (0.8, 1.25) from N_LINEAR_IACT steps, exactly four #7 launches
+              a step and no other kernel, the device time of a step by
+              kernel and the idle share, and eight keyed steps on the twins
+              (state < 1e-4).
+
 Each phase prints its wall time.  The last lines are the kernels' JSON
 record (launches from the main path that runs each kernel: phase 6 for
-the chain and tail kernels, phase 8 for the FD sweep, phase 9 for the
+the chain and tail kernels, phases 8 and 22 for the FD sweep, phase 9 for the
 streamed sweep, phase 12 for the patch sweeps, phase 14 for #4, phase 15
 for #5 and #3, phase 18 for #9 and #8; bound_ms from this run's shapes
 at the card's published peaks), the card as nvidia-smi prints it, and
@@ -185,6 +215,8 @@ N_BIG_V22_TIME = 32
 N_BIG_V22_IACT = 512
 N_BIG_GIBBS = 32
 N_POST_MOMENTS = 20_000
+N_LINEAR_TIME = 64
+N_LINEAR_IACT = 512
 POST_V10 = dict(n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
 RAGGED_BIG = (12, 770, 772)  # a large plane whose extents the strips do not divide
 # and one whose rows are not a multiple of 16 B: the marching kernels' cp.async producer
@@ -668,19 +700,23 @@ def phase_moments_general(torch, dev, b):
     return {label: moments_gate(torch, label, smp, bb, n) for label, (smp, bb, n) in probs.items()}
 
 
-def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twin=True):
+def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twin=True, plain_levels=0,
+              n_win=16):
     """The V(2,2) prior chain of smp through sample_chain with the mean as
     QOI: ms/cycle over n_time steps, tau and ESS/sec from n_iact steps,
     var(QOI) N, exactly per_step[counter] launches a step of each counter
-    and no other kernel, the device time of a step by kernel, and, with
-    ``twin``, the cycle with the FD sweep's twin in place of the kernels."""
+    and no other kernel (``plain_levels`` smoothed levels sweep in plain
+    torch), the device time of a step by kernel over a profiled window of
+    ``n_win`` steps, and, with ``twin``, the cycle with the FD sweep's
+    twin in place of the kernels.  Returns (counts, final chain state)."""
     from parmgmc_tpu_torch import kernels
     from parmgmc_tpu_torch.chain import init_chain, sample_chain
     from parmgmc_tpu_torch.diagnostics.iact import iact
     from parmgmc_tpu_torch.kernels import rb_gibbs
     from parmgmc_tpu_torch.samplers import gibbs
 
-    check(sum(per_step.values()) == (smp.n_pre + smp.n_post) * (smp.n_levels - 1) and not smp.deferred_eligible(),
+    sweeps = (smp.n_pre + smp.n_post) * (smp.n_levels - 1 - plain_levels)
+    check(sum(per_step.values()) == sweeps and not smp.deferred_eligible(),
           f"V(2,2) over {smp.n_levels} levels does not run {per_step} sweeps a step")
     shape = tuple(smp.grid_shape)
     st = init_chain(smp, 0)
@@ -718,7 +754,7 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
     ess = 1.0 / (tau_c * dt)
     print(f"  V(2,2) path {shape}: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f}, ESS/sec {ess:.2f}")
 
-    holder, n_win = [st], 16
+    holder = [st]
 
     def window():
         holder[0], _ = sample_chain(smp, holder[0], None, n_win, extract=torch.mean)
@@ -730,7 +766,7 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
     idle = max(0.0, 1.0 - busy / (dt * 1e3))
     print(f"  device busy {busy:.4f} ms/step of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f}")
     if not twin:
-        return counts
+        return counts, holder[0]
 
     st = holder[0]
     with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
@@ -741,7 +777,7 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
         torch.cuda.synchronize()
         dt_twin = (time.perf_counter() - t0) / 3
     print(f"  twin path: {dt_twin * 1e3:.4f} ms/cycle")
-    return counts
+    return counts, holder[0]
 
 
 def phase_gibbs(torch, op, cases, n_steps):
@@ -1574,8 +1610,168 @@ def phase_posterior_path(torch, dev):
     check(rel < 1e-4, "the posterior path on the kernels disagrees with its twins")
 
 
+def galerkin_exactness(torch, dev, ops, transfers, label):
+    """The coarse stencils of levels 1 and 2 against R(A(P x)) on three
+    seeded random fields each: the worst relative max-norm error."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    for l in (0, 1):
+        for _ in range(3):
+            x = torch.randn(ops[l + 1].grid_shape, generator=gen, device=dev)
+            want = transfers[l].restrict(ops[l].apply(transfers[l].prolong(x)))
+            worst = max(worst, rel_err(ops[l + 1].apply(x), want)[0])
+    print(f"  {label}: A_c x against R(A(P x)) at levels 1 and 2, three fields each: "
+          f"rel {worst:.3e} (gate 1e-5)")
+    check(worst < 1e-5, f"{label}: a Galerkin level disagrees with R A P")
+
+
+def timed_hierarchy(torch, op, **kw):
+    """build_hierarchy(op, **kw) with the set-up time of each coarse level
+    (comb probe and compression) and the peak device memory."""
+    from parmgmc_tpu_torch.samplers import mgmc
+
+    probe, compress = mgmc.galerkin_coarse_operator, mgmc.compress_stencil
+    times = []
+
+    def timed(fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(mgmc, "galerkin_coarse_operator", timed(probe)), \
+            mock.patch.object(mgmc, "compress_stencil", timed(compress)):
+        ops, transfers = mgmc.build_hierarchy(op, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    return ops, transfers, [a + b for a, b in zip(times[0::2], times[1::2])], total, torch.cuda.max_memory_allocated()
+
+
+def twin_steps(torch, smp, st, b, n=8):
+    """Relative max-norm gap between n keyed steps of smp from st on the
+    kernels and the same steps with the FD sweep's twin in their place."""
+    from parmgmc_tpu_torch.chain import sample_chain
+    from parmgmc_tpu_torch.kernels import rb_gibbs
+    from parmgmc_tpu_torch.samplers import gibbs
+
+    sa, _ = sample_chain(smp, st, b, n)
+    with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
+        sb, _ = sample_chain(smp, st, b, n)
+    check(bool(torch.isfinite(sa.x).all()), "the keyed chain's state is not finite")
+    return rel_err(sa.x, sb.x)[0]
+
+
+def counted_steps(torch, label, smp, n, per_step):
+    """n keyed steps of smp (b = None) from a fixed start, checking that
+    they launched exactly per_step[counter] kernels a step of each counter
+    and no other; the final chain state."""
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+
+    st = init_chain(smp, 3)
+    kernels.reset_launch_counts()
+    st, _ = sample_chain(smp, st, None, n)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    expect = dict(dict.fromkeys(counts, 0), **{k: v * n for k, v in per_step.items()})
+    check(counts == expect, f"{label}: launched {counts}, expected {per_step} a step")
+    check(bool(torch.isfinite(st.x).all()), f"{label}: the state is not finite")
+    print(f"  {label}: {n} keyed steps launched {per_step} a step and no other kernel")
+    return st
+
+
+def phase_linear(torch, dev):
+    from parmgmc_tpu_torch.chain import ExplicitNoise
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.operators.transfer import GeometricTransfer
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    for n in (N_MAIN, N_BIG):
+        ops, transfers, per_level, total, peak = timed_hierarchy(torch, gmrf_3d(n, kappa=1.0))
+        check(all(isinstance(t, GeometricTransfer) for t in transfers), "the default hierarchy is not linear")
+        print(f"  {n}^3 linear hierarchy: {total:.2f} s, peak device memory {peak / 2**30:.2f} GiB")
+        for o, t in zip(ops[1:], per_level):
+            fields = sum(c.ndim > 0 for c in o.coeffs)
+            print(f"    {o.grid_shape}: set-up {t:.3f} s, {len(o.offsets)} offsets kept, {fields} of them fields")
+        galerkin_exactness(torch, dev, ops, transfers, f"{n}^3")
+        del ops, transfers
+        torch.cuda.empty_cache()
+
+    # moments: level 0 on #7, the exact coarse sample of the Galerkin 8^3
+    smp = MGMCSampler.create(gmrf_3d(16, kappa=1.0), n_pre=2, n_post=2)
+    check(smp.n_levels == 2 and smp.smoothers[0].has_kernel, f"gmrf_3d(16) levels {smp.n_levels}")
+    b = torch.full(smp.grid_shape, 50.0, device=dev)
+    kern = counted_moments(torch, "linear V(2,2) kernel chain", smp, b, N_POST_MOMENTS, 200, {"rb_gibbs_fd": 4})
+    plain = counted_moments(torch, "linear V(2,2) plain chain", ExplicitNoise(smp), b, N_POST_MOMENTS, 200, {})
+    moments_check(torch, "linear V(2,2)", kern, plain, 0.2)
+
+    # odd extents: level 0 on #7 ("any 3D shape"), the Galerkin levels plain
+    odd = MGMCSampler.create(gmrf_3d(129, kappa=1.0), n_pre=2, n_post=2)
+    levels = [o.grid_shape for o in odd.ops]
+    check(levels == [(m,) * 3 for m in (129, 65, 33, 17, 9)], f"gmrf_3d(129) levels {levels}")
+    st = counted_steps(torch, "129^3 linear V(2,2)", odd, 8, {"rb_gibbs_fd": 4})
+    rel = twin_steps(torch, odd, st, None)
+    print(f"  129^3 linear V(2,2): 8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
+    check(rel < 1e-4, "the odd-extent linear cycle on the kernels disagrees with its twins")
+    agg = MGMCSampler.create(gmrf_3d(33, kappa=1.0), n_pre=2, n_post=2, coarsening="aggregate")
+    levels = [o.grid_shape for o in agg.ops]
+    check(levels == [(m,) * 3 for m in (33, 17, 9)] and not agg.smoothers[1].has_kernel
+          and any(c.ndim > 0 for c in agg.ops[1].coeffs), f"gmrf_3d(33) aggregate levels {levels}")
+    counted_steps(torch, "33^3 aggregate V(2,2)", agg, 8, {"rb_gibbs_fd": 4})
+
+    # F3: the V(1,0) cycle shape on a linear hierarchy runs the general cycle
+    f3 = MGMCSampler.create(gmrf_3d(32, kappa=1.0), n_levels=2, n_pre=1, n_post=0)
+    check(f3.smoothers[0].fd_params is not None and not f3.deferred_eligible(),
+          "a linear V(1,0) sampler is deferred-eligible")
+    counted_steps(torch, "32^3 two-level linear V(1,0)", f3, 8, {"rb_gibbs_fd": 1})
+    refused = False
+    try:
+        f3.step_deferred(0, torch.zeros(f3.grid_shape, device=dev), f3.deferred_init(torch.float32), None)
+    except NotImplementedError:
+        refused = True
+    check(refused, "step_deferred ran a linear V(1,0) sampler")
+    print("  32^3 two-level linear V(1,0): not deferred-eligible, step_deferred refuses it")
+
+
+def phase_linear_path(torch, dev):
+    """MGMCSampler.create(gmrf_3d(256), n_pre=2, n_post=2): the JAX
+    package's default V(2,2) at 256^3."""
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.operators.transfer import GeometricTransfer
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    smp = MGMCSampler.create(gmrf_3d(N_MAIN), n_pre=2, n_post=2)
+    torch.cuda.synchronize()
+    levels = [o.grid_shape for o in smp.ops]
+    check(smp.device.type == "cuda" and all(isinstance(t, GeometricTransfer) for t in smp.transfers)
+          and levels == [(m,) * 3 for m in (256, 128, 64, 32, 16, 8)],
+          f"the default 256^3 sampler: {smp.device}, levels {levels}")
+    check(smp.smoothers[0].has_kernel and not any(s.has_kernel for s in smp.smoothers[1:]),
+          "level 0 alone should take the sweep kernel")
+    print(f"  levels {levels}, create {time.perf_counter() - t0:.2f} s; chain of {N_LINEAR_IACT} steps for tau")
+    counts, st = phase_v22(torch, smp, {"rb_gibbs_fd": 4}, n_time=N_LINEAR_TIME, n_iact=N_LINEAR_IACT, n_warm=4,
+                           twin=False, plain_levels=smp.n_levels - 2, n_win=2)
+    rel = twin_steps(torch, smp, st, None)
+    print(f"  8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
+    check(rel < 1e-4, "the default V(2,2) path on the kernels disagrees with its twins")
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
+    # the profiler (phases 3 on) leaves CUPTI's callbacks in place unless
+    # told to tear them down, and every later launch then pays for them:
+    # the host-bound chains of the later phases ran ~20 % slower
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     try:
         import torch
     except ImportError:
@@ -1644,7 +1840,7 @@ def main():
     phase("7. moments gates: V(2,2) and Gibbs")
     gates = phase_moments_general(torch, dev, b)
     phase("8. V(2,2) path")
-    counts.update({k: v for k, v in phase_v22(torch, v22_smp, {"rb_gibbs_fd": 20}).items() if k == "rb_gibbs_fd"})
+    counts.update({k: v for k, v in phase_v22(torch, v22_smp, {"rb_gibbs_fd": 20})[0].items() if k == "rb_gibbs_fd"})
     phase("9. Gibbs chains")
     cases = [(mode, sweep, counter) for mode, counter in (("FD", "rb_gibbs_fd"), ("streamed", "rb_gibbs"))
              for sweep in ("forward", "symmetric")]
@@ -1701,8 +1897,8 @@ def main():
     phase_sweep2d_moments(torch, dev, b, gates)
     phase(f"18. {N_BIG}^3 V(2,2) and Gibbs chains")
     # level 0 past _PLANE_LIMIT on #9, levels 384^3 .. 12^3 on #7: 4 sweeps each
-    c = phase_v22(torch, big22, {"rb_gibbs_2d_staged": 4, "rb_gibbs_fd": 4 * (len(big_levels) - 2)},
-                  n_time=N_BIG_V22_TIME, n_iact=N_BIG_V22_IACT, n_warm=8, twin=False)
+    c, _ = phase_v22(torch, big22, {"rb_gibbs_2d_staged": 4, "rb_gibbs_fd": 4 * (len(big_levels) - 2)},
+                     n_time=N_BIG_V22_TIME, n_iact=N_BIG_V22_IACT, n_warm=8, twin=False)
     cases = (("FD", "forward", "rb_gibbs_2d_staged"), ("FD", "symmetric", "rb_gibbs_2d_staged"),
              ("streamed", "forward", "rb_gibbs_2d"))
     g = phase_gibbs(torch, big_op, cases, N_BIG_GIBBS)
@@ -1713,6 +1909,10 @@ def main():
     phase_posterior_gates(torch, dev)
     phase(f"20. {N_MAIN}^3 posterior path")
     phase_posterior_path(torch, dev)
+    phase("21. linear hierarchy")
+    phase_linear(torch, dev)
+    phase(f"22. {N_MAIN}^3 default V(2,2) path")
+    counts["rb_gibbs_fd"] += phase_linear_path(torch, dev)["rb_gibbs_fd"]
     print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 

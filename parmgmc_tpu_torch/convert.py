@@ -5,9 +5,13 @@ types.  These constructors build the port's side from plain numpy
 arrays (which a caller pulls out of the JAX objects with ``np.asarray``),
 so both packages can run on the very same numbers:
 
-* an operator from (kappa2, hinv2) or from (offsets, coeffs, diag),
+* an operator from (kappa2, hinv2) or from (offsets, coeffs, diag), or
+  from any object that holds those three (a JAX ``StencilOperator`` with
+  scalar or field coefficients),
+* the linear grid transfer of a fine shape,
 * a Cholesky coarse sampler from its factor ``L`` and inverse ``Li``,
-* an MGMC sampler from its per-level operators and the coarse factors,
+* an MGMC sampler from its per-level operators, the coarse factors and
+  the coarsening,
 * a patch-Gibbs sampler from its operator and squared-FD parameters,
 * an LRC operator from its base, B, Sigma^{-1} and patch view, and a
   Woodbury sampler from its prior sampler and factors,
@@ -25,7 +29,7 @@ import torch
 from parmgmc_tpu_torch import resolve_device
 from parmgmc_tpu_torch.operators.lrc import LRCOperator
 from parmgmc_tpu_torch.operators.stencil import StencilOperator, fd_stencil
-from parmgmc_tpu_torch.operators.transfer import AggregateTransfer
+from parmgmc_tpu_torch.operators.transfer import AggregateTransfer, GeometricTransfer
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler, star_patch
@@ -36,6 +40,8 @@ __all__ = [
     "tree",
     "fd_operator",
     "stencil_operator",
+    "stencil_operator_from",
+    "geometric_transfer",
     "cholesky_sampler",
     "mgmc_sampler",
     "patch_gibbs_sampler",
@@ -77,6 +83,18 @@ def stencil_operator(offsets, coeffs, diag, device=None) -> StencilOperator:
     )
 
 
+def stencil_operator_from(op, device=None) -> StencilOperator:
+    """The port's operator from any object with ``offsets``, ``coeffs``
+    and ``diag`` (a JAX ``StencilOperator``: each coefficient a scalar
+    or a grid-shaped field), read with ``np.asarray``."""
+    return stencil_operator(op.offsets, [np.asarray(c) for c in op.coeffs], np.asarray(op.diag), device)
+
+
+def geometric_transfer(fine_shape) -> GeometricTransfer:
+    """The linear transfer (``coarsening="linear"``) of a fine grid."""
+    return GeometricTransfer(fine_shape=tuple(int(s) for s in fine_shape))
+
+
 def cholesky_sampler(L, Li, grid_shape, device=None) -> CholeskySampler:
     return CholeskySampler.from_factors(
         tensor(L, device), None if Li is None else tensor(Li, device), grid_shape
@@ -84,12 +102,15 @@ def cholesky_sampler(L, Li, grid_shape, device=None) -> CholeskySampler:
 
 
 def mgmc_sampler(ops, L, Li, *, omega=1.0, sweep="forward", n_pre=1, n_post=1,
-                 n_coarse=1, gamma=1, device=None) -> MGMCSampler:
-    """MGMC sampler over the given per-level operators (finest first),
-    aggregate transfers between them and a Cholesky coarse sampler from
-    (L, Li)."""
+                 n_coarse=1, gamma=1, coarsening="aggregate", device=None) -> MGMCSampler:
+    """MGMC sampler over the given per-level operators (finest first), the
+    transfers of ``coarsening`` between them and a Cholesky coarse sampler
+    from (L, Li)."""
     ops = list(ops)
-    transfers = [AggregateTransfer(fine_shape=tuple(o.grid_shape)) for o in ops[:-1]]
+    if coarsening not in ("linear", "aggregate"):
+        raise ValueError(f"unknown coarsening {coarsening!r} (linear or aggregate)")
+    transfers = [geometric_transfer(o.grid_shape) if coarsening == "linear"
+                 else AggregateTransfer(fine_shape=tuple(o.grid_shape)) for o in ops[:-1]]
     coarse = cholesky_sampler(L, Li, ops[-1].grid_shape, device)
     return MGMCSampler.from_levels(
         ops, transfers, coarse, omega=omega, sweep=sweep, n_pre=n_pre,

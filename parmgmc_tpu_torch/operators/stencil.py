@@ -15,10 +15,17 @@ reference FD assembly.
 Operators accept leading batch dimensions on ``x`` (the grid is always
 the trailing ``ndim`` dimensions), which :meth:`StencilOperator.to_dense`
 uses to apply A to every unit vector at once.
+
+The geometric grid transfers live here too: vertex-style coarsening to
+``ceil(n/2)`` points an axis, :func:`prolong` by (bi/tri)linear
+interpolation, :func:`restrict` its exact transpose, and
+:func:`galerkin_coarse_operator`, the exact P^T A P of any stencil as a
+coarse stencil, read off comb probes.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -38,6 +45,10 @@ __all__ = [
     "star_offsets",
     "link_count",
     "compress_stencil",
+    "prolong",
+    "restrict",
+    "galerkin_coarse_operator",
+    "lattice",
 ]
 
 
@@ -65,11 +76,23 @@ def link_count(grid_shape, dtype, device) -> torch.Tensor:
     return links
 
 
+def lattice(t: torch.Tensor, starts, counts, step: int = 1) -> torch.Tensor:
+    """The strided view t[..., starts + step k] (k < counts) of t's trailing
+    grid dims: one ``as_strided`` call, where indexing would cost one
+    slice an axis on the host."""
+    lead = t.dim() - len(starts)
+    st = t.stride()
+    return t.as_strided(
+        (*t.shape[:lead], *counts),
+        (*st[:lead], *(s * step for s in st[lead:])),
+        t.storage_offset() + sum(a * s for a, s in zip(starts, st[lead:])),
+    )
+
+
 def _shifted(xp: torch.Tensor, off, shape, pad: int) -> torch.Tensor:
     """View of the padded ``xp`` holding x[i + off] at index i (grid dims
     trailing)."""
-    sl = tuple(slice(pad + o, pad + o + s) for o, s in zip(off, shape))
-    return xp[(Ellipsis, *sl)]
+    return lattice(xp, [pad + o for o in off], shape)
 
 
 @dataclass(frozen=True, eq=False)
@@ -264,3 +287,110 @@ def compress_stencil(op: StencilOperator) -> StencilOperator:
         offsets.append(off)
         coeffs.append(torch.tensor(lo, dtype=c.dtype, device=c.device) if lo == hi else c)
     return StencilOperator(offsets=tuple(offsets), coeffs=tuple(coeffs), diag=op.diag)
+
+
+# Grid transfers (geometric multigrid).  Coarse node i sits at fine node
+# 2i; odd fine nodes interpolate linearly from their coarse neighbours.  On
+# an even extent the last fine node has one coarse neighbour and takes its
+# full weight, so constants are interpolated exactly everywhere.  R = P^T
+# exactly, which makes the Galerkin product P^T A P exact.  The arithmetic
+# is the JAX package's, term for term; the layout is built from slices,
+# stacks and reshapes.
+
+
+def _prolong_1d(c: torch.Tensor, axis: int, nf: int) -> torch.Tensor:
+    """Linear interpolation along ``axis`` from ceil(nf/2) to nf points."""
+    c = torch.movedim(c, axis, -1)
+    head = c.shape[:-1]
+    if nf % 2:
+        mid = 0.5 * (c[..., :-1] + c[..., 1:])
+        pairs = torch.stack([c[..., :-1], mid], dim=-1).reshape(*head, nf - 1)
+        z = torch.cat([pairs, c[..., -1:]], dim=-1)
+    else:
+        # the last odd fine node takes full weight from c[-1]:
+        # 0.5 (c[-1] + 0) + 0.5 c[-1], as the JAX boundary fix adds it
+        last = 0.5 * c[..., -1:] + 0.5 * c[..., -1:]
+        od = torch.cat([0.5 * (c[..., :-1] + c[..., 1:]), last], dim=-1)
+        z = torch.stack([c, od], dim=-1).reshape(*head, nf)
+    return torch.movedim(z, -1, axis)
+
+
+def _restrict_1d(f: torch.Tensor, axis: int) -> torch.Tensor:
+    """The exact transpose of :func:`_prolong_1d` along ``axis``."""
+    f = torch.movedim(f, axis, -1)
+    nf = f.shape[-1]
+    zero = f.new_zeros((*f.shape[:-1], 1))
+    if nf % 2:
+        half = 0.5 * f[..., 1::2]  # the nc - 1 interior odd nodes
+        y = f[..., 0::2] + torch.cat([half, zero], dim=-1)
+        y = y + torch.cat([zero, half], dim=-1)
+    else:
+        ev, od = f[..., 0::2], f[..., 1::2]
+        y = ev + 0.5 * od + 0.5 * torch.cat([zero, od[..., :-1]], dim=-1)
+        # transpose of the boundary fix: f[-1] contributes 1.0 in total
+        y = torch.cat([y[..., :-1], y[..., -1:] + 0.5 * od[..., -1:]], dim=-1)
+    return torch.movedim(y, -1, axis)
+
+
+def prolong(xc: torch.Tensor, fine_shape: Sequence[int]) -> torch.Tensor:
+    """Interpolate a coarse field to the fine grid ((bi/tri)linear); the
+    grid is the leading ``len(fine_shape)`` dims."""
+    y = xc
+    for axis, nf in enumerate(fine_shape):
+        y = _prolong_1d(y, axis, int(nf))
+    return y
+
+
+def restrict(xf: torch.Tensor, ndim: "int | None" = None) -> torch.Tensor:
+    """Full-weighting restriction, the exact transpose of :func:`prolong`,
+    over the leading ``ndim`` dims (all of them when None)."""
+    y = xf
+    for axis in range(xf.ndim if ndim is None else ndim):
+        y = _restrict_1d(y, axis)
+    return y
+
+
+def galerkin_coarse_operator(op: StencilOperator, transfer=None) -> StencilOperator:
+    """The exact Galerkin product A_c = P^T A P as a coarse stencil, with P
+    the linear :func:`prolong` or ``transfer``'s.
+
+    T = R A P has radius rc = (r + 2)//2 on the coarse grid, so its
+    coefficient fields come out of T applied to ``spacing^d`` comb grids,
+    spacing = 2 rc + 2: impulses that far apart never interact, and row j's
+    coefficient at offset ``off`` is the response, at j, of the comb of
+    phase (j + off) mod spacing.  Each comb's response is copied into the
+    fields as it is made (the nodes j whose phase code (j + off) mod
+    spacing is p form one strided sublattice), so no stack of responses
+    is held: peak memory is the output fields and the fine-grid
+    temporaries of one probe.  Values are those of the JAX gather, entry
+    for entry."""
+    fshape = op.grid_shape
+    cshape = coarse_shape(fshape)
+    d = len(fshape)
+    rc = (op.radius + 2) // 2
+    spacing = 2 * rc + 2
+    if transfer is None:
+        up, down = (lambda v: prolong(v, fshape)), (lambda v: restrict(v, d))
+    else:
+        up, down = transfer.prolong, transfer.restrict
+    rng = range(-rc, rc + 1)
+    zero = (0,) * d
+    offsets = tuple(off for off in itertools.product(rng, repeat=d) if any(o != 0 for o in off))
+    fields = {off: torch.zeros(cshape, dtype=op.dtype, device=op.device) for off in (*offsets, zero)}
+    # phase code of each coarse node, one axis at a time: i mod spacing
+    codes = []
+    for ax, n in enumerate(cshape):
+        view = [1] * d
+        view[ax] = n
+        codes.append((torch.arange(n, device=op.device) % spacing).reshape(view))
+    for phase in itertools.product(range(spacing), repeat=d):
+        comb = torch.ones((1,) * d, dtype=op.dtype, device=op.device)
+        for code, p in zip(codes, phase):
+            comb = comb * (code == p).to(op.dtype)
+        u = down(op.apply(up(comb)))
+        for off, field in fields.items():
+            sub = tuple(slice((p - o) % spacing, None, spacing) for p, o in zip(phase, off))
+            field[sub] = u[sub]
+    return StencilOperator(
+        offsets=offsets, coeffs=tuple(fields[off] for off in offsets), diag=fields[zero]
+    )

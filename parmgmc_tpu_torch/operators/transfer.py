@@ -1,8 +1,15 @@
-"""Aggregation grid transfer (port of ``AggregateTransfer`` in
-``parmgmc_tpu.operators.transfer``).
+"""Structured-grid transfers (port of ``GeometricTransfer`` and
+``AggregateTransfer`` in ``parmgmc_tpu.operators.transfer``).
 
-P injects each coarse value into its 2^d fine block (an odd extent's
-last coarse cell covers one fine node); R = P^T sums the block.  Sums
+Both implement ``prolong(xc) -> xf``, ``restrict(xf) -> xc`` with
+restrict = prolong^T and ``prolong_add(y, xc) = y + prolong(xc)``, the
+grid in the leading ``len(fine_shape)`` dims.
+
+:class:`GeometricTransfer` is the linear interpolation and full weighting
+of :mod:`parmgmc_tpu_torch.operators.stencil` (``coarsening="linear"``,
+the default hierarchy).  In :class:`AggregateTransfer` P injects each
+coarse value into its 2^d fine block (an odd extent's last coarse cell
+covers one fine node); R = P^T sums the block.  Sums
 take the axis-0 pair first, then axis 1, then axis 2 -- the order the
 CUDA kernels use for their fused restriction.
 """
@@ -14,7 +21,26 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["AggregateTransfer"]
+from parmgmc_tpu_torch.operators import stencil as _st
+
+__all__ = ["AggregateTransfer", "GeometricTransfer"]
+
+
+@dataclass(frozen=True)
+class GeometricTransfer:
+    """Vertex-style linear interpolation from ceil(n/2) points an axis
+    and its exact transpose."""
+
+    fine_shape: tuple
+
+    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
+        return _st.prolong(xc, self.fine_shape)
+
+    def restrict(self, xf: torch.Tensor) -> torch.Tensor:
+        return _st.restrict(xf, len(self.fine_shape))
+
+    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+        return y + self.prolong(xc)
 
 
 def _agg_up_1d(c: torch.Tensor, axis: int, nf: int) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Multigrid Monte Carlo (MGMC) sampler (port of ``parmgmc_tpu.samplers.mgmc``).
 
-A stochastic V/W-cycle whose level smoothers are Gibbs samplers and whose
-coarsest level is an exact Cholesky sample, driven as the chain
+A stochastic V/W-cycle whose level smoothers are Gibbs samplers (or the
+samplers a registry config names) and whose coarsest level is an exact
+Cholesky sample, driven as the chain
 
     x <- x + M_mg(b - A x).
 
@@ -11,8 +12,8 @@ Three routes through the same sampler:
   (any n_pre/n_post/gamma/sweep), plain torch; the oracle side of the
   tests and the body of the explicit-noise chains.
 * ``step(key, x, b)`` / ``step_deferred`` on a V(1,0) cycle of link-count
-  FD levels in float32 -- the chain kernels, routed as the JAX package
-  routes its own: level 0 in one
+  FD levels in float32 under aggregation -- the chain kernels, routed as
+  the JAX package routes its own: level 0 in one
   :func:`~parmgmc_tpu_torch.kernels.mg_sweep.fused_chain_down_fd` launch,
   or, for planes over ``kernels.rb_gibbs._PLANE_LIMIT`` points, in
   ``fused_chain_down_2d_staged`` (``step_deferred``) or
@@ -23,11 +24,13 @@ Three routes through the same sampler:
   coarse Cholesky sample and the up-phase adds in plain torch.
 * ``step(key, x, b)`` on every other cycle -- the general keyed cycle:
   each pre- and post-sweep is the level smoother's keyed ``step`` (one
-  full-sweep kernel launch per half-sweep, see
+  full-sweep kernel launch per half-sweep on 3D star levels with scalar
+  off-diagonals, see
   :class:`~parmgmc_tpu_torch.samplers.gibbs.GibbsSampler`; levels whose
-  planes pass ``_PLANE_LIMIT`` take the large-plane sweep kernels), residuals,
-  transfers and the coarse sample in plain torch, gamma coarse
-  iterations per level.
+  planes pass ``_PLANE_LIMIT`` take the large-plane sweep kernels; other
+  levels, such as the 27-point Galerkin ones, an explicit-noise sweep in
+  plain torch), residuals, transfers and the coarse sample in plain torch,
+  gamma coarse iterations per level.
 
 On an LRC (posterior) operator A + B Sigma^{-1} B^T every level is LRC
 (B_c = P^T B).  The V(1,0) chain keeps level 0 on the unchanged chain
@@ -40,13 +43,20 @@ column of B once at create time: the kernel then reads the static b
 only, and the low-rank part of the right-hand side enters as window
 corrections.
 
-Keyed configurations outside the port's slices (odd extents) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; they are never
-emulated.
+The chain kernels restrict by 2^d block sums, so they serve only levels
+coarsened by :class:`AggregateTransfer` with even extents (the JAX
+``_down_fused_eligible`` / ``_tail_fused_eligible`` rule); every other
+hierarchy runs the general keyed cycle.
 
-The hierarchy is the closed-form aggregate Galerkin one: P^T A P of a
-link-count FD operator under 2^d block aggregation is again link-count
-FD with kappa2' = 2^d kappa2 and hinv2' = 2^(d-1) hinv2.
+The hierarchy (:func:`build_hierarchy`) is the JAX package's.  The
+default, ``coarsening="linear"``, takes :class:`GeometricTransfer` and
+the exact Galerkin product P^T A P read off comb probes
+(:func:`~parmgmc_tpu_torch.operators.stencil.galerkin_coarse_operator`,
+then ``compress_stencil``): in 3D every level below the finest is a
+27-point stencil with coefficient fields, swept by the plain-torch
+8-colour SOR.  ``coarsening="aggregate"`` keeps link-count FD in closed
+form on even extents (kappa2' = 2^d kappa2, hinv2' = 2^(d-1) hinv2) and
+probes P^T A P under aggregation for odd extents and non-FD stencils.
 """
 
 from __future__ import annotations
@@ -72,10 +82,12 @@ from parmgmc_tpu_torch.operators.stencil import (
     FDStencilOperator,
     StencilOperator,
     coarse_shape,
+    compress_stencil,
     detect_fd_params,
     fd_stencil,
+    galerkin_coarse_operator,
 )
-from parmgmc_tpu_torch.operators.transfer import AggregateTransfer
+from parmgmc_tpu_torch.operators.transfer import AggregateTransfer, GeometricTransfer
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers import gibbs
 from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
@@ -84,50 +96,50 @@ __all__ = ["MGMCSampler", "attach_chain_b_response", "build_hierarchy", "compute
 
 
 def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
-    """(ops, transfers): per-level operators by closed-form aggregate
-    Galerkin coarsening of a link-count FD operator.  On an LRC operator
-    the base is coarsened so and each column of B restricted, B_c = P^T B,
-    every level keeping the patch view of its localized columns.
+    """(ops, transfers): per-level operators by Galerkin coarsening, grids
+    halving (to ceil(n/2)) until fewer than ``coarsest_size`` points would
+    remain.
 
-    The default is the JAX package's, ``"linear"``; its transfer needs the
-    comb-probed Galerkin product, so it raises where the first transfer
-    would be built (a one-level hierarchy builds with any value).  Pass
-    ``coarsening="aggregate"`` for the closed-form hierarchy."""
+    ``coarsening="linear"`` (the default, as in JAX): GeometricTransfer
+    and the comb-probed P^T A P, compressed.  ``"aggregate"``:
+    AggregateTransfer; link-count FD levels of even extents coarsen in
+    closed form, the others (odd extents, non-FD stencils) by the probe.
+    On an LRC operator the base is coarsened so and each column of B
+    restricted, B_c = P^T B, every level keeping the patch view of its
+    localized columns."""
+    if coarsening not in ("linear", "aggregate"):
+        raise ValueError(f"unknown coarsening {coarsening!r} (linear or aggregate)")
     is_lrc = isinstance(op, LRCOperator)
     if not isinstance(op.base if is_lrc else op, StencilOperator):
         raise NotImplementedError("MGMC on graph operators is ROADMAP.md item 20")
     ops, transfers = [op], []
     while True:
         cur = ops[-1].base if is_lrc else ops[-1]
-        gshape = cur.grid_shape
+        gshape = tuple(cur.grid_shape)
         if n_levels is not None and len(ops) >= n_levels:
             break
         if n_levels is None and math.prod(coarse_shape(gshape)) < coarsest_size:
             break
         if any(s <= 2 for s in gshape):
             break
-        if coarsening != "aggregate":
-            raise NotImplementedError(
-                f"coarsening={coarsening!r} needs the comb-probed Galerkin product "
-                "(ROADMAP.md item 18); pass coarsening='aggregate'"
+        if coarsening == "aggregate":
+            tr = AggregateTransfer(fine_shape=gshape)
+            fd = detect_fd_params(cur) if all(s % 2 == 0 for s in gshape) else None
+        else:
+            tr, fd = GeometricTransfer(fine_shape=gshape), None
+        if fd is not None:
+            d = len(gshape)
+            coarse = fd_stencil(
+                coarse_shape(gshape),
+                (2**d) * fd[0],
+                (2 ** (d - 1)) * fd[1],
+                dtype=cur.dtype,
+                device=cur.device,
+                lazy=True if isinstance(cur, FDStencilOperator) else "auto",
             )
-        fd = detect_fd_params(cur) if all(s % 2 == 0 for s in gshape) else None
-        if fd is None:
-            raise NotImplementedError(
-                f"aggregate coarsening of {gshape} needs the comb-probed Galerkin "
-                "product for odd extents or non-FD stencils (ROADMAP.md item 18)"
-            )
-        d = len(gshape)
-        tr = AggregateTransfer(fine_shape=tuple(gshape))
+        else:
+            coarse = compress_stencil(galerkin_coarse_operator(cur, tr))
         transfers.append(tr)
-        coarse = fd_stencil(
-            coarse_shape(gshape),
-            (2**d) * fd[0],
-            (2 ** (d - 1)) * fd[1],
-            dtype=cur.dtype,
-            device=cur.device,
-            lazy=True if isinstance(cur, FDStencilOperator) else "auto",
-        )
         if is_lrc:
             B = ops[-1].B
             Bc = torch.stack([tr.restrict(B[..., j]) for j in range(B.shape[-1])], dim=-1)
@@ -149,7 +161,7 @@ def compute_lrc_aux(ops, transfers, smoothers):
     sum from Bb_colsum)."""
     s0 = smoothers[0] if smoothers else None
     if not (
-        s0 is not None and s0.is_lrc and s0.fd_params is not None and s0.has_kernel
+        isinstance(s0, GibbsSampler) and s0.is_lrc and s0.fd_params is not None and s0.has_kernel
         and s0.sweep in ("forward", "backward") and len(transfers) >= 1
     ):
         return None
@@ -325,10 +337,17 @@ class MGMCSampler:
 
     @staticmethod
     def from_levels(ops, transfers, coarse, omega=1.0, sweep="forward", n_pre=1,
-                    n_post=1, n_coarse=1, gamma=1) -> "MGMCSampler":
+                    n_post=1, n_coarse=1, gamma=1, smoothers=None) -> "MGMCSampler":
         """The sampler over built levels; on an LRC hierarchy with the
-        rank-k matrices of its chain step (probing the chain kernel)."""
-        smoothers = tuple(GibbsSampler.create(o, omega=omega, sweep=sweep) for o in ops[:-1])
+        rank-k matrices of its chain step (probing the chain kernel).  The
+        level smoothers are ``GibbsSampler(omega, sweep)`` unless
+        ``smoothers`` gives one sampler a level above the coarsest (the
+        registry's per-level configs)."""
+        if smoothers is None:
+            smoothers = tuple(GibbsSampler.create(o, omega=omega, sweep=sweep) for o in ops[:-1])
+        smoothers = tuple(smoothers)
+        if len(smoothers) != len(ops) - 1:
+            raise ValueError(f"{len(smoothers)} smoothers for {len(ops) - 1} smoothed levels")
         smp = MGMCSampler(
             ops=tuple(ops), transfers=tuple(transfers), smoothers=smoothers,
             coarse=coarse, n_pre=n_pre, n_post=n_post, n_levels=len(ops),
@@ -404,10 +423,6 @@ class MGMCSampler:
         """Why no keyed path can run this sampler, or None."""
         if self.n_levels < 2:
             return "a one-level MGMC sampler has no cycle; use CholeskySampler"
-        for l in range(self.n_levels - 1):
-            gs = self.ops[l].grid_shape
-            if any(d % 2 for d in gs):
-                return f"level {l} grid {gs} has an odd extent (ROADMAP.md item 18)"
         return None
 
     def _require_keyed(self):
@@ -415,17 +430,31 @@ class MGMCSampler:
         if why is not None:
             raise NotImplementedError(why)
 
+    def _block_level(self, l: int) -> bool:
+        """Can a chain kernel serve level l?  Its smoother is a Gibbs
+        sampler and the level coarsens by 2^d block sums: an
+        AggregateTransfer of even extents (the restriction the kernels
+        fuse; JAX ``_down_fused_eligible`` and ``_tail_fused_eligible``)."""
+        return (
+            isinstance(self.smoothers[l], GibbsSampler)
+            and isinstance(self.transfers[l], AggregateTransfer)
+            and all(n % 2 == 0 for n in self.ops[l].grid_shape)
+        )
+
     def deferred_eligible(self) -> bool:
         """Does the keyed step run the V(1,0) chain kernels (and so admit
         the deferred chain)?  One forward or backward pre-sweep, no
         post-sweep, gamma = 1, a 3D grid, every smoothed level link-count
-        FD in float32 (the JAX ``_down_fused_eligible`` /
-        ``deferred_eligible`` shape, without the Mosaic gates).  On an LRC
-        operator only level 0 runs a chain kernel, and the rank-k matrices
-        must be there (:meth:`_lrc_chain_eligible`)."""
+        FD in float32 and coarsened by aggregation with even extents (the
+        JAX ``_down_fused_eligible`` / ``deferred_eligible`` shape, without
+        the Mosaic gates).  On an LRC operator only level 0 runs a chain
+        kernel, and the rank-k matrices must be there
+        (:meth:`_lrc_chain_eligible`)."""
         if self.n_pre != 1 or self.n_post != 0 or self.gamma != 1:
             return False
         if self._keyed_unsupported() is not None or len(self.grid_shape) != 3:
+            return False
+        if not self._block_level(0):
             return False
         s0 = self.smoothers[0]
         if s0.sweep not in ("forward", "backward"):
@@ -433,14 +462,15 @@ class MGMCSampler:
         if s0.is_lrc:
             return self.lrc_aux is not None
         return all(
-            s.sweep == s0.sweep and s.fd_params is not None and s.has_kernel
-            for s in self.smoothers
+            self._block_level(l) and self.smoothers[l].sweep == s0.sweep
+            and self.smoothers[l].fd_params is not None and self.smoothers[l].has_kernel
+            for l in range(self.n_levels - 1)
         )
 
     def _lrc_chain_eligible(self) -> bool:
         """Does the keyed step run level 0 of an LRC operator on the chain
         kernel (with :meth:`_lrc_down`'s rank-k corrections)?"""
-        return self.n_levels > 1 and self.smoothers[0].is_lrc and self.deferred_eligible()
+        return self.deferred_eligible() and self.smoothers[0].is_lrc
 
     def _chain_level0_2d(self) -> bool:
         """Does level 0 take the large-plane chain kernels?  A 3D grid the
@@ -501,7 +531,11 @@ class MGMCSampler:
         :meth:`_fused_down`.  The rule is the TPU kernel's lane and
         compile-volume gate, not measured on the H100 (ROADMAP.md slice
         2c)."""
-        if l < 1 or l > self.n_levels - 2 or self.smoothers[l].is_lrc:
+        if l < 1 or l > self.n_levels - 2:
+            return False
+        if not all(self._block_level(m) for m in range(l, self.n_levels - 1)):
+            return False
+        if self.smoothers[l].is_lrc:
             return False
         n0, n1, n2 = self.ops[l].grid_shape
         return n2 <= 128 and 128 % n2 == 0 and n0 * n1 * 128 <= 128**3
@@ -688,7 +722,8 @@ class MGMCSampler:
             raise NotImplementedError(
                 "the deferred chain runs the V(1,0) chain kernels only (one "
                 "forward/backward pre-sweep, no post-sweep, gamma = 1, FD float32 "
-                "levels), as the JAX deferred_eligible; use sample_chain"
+                "levels under aggregation with even extents), as the JAX "
+                "deferred_eligible; use sample_chain"
             )
         pair = isinstance(z, tuple)
         z, btx = z if pair else (z, None)

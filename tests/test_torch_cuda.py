@@ -17,7 +17,9 @@ tail mode (#2, one launch a call), the marching sweep's two modes
 bit against each other and the whole-plane sweeps (#7, #6), the
 wrappers' refusals, and the posterior chain step (#1 and #7 with rank-k
 corrections) against its materialised form and its deferred form against
-the plain chain (1e-3, relative max-norm), with its launches.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+the plain chain (1e-3, relative max-norm), with its launches; the linear
+hierarchy's Galerkin levels against R A P (1e-5), and its keyed cycles'
+launches (fault F3: no chain kernel).  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -495,3 +497,38 @@ def test_posterior_deferred_chain_matches_plain_chain(dev):
     sa, qa = sample_chain(smp, st, f, 8, extract=torch.mean)
     sb, qb = sample_chain_deferred(smp, st, f, 8)
     assert _rel(sb.x, sa.x) < 1e-3 and _rel(qb, qa) < 1e-3
+
+
+def test_linear_galerkin_levels_are_exact_on_the_card(dev):
+    """The default (linear) hierarchy of a 32^3 grid: each coarse stencil of
+    levels 1 and 2 against R(A(P x)) on three seeded fields (float32,
+    1e-5), as chip_smoke.py phase 21 checks at 256^3 and 768^3."""
+    from parmgmc_tpu_torch.operators.transfer import GeometricTransfer
+    from parmgmc_tpu_torch.samplers.mgmc import build_hierarchy
+
+    ops, transfers = build_hierarchy(shifted_laplace_fd((32, 32, 32), 1.0, device=dev))
+    assert [o.grid_shape for o in ops] == [(32,) * 3, (16,) * 3, (8,) * 3]
+    assert all(isinstance(t, GeometricTransfer) for t in transfers)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for l in (0, 1):
+        for _ in range(3):
+            x = torch.randn(ops[l + 1].grid_shape, generator=gen, device=dev)
+            want = transfers[l].restrict(ops[l].apply(transfers[l].prolong(x)))
+            assert _rel(ops[l + 1].apply(x), want) < 1e-5
+
+
+def test_linear_hierarchy_launches_no_chain_kernel(dev):
+    """Fault F3: the V(1,0) cycle shape on a linear hierarchy runs the
+    general keyed cycle (one #7 a step, no #1, #2 or #3) and the deferred
+    chain refuses it; the default V(2,2) runs four #7 a step (level 0)."""
+    op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
+    for kw, per_step in ((dict(n_levels=2, n_pre=1, n_post=0), 1), (dict(n_pre=2, n_post=2), 4)):
+        smp = MGMCSampler.create(op, coarsest_size=64, **kw)
+        assert not smp.deferred_eligible()
+        kernels.reset_launch_counts()
+        st, q = sample_chain(smp, init_chain(smp, 1), None, 5, extract=torch.mean)
+        counts = kernels.launch_counts()
+        assert counts == dict(dict.fromkeys(counts, 0), rb_gibbs_fd=5 * per_step), counts
+        assert bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all())
+        with pytest.raises(NotImplementedError):
+            smp.step_deferred(0, st.x, smp.deferred_init(torch.float32), None)

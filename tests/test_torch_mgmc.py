@@ -7,7 +7,8 @@
   bitwise equal to the plain chain, moments and tau sane on a tiny grid,
   and out-of-slice configurations refused;
 * the default coarsening is the JAX package's ("linear"): where JAX builds
-  its linear hierarchy the port refuses instead of building another one.
+  its linear hierarchy the port builds the same one, never the aggregate
+  hierarchy in its place; odd extents run the general keyed cycle.
 """
 
 from unittest import mock
@@ -20,6 +21,7 @@ import torch
 
 from parmgmc_tpu.models.problems import gmrf_2d as jax_gmrf_2d
 from parmgmc_tpu.models.problems import gmrf_3d as jax_gmrf_3d
+from parmgmc_tpu.operators.stencil import shifted_laplace_fd as jax_shifted_laplace_fd
 from parmgmc_tpu.operators.transfer import GeometricTransfer as JaxGeometricTransfer
 from parmgmc_tpu.samplers.mgmc import MGMCSampler as JaxMGMCSampler
 from parmgmc_tpu_torch import convert
@@ -33,6 +35,7 @@ from parmgmc_tpu_torch.chain import (
 from parmgmc_tpu_torch.diagnostics.iact import iact
 from parmgmc_tpu_torch.models.problems import gmrf_2d, gmrf_3d
 from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+from parmgmc_tpu_torch.operators.transfer import AggregateTransfer, GeometricTransfer
 from parmgmc_tpu_torch.samplers import gibbs, mgmc
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
@@ -161,17 +164,26 @@ def test_keyed_path_refuses_out_of_slice_configs():
     assert not smp64.deferred_eligible() and not smp64.smoothers[0].has_kernel
     _, x64 = smp64.step(0, x.double(), None)
     assert x64.dtype == F64 and bool(torch.isfinite(x64).all())
-    # grids with an odd extent stay out of slice (ROADMAP item 18), in 2D
-    # as in 3D: the aggregate hierarchy refuses to coarsen them, and a
-    # keyed step refuses levels built by hand with one
-    with pytest.raises(NotImplementedError, match="item 18"):
-        MGMCSampler.create(shifted_laplace_fd((8, 14), 1.0, device=DEV), coarsest_size=4,
-                           coarsening="aggregate")
+    # grids with an odd extent run the general keyed cycle, in 2D as in 3D:
+    # the aggregate hierarchy coarsens them by the comb-probed Galerkin
+    # product (JAX's levels), and a keyed step runs levels built by hand
+    # with one; neither admits the chain kernels
+    op2d = shifted_laplace_fd((8, 14), 1.0, device=DEV)
+    smp = MGMCSampler.create(op2d, coarsest_size=4, coarsening="aggregate")
+    jsmp = JaxMGMCSampler.create(jax_shifted_laplace_fd((8, 14), 1.0, dtype=jnp.float32), coarsest_size=4,
+                                 coarsening="aggregate")
+    assert [o.grid_shape for o in smp.ops] == [tuple(o.grid_shape) for o in jsmp.ops] == [(8, 14), (4, 7), (2, 4)]
+    for o, jo in zip(smp.ops, jsmp.ops):
+        assert o.offsets == jo.offsets
+        want = np.asarray(jo.to_dense())
+        assert np.abs(o.to_dense().numpy() - want).max() <= 1e-6 * np.abs(want).max()
+    _, x2 = smp.step(0, torch.zeros(8, 14), None)
+    assert not smp.deferred_eligible() and bool(torch.isfinite(x2).all())
     ops = [shifted_laplace_fd(s, 1.0, device=DEV) for s in ((6, 10), (3, 5), (2, 3))]
     chol = CholeskySampler.create(ops[-1])
     smp2d = convert.mgmc_sampler(ops, chol.L.numpy(), chol.Li.numpy(), n_post=0, device=DEV)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        smp2d.step(0, torch.zeros(6, 10), None)
+    _, x2 = smp2d.step(0, torch.zeros(6, 10), None)
+    assert not smp2d.deferred_eligible() and x2.shape == (6, 10) and bool(torch.isfinite(x2).all())
 
 
 _V22 = dict(n_pre=2, n_post=2, coarsening="aggregate")
@@ -226,9 +238,9 @@ def test_keyed_2d_chain_moments():
 
 
 def test_default_coarsening_is_the_jax_default():
-    """create(op) with every default: JAX builds the linear hierarchy
-    (GeometricTransfer); the port has no linear transfer yet (ROADMAP item
-    18), so it raises before it builds any transfer -- it never builds the
+    """create(op) with every default builds the linear hierarchy in both
+    packages: GeometricTransfer at every level and the comb-probed
+    Galerkin operators (JAX's, to float32 rounding) -- never the
     aggregate hierarchy in its place.  One level needs no transfer and
     builds in both packages."""
     jsmp = JaxMGMCSampler.create(jax_gmrf_3d(16, kappa=1.0))
@@ -236,11 +248,16 @@ def test_default_coarsening_is_the_jax_default():
     assert all(isinstance(t, JaxGeometricTransfer) for t in jsmp.transfers)
     op = gmrf_3d(16, kappa=1.0, device=DEV)
     with mock.patch.object(mgmc, "AggregateTransfer", side_effect=AssertionError("aggregate built")):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            MGMCSampler.create(op)
-        with pytest.raises(NotImplementedError, match="item 18"):
-            mgmc.build_hierarchy(op)
+        smp = MGMCSampler.create(op)
+        ops, transfers = mgmc.build_hierarchy(op)
         one = MGMCSampler.create(op, n_levels=1)
+    assert all(isinstance(t, GeometricTransfer) for t in (*smp.transfers, *transfers))
+    assert [o.grid_shape for o in smp.ops] == [o.grid_shape for o in ops] == [tuple(o.grid_shape) for o in jsmp.ops]
+    for o, jo in zip(smp.ops, jsmp.ops):
+        assert o.offsets == jo.offsets
+        want = np.asarray(jo.to_dense())
+        assert np.abs(o.to_dense().numpy() - want).max() <= 1e-6 * np.abs(want).max()
     assert one.n_levels == JaxMGMCSampler.create(jax_gmrf_3d(16, kappa=1.0), n_levels=1).n_levels == 1
-    smp = MGMCSampler.create(op, coarsening="aggregate")
-    assert [o.grid_shape for o in smp.ops] == [tuple(o.grid_shape) for o in jsmp.ops]
+    agg = MGMCSampler.create(op, coarsening="aggregate")
+    assert [o.grid_shape for o in agg.ops] == [tuple(o.grid_shape) for o in jsmp.ops]
+    assert all(isinstance(t, AggregateTransfer) for t in agg.transfers)

@@ -113,10 +113,16 @@ def test_hierarchy_matches_galerkin_and_jax():
         assert (Ac - galerkin).abs().max() <= 1e-12 * galerkin.abs().max()
         Aj = np.asarray(jops[l + 1].to_dense())
         assert np.abs(Ac.numpy() - Aj).max() <= 1e-12 * np.abs(Aj).max()
-    with pytest.raises(NotImplementedError):
-        build_hierarchy(op, coarsest_size=16, coarsening="linear")
-    with pytest.raises(NotImplementedError):
-        build_hierarchy(gmrf_3d(7, 1.0, F64, device=DEV), coarsest_size=8, coarsening="aggregate")
+    # the linear hierarchy and odd aggregate extents build JAX's levels
+    for shape, kw in (((8,) * 3, dict(coarsest_size=16, coarsening="linear")),
+                      ((7,) * 3, dict(coarsest_size=16, coarsening="aggregate"))):
+        ops, _ = build_hierarchy(gmrf_3d(shape[0], 1.1, F64, device=DEV), **kw)
+        jops, _ = jax_build_hierarchy(jax_gmrf_3d(shape[0], 1.1, jnp.float64), **kw)
+        assert [o.grid_shape for o in ops] == [tuple(o.grid_shape) for o in jops] == [shape, (4,) * 3]
+        for o, jo in zip(ops, jops):
+            Aj = np.asarray(jo.to_dense())
+            assert o.offsets == jo.offsets
+            assert np.abs(o.to_dense().numpy() - Aj).max() <= 1e-12 * np.abs(Aj).max()
 
 
 @pytest.mark.parametrize("sweep", ["forward", "backward", "symmetric"])

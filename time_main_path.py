@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 time_main_path.py --trees OLD NEW --pairs 4 \\
-        [--drive 256-v10 256-post 256-v22 768-v10 768-v22 patch-256 patch-128 kernels]
+        [--drive 256-v10 256-post 256-v22 256-v22-linear 768-v10 768-v22 patch-256 patch-128 kernels]
         [--out FILE]
 
 Each run is its own process, so every checkout imports its own
@@ -12,8 +12,8 @@ Each run is its own process, so every checkout imports its own
 one run times every drive asked for, in the order given.  The runs go OLD
 NEW NEW OLD, OLD NEW NEW OLD, ... so that a drift of the host over the
 call falls on both alike.  The drives (b = None, the aggregate hierarchy
-with ``coarsening="aggregate"``, coarsest 128 DOF requested; b = None but
-on the posterior drive):
+with ``coarsening="aggregate"``, coarsest 128 DOF requested, but on the
+linear drive; b = None but on the posterior drive):
 
 * ``256-v10``: ``chip_smoke.py`` phase 6's main path, gmrf_3d(256), MGMC
   V(1,0) through ``sample_chain_deferred``; 64 warm-up steps, then
@@ -26,6 +26,12 @@ on the posterior drive):
   ``--repeats`` windows of 512 steps;
 * ``256-v22``: MGMC V(2,2) on gmrf_3d(256) through ``sample_chain`` with
   the mean as QOI (phase 8); 8 warm-up steps, windows of 64;
+* ``256-v22-linear``: ``chip_smoke.py`` phase 22's chain, the JAX
+  package's default: ``MGMCSampler.create(gmrf_3d(256), n_pre=2,
+  n_post=2)`` (``coarsening="linear"``, levels 128^3 ... 16^3 27-point
+  stencils swept in plain torch) through ``sample_chain`` with the mean as
+  QOI; 4 warm-up steps, windows of 16, then the device time of a step by
+  kernel name (``torch.profiler`` over 4 steps) and the idle share;
 * ``768-v22``: the same on gmrf_3d(768) (phase 18); 2 warm-up steps,
   windows of 8;
 * ``patch-256``, ``patch-128``: the patch-Gibbs chain on the squared prior
@@ -77,14 +83,15 @@ import subprocess
 import sys
 import time
 
-DRIVES = ("256-v10", "256-post", "256-v22", "768-v10", "768-v22", "patch-256", "patch-128", "kernels",
+DRIVES = ("256-v10", "256-post", "256-v22", "256-v22-linear", "768-v10", "768-v22", "patch-256", "patch-128",
+          "kernels",
           "chain-plans", "sweep-plans", "patch-kernels")
 DEV = "cuda"
 N_MAIN = 256
 N_BIG = 768
 # (grid, n_pre, n_post, warm-up steps, steps a window)
 CHAINS = {"256-v10": (256, 1, 0, 64, 512), "256-post": (256, 1, 0, 64, 512),
-          "256-v22": (256, 2, 2, 8, 64),
+          "256-v22": (256, 2, 2, 8, 64), "256-v22-linear": (256, 2, 2, 4, 16),
           "768-v10": (768, 1, 0, 8, 32), "768-v22": (768, 2, 2, 2, 8)}
 # patch chains: (grid, warm-up sweeps, sweeps a window)
 PATCH_CHAINS = {"patch-256": (256, 2, 16), "patch-128": (128, 2, 32)}
@@ -106,8 +113,9 @@ def posterior_problem(n):
 
 def time_chain(torch, drive, repeats):
     """{metric: [numbers]}: ms/cycle of ``repeats`` windows of one MGMC
-    drive (256-v10, 256-post: and its device busy time a step and idle
-    share)."""
+    drive (256-v10, 256-post, 256-v22-linear: and its device busy time a
+    step and idle share; 256-v22-linear: and its device time a step by
+    kernel)."""
     from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
@@ -117,8 +125,11 @@ def time_chain(torch, drive, repeats):
         op, b = posterior_problem(n)
     else:
         op, b = gmrf_3d(n, kappa=1.0, device=DEV), None
-    smp = MGMCSampler.create(op, n_pre=n_pre, n_post=n_post, coarsest_size=128,
-                             coarsening="aggregate")
+    if drive == "256-v22-linear":  # every other argument at its default
+        smp = MGMCSampler.create(op, n_pre=n_pre, n_post=n_post)
+    else:
+        smp = MGMCSampler.create(op, n_pre=n_pre, n_post=n_post, coarsest_size=128,
+                                 coarsening="aggregate")
     if n_post == 0:
         run = lambda st, k: sample_chain_deferred(smp, st, b, k)[0]
     else:
@@ -133,6 +144,14 @@ def time_chain(torch, drive, repeats):
         out.append((time.perf_counter() - t0) / steps * 1e3)
     if not bool(torch.isfinite(st.x).all()):
         raise RuntimeError(f"{drive}: the chain state is not finite")
+    if drive == "256-v22-linear":
+        per = kernel_ms(torch, lambda: run(st, 4), 4)
+        busy = sum(per.values())
+        res = {f"{drive} ms/cycle": out, f"{drive} device busy ms/step": [busy],
+               f"{drive} idle share": [max(0.0, 1.0 - busy / statistics.median(out))]}
+        for name, t in sorted(per.items(), key=lambda kv: -kv[1])[:8]:
+            res[f"{drive} device ms/step {name}"] = [t]
+        return res
     if drive not in ("256-v10", "256-post"):
         return {f"{drive} ms/cycle": out}
     # the device time of a step: windows of 32 steps queued behind a
@@ -200,6 +219,27 @@ def device_ms(torch, fn, n=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def kernel_ms(torch, fn, steps):
+    """{kernel name: device ms per step} of one profiled call of fn, which
+    runs ``steps`` chain steps, after one warm-up call
+    (``torch.profiler``'s summed device time by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {}
+    for a in prof.key_averages():
+        if a.device_type == torch.autograd.DeviceType.CUDA and a.self_device_time_total > 0:
+            name = a.key.replace("(anonymous namespace)::", "")[:72]
+            per[name] = per.get(name, 0.0) + a.self_device_time_total / 1e3 / steps
+    if not per:
+        raise RuntimeError("the profiler saw no device time")
+    return per
 
 
 def host_us(torch, fn, n=200):
