@@ -178,6 +178,39 @@ Phases, in order; any failure raises and exits non-zero:
               a step and no other kernel, the device time of a step by
               kernel and the idle share, and eight keyed steps on the twins
               (state < 1e-4).
+23. unstructured mesh set-up -- MaternMeshSampler on the wrench
+              (examples/benchmark/wrench.json: kappa 5) at refine 3 (38,132
+              DOFs): the preset's posterior (three balls, sigma^2 = 1e-6) in
+              float64 and the prior in float32, and at refine 4 (277,544 DOFs)
+              the prior in float64, all on the card, MGMC V(1,1) on the
+              algebraic hierarchy (coarsest 128 requested): the host seconds
+              of each set-up stage (read and refine, assembly, colouring,
+              upload, aggregation), the levels, colours and ELL widths, the
+              peak device memory of the set-up (above what was held before
+              it); the native colouring and aggregation bit
+              for bit their Python twins on refine 3.
+24. unstructured mesh gates -- the exact laws from the host's
+              SparseCholeskySampler (SuperLU LDL^T, float64; Woodbury for the
+              posterior); 256 chains chain-major after 16 burn-in steps, 96
+              recorded steps each: the posterior's QOI (the preset's rect-region
+              mean) within 4 standard errors of its exact mean (SE = sqrt(var
+              tau / N)) with variance / exact in (0.8, 1.25), the posterior's
+              field mean against A_post^-1 b (relative 2-norm error < 0.02, the
+              strict end of the reference's 0.02-0.10); the same variance gate
+              for the float32 prior, for hierarchy="geometric" (refine 3 over
+              the refinement chain, four levels), and for GraphPatchGibbsSampler
+              on the refine-2 prior (5,682 DOFs; 8 burn-in and 32 recorded
+              sweeps).
+25. unstructured mesh path -- the refine-3 posterior with one chain
+              (MaternMeshSampler.sample): ms/cycle over 1024 steps, tau (emcee
+              window, c = 5), tau_sections, ESS/sec; with 256 chains
+              chain-major (sample_chains), and the float32 prior likewise: ms a
+              step over 256 steps, aggregate samples/s, mean tau over chains,
+              tau_sections; the refine-4 prior with one chain: ms/cycle over
+              256 steps; for each, the device time a step by kernel and the
+              idle share (profiler) and the torch ops a step (a dispatch
+              mode); no port kernel is launched (the JAX mesh path reaches no
+              Pallas kernel).
 
 Each phase prints its wall time.  The last lines are the kernels' JSON
 record (launches from the main path that runs each kernel: phase 6 for
@@ -218,6 +251,21 @@ N_POST_MOMENTS = 20_000
 N_LINEAR_TIME = 64
 N_LINEAR_IACT = 512
 POST_V10 = dict(n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
+# the unstructured-mesh phases (wrench, examples/benchmark/wrench.json)
+WRENCH_PRESET = "examples/benchmark/wrench.json"
+N_MESH_CHAINS = 256
+N_MESH_BURNIN = 16
+N_MESH_GATE = 96
+N_PATCH_BURNIN = 8
+N_PATCH_GATE = 32
+N_MESH_WARM = 8
+N_MESH_1CHAIN = 1024
+N_MESH_PATH = 256
+N_MESH4_TIME = 256
+# the reference's relative sample-mean error bound is 0.02-0.10 (BASELINE.md):
+# the strict end; one posterior sample is ~0.41 |mu| away from the mean in
+# 2-norm (the exact law), so 256 x 96 samples expect ~0.003
+MESH_FIELD_GATE = 0.02
 RAGGED_BIG = (12, 770, 772)  # a large plane whose extents the strips do not divide
 # and one whose rows are not a multiple of 16 B: the marching kernels' cp.async producer
 RAGGED_ODD = (12, 770, 774)
@@ -1766,6 +1814,332 @@ def phase_linear_path(torch, dev):
     return counts
 
 
+def wrench_preset():
+    """examples/benchmark/wrench.json: the reference's wrench.opts (kappa 5,
+    three ball observations at sigma^2 = 1e-6, the rect QOI region)."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), WRENCH_PRESET)) as f:
+        return json.load(f)
+
+
+def mesh_stage_timers(torch):
+    """(patches, seconds): mock patches that add each mesh set-up stage's
+    host seconds (ended by a device synchronise) to ``seconds``: reading
+    and refining the mesh, assembly (and the observation matrices), the
+    greedy colouring, the ELL arrays' upload, aggregation (strength graph,
+    aggregates, smoothed P, Galerkin product) and the geometric Galerkin
+    hierarchy."""
+    from parmgmc_tpu_torch.models import mesh
+    from parmgmc_tpu_torch.operators import aggregation, graph
+
+    seconds = {}
+
+    def timer(stage, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            seconds[stage] = seconds.get(stage, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    targets = ((mesh, "read_gmsh", "read+refine"), (mesh, "refine", "read+refine"),
+               (mesh, "matern_precision_mesh", "assembly"), (mesh, "mesh_observation_mats", "assembly"),
+               (graph, "greedy_coloring", "colouring"), (graph, "graph_operator", "upload"),
+               (aggregation, "smoothed_aggregation_level", "aggregation"),
+               (mesh, "geometric_mgmc_hierarchy", "geometric Galerkin"))
+    return [mock.patch.object(m, name, timer(stage, getattr(m, name))) for m, name, stage in targets], seconds
+
+
+def build_mesh_sampler(torch, label, **kw):
+    """MaternMeshSampler(**kw) on the card with the host seconds of each
+    set-up stage, the levels (DOFs, colours, ELL widths) and the peak
+    device memory printed."""
+    from contextlib import ExitStack
+
+    from parmgmc_tpu_torch.models.matern import MaternMeshSampler
+
+    patches, seconds = mesh_stage_timers(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    with ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        ms = MaternMeshSampler(mesh_file="wrench", **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    smp = ms.sampler
+    bases = [getattr(o, "base", o) for o in smp.ops]
+    check(ms.op.device.type == "cuda" and all(b.device.type == "cuda" for b in bases),
+          f"{label}: the operators are not on the card")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+    print(f"  {label}: {ms.n} DOFs, set-up {total:.3f} s ({stages}), "
+          f"peak device memory {(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB above the "
+          f"{held / 2**20:.1f} MiB held before")
+    print(f"    levels {[b.n for b in bases]}, colours {[b.ncolors for b in bases]}, "
+          f"ELL widths {[b.vals.shape[1] for b in bases]}, smoothers "
+          f"V({smp.n_pre},{smp.n_post}), coarsest {type(smp.coarse).__name__}")
+    return ms
+
+
+def phase_mesh_setup(torch):
+    """Wrench refine 3 (posterior, float64; prior, float32) and refine 4
+    (prior) on the card; the native colouring and aggregation against
+    their Python twins on refine 3."""
+    import numpy as np
+
+    from parmgmc_tpu_torch import native
+    from parmgmc_tpu_torch.models import mesh
+    from parmgmc_tpu_torch.models.matern import observations_of
+    from parmgmc_tpu_torch.operators.aggregation import _strength_graph, aggregate_py
+    from parmgmc_tpu_torch.operators.graph import ell_csr, greedy_coloring_py
+
+    preset = wrench_preset()
+    kappa = float(preset["kappa"])
+    post = build_mesh_sampler(torch, "refine-3 posterior (float64)", refinements=3, kappa=kappa,
+                              observations=observations_of(preset), coarsest_size=128)
+    check(post.n == 38132 and post.sampler.n_levels == 3, f"refine-3 wrench: {post.n} DOFs")
+    prior32 = build_mesh_sampler(torch, "refine-3 prior (float32)", refinements=3, kappa=kappa,
+                                 dtype=torch.float32, coarsest_size=128)
+    check(torch.equal(prior32.op.perm, post.op.perm), "the float32 operator is coloured differently")
+    prior4 = build_mesh_sampler(torch, "refine-4 prior (float64)", refinements=4, kappa=kappa, coarsest_size=128)
+    check(prior4.n == 277544 and prior4.sampler.n_levels == 5, f"refine-4 wrench: {prior4.n} DOFs")
+
+    t0 = time.perf_counter()
+    A = mesh.matern_precision_mesh(post.points, post.cells, kappa)
+    n = A.shape[0]
+    same = np.array_equal(native.greedy_coloring(A.indptr, A.indices, n), greedy_coloring_py(A.indptr, A.indices, n))
+    S = _strength_graph(ell_csr(post.op), 0.02)
+    agg, n_agg = native.aggregate(S.indptr, S.indices, n)
+    agg_py, n_agg_py = aggregate_py(S)
+    same_agg = np.array_equal(agg, agg_py) and n_agg == n_agg_py
+    print(f"  refine 3: native colouring {'==' if same else '!='} its Python twin, native aggregation "
+          f"({n_agg} aggregates) {'==' if same_agg else '!='} its twin, bit for bit "
+          f"({time.perf_counter() - t0:.2f} s)")
+    check(same and same_agg, "the native graph set-up disagrees with its Python twin")
+    return preset, post, prior32, prior4
+
+
+def exact_qoi_law(torch, op, w_int, b=None):
+    """(mean, var) of the QOI w^T x under N(A^{-1} b, A^{-1}) of ``op`` (LRC:
+    the posterior), from the host's sparse LDL^T in float64."""
+    from parmgmc_tpu_torch.samplers.cholesky import SparseCholeskySampler
+
+    sc = SparseCholeskySampler.create(op)
+    mean = 0.0 if b is None else float(w_int.double() @ sc.mean(b))
+    return mean, float(w_int.double() @ sc.mean(w_int)), sc
+
+
+def qoi_gates(torch, label, q, exact_mean, exact_var, gate_mean=True):
+    """Mean within 4 standard errors (SE = sqrt(var tau / N)) and variance
+    ratio in (0.8, 1.25) of the QOI traces q (C, N) against its exact law;
+    returns the mean tau over the chains."""
+    import numpy as np
+
+    from parmgmc_tpu_torch.diagnostics.iact import iact
+
+    q = q.double().cpu()
+    taus, _ = iact(q)
+    tau = float(np.maximum(taus, 1.0).mean())
+    qm, qv = q.mean().item(), q.var().item()
+    se = math.sqrt(exact_var * tau / q.numel())
+    ratio = qv / exact_var
+    print(f"  {label}: QOI over {q.shape[0]} chains x {q.shape[1]} steps: mean {qm:.6e} (exact {exact_mean:.6e}, "
+          f"|z| {abs(qm - exact_mean) / se:.3f}, gate 4), var / exact {ratio:.4f} (gate 0.8..1.25), mean tau {tau:.4f}")
+    if gate_mean:
+        check(abs(qm - exact_mean) < 4.0 * se, f"{label}: the QOI mean is off its exact value")
+    check(0.8 < ratio < 1.25, f"{label}: the QOI variance is off its exact value")
+    return tau
+
+
+def chain_major(torch, smp, b, w_int, C, burnin, n, key=5, field=False):
+    """(q (C, n), wall seconds of the n recorded steps, field sum (n_dof,)
+    or None): C chains chain-major through sample_chain from zero, the QOI
+    w^T x of each chain recorded after ``burnin`` steps; with ``field`` the
+    recorded states are summed on the card."""
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+
+    st = init_chain(smp, key, batch=(C,))
+    check(tuple(st.x.shape) == (smp.grid_shape[0], C), "chain-major state shape")
+    st, _ = sample_chain(smp, st, b, burnin, extract=lambda x: w_int @ x)
+    acc = torch.zeros_like(st.x) if field else None
+
+    def extract(x):
+        if acc is not None:
+            acc.add_(x)
+        return w_int @ x
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, q = sample_chain(smp, st, b, n, extract=extract)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(st.x).all()) and tuple(q.shape) == (n, C), "the chain-major chain is not finite")
+    return q.T, dt, (None if acc is None else acc.sum(dim=1))
+
+
+def phase_mesh_gates(torch, preset, post, prior32):
+    """The exact laws from the host's SparseCholeskySampler (float64) and
+    the 256-chain gates: the refine-3 posterior's QOI mean and variance and
+    its field mean, the float32 prior's QOI variance, the geometric
+    hierarchy's and the graph patch-Gibbs sampler's."""
+    from parmgmc_tpu_torch.models import mesh
+    from parmgmc_tpu_torch.models.matern import region_qoi
+    from parmgmc_tpu_torch.operators.graph import from_csr
+    from parmgmc_tpu_torch.samplers.patch_gibbs import GraphPatchGibbsSampler
+
+    kappa = float(preset["kappa"])
+    w = region_qoi(post.points, preset)
+    w_int = torch.as_tensor(w[post.op.perm.cpu().numpy()], device=post.b.device)
+    t0 = time.perf_counter()
+    mu_q, var_q, sc = exact_qoi_law(torch, post.operator, w_int, post.b)
+    mu = sc.mean(post.b)
+    _, var_prior, _ = exact_qoi_law(torch, post.op, w_int)
+    print(f"  exact laws (host SuperLU LDL^T, float64): {time.perf_counter() - t0:.2f} s; "
+          f"{int((w > 0).sum())} QOI nodes; posterior QOI mean {mu_q:.6e}, var {var_q:.6e}; prior var {var_prior:.6e}")
+
+    C = N_MESH_CHAINS
+    q, dt, acc = chain_major(torch, post.sampler, post.b, w_int, C, N_MESH_BURNIN, N_MESH_GATE, field=True)
+    qoi_gates(torch, "refine-3 posterior (float64)", q, mu_q, var_q)
+    rel = float((acc / (C * N_MESH_GATE) - mu).norm() / mu.norm())
+    print(f"  refine-3 posterior field mean against A_post^-1 b: rel {rel:.5f} (gate {MESH_FIELD_GATE})")
+    check(rel < MESH_FIELD_GATE, "the posterior's sample mean is off A_post^-1 b")
+
+    w32 = w_int.to(torch.float32)
+    q, _, _ = chain_major(torch, prior32.sampler, None, w32, C, N_MESH_BURNIN, N_MESH_GATE)
+    qoi_gates(torch, "refine-3 prior (float32)", q, 0.0, var_prior)
+
+    geo = build_mesh_sampler(torch, "refine-3 prior, geometric hierarchy", refinements=3, kappa=kappa,
+                             hierarchy="geometric")
+    check(geo.sampler.n_levels == 4 and torch.equal(geo.op.perm, post.op.perm),
+          f"the geometric hierarchy has {geo.sampler.n_levels} levels")
+    q, _, _ = chain_major(torch, geo.sampler, None, w_int, C, N_MESH_BURNIN, N_MESH_GATE)
+    qoi_gates(torch, "refine-3 prior (geometric)", q, 0.0, var_prior)
+    del geo
+
+    pts, cells = mesh.read_gmsh(mesh.mesh_path("wrench"))
+    for _ in range(2):
+        pts, cells = mesh.refine(pts, cells)
+    t0 = time.perf_counter()
+    op2 = from_csr(mesh.matern_precision_mesh(pts, cells, kappa))
+    patch = GraphPatchGibbsSampler.create(op2)
+    torch.cuda.synchronize()
+    print(f"  refine-2 graph patch Gibbs: {op2.n} DOFs, kmax {patch.kmax}, {patch.ncolors} colours "
+          f"(set-up {time.perf_counter() - t0:.2f} s)")
+    check(op2.n == 5682, f"refine-2 wrench: {op2.n} DOFs")
+    w2 = region_qoi(pts, preset)
+    w2_int = torch.as_tensor(w2[op2.perm.cpu().numpy()], device=op2.device)
+    _, var2, _ = exact_qoi_law(torch, op2, w2_int)
+    q, dt, _ = chain_major(torch, patch, None, w2_int, C, N_PATCH_BURNIN, N_PATCH_GATE)
+    qoi_gates(torch, "refine-2 prior (graph patch Gibbs)", q, 0.0, var2)
+    print(f"  graph patch Gibbs, {C} chains: {dt / N_PATCH_GATE * 1e3:.4f} ms/sweep")
+    return w, var_q
+
+
+def ops_per_step(torch, fn, steps):
+    """Torch (aten) ops a step of fn, which runs ``steps`` steps, counted by
+    a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n / steps
+
+
+def tau_report(torch, q):
+    """(tau, valid, tau_sections) of QOI traces q ((n,) or (C, n)): the
+    chain-mean tau (emcee window, c = 5) over the whole trace and over
+    three half windows."""
+    import numpy as np
+
+    from parmgmc_tpu_torch.diagnostics.iact import iact
+
+    q = q.double().cpu()
+    m = q.shape[-1]
+    taus, valid = iact(q)
+    secs = []
+    for lo, hi in ((0, m // 2), (m // 4, 3 * m // 4), (m // 2, m)):
+        t, _ = iact(q[..., lo:hi])
+        secs.append(round(float(np.maximum(t, 1.0).mean()), 4))
+    return float(np.maximum(taus, 1.0).mean()), bool(np.all(valid)), secs
+
+
+def mesh_device_report(torch, label, run, steps, dt):
+    """Device time a step by kernel and the idle share (profiler over a
+    window of ``steps`` steps), and the torch ops a step."""
+    busy, per = device_ms(torch, run, 1)
+    busy, per = busy / steps, {k: v / steps for k, v in per.items()}
+    for name, t in sorted(per.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    device per step: {t:.4f} ms  {name}")
+    nops = ops_per_step(torch, run, steps)
+    idle = max(0.0, 1.0 - busy / (dt * 1e3))
+    print(f"  {label}: device busy {busy:.4f} ms/step of {dt * 1e3:.4f} ms: idle share ~{idle:.3f}; "
+          f"{nops:.0f} torch ops a step")
+
+
+def phase_mesh_path(torch, post, prior32, prior4, w):
+    """The refine-3 posterior with one chain (the reference's layout) and
+    with 256 chain-major (the JAX package's production layout), the
+    float32 prior with 256 chains, the refine-4 prior with one chain:
+    ms/cycle, tau, tau_sections, ESS/sec or aggregate samples/s, device
+    time and idle share, torch ops a step; no port kernel launched."""
+    from parmgmc_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    wt = torch.as_tensor(w, device=post.b.device)
+    post.set_qoi(lambda x: x @ wt)
+    post.sample(N_MESH_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = post.sample(N_MESH_1CHAIN)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / N_MESH_1CHAIN
+    tau, valid, secs = tau_report(torch, q)
+    print(f"  refine-3 posterior, 1 chain: {dt * 1e3:.4f} ms/cycle, tau {tau:.4f} (valid {valid}), "
+          f"tau_sections {secs}, ESS/sec {1.0 / (tau * dt):.2f} over {N_MESH_1CHAIN} steps")
+    mesh_device_report(torch, "refine-3 posterior, 1 chain", lambda: post.sample(8), 8, dt)
+
+    for label, ms in (("refine-3 posterior (float64)", post), ("refine-3 prior (float32)", prior32)):
+        ms.set_qoi(lambda x, wt=wt.to(ms.op.dtype): x @ wt)
+        C = N_MESH_CHAINS
+        ms.sample_chains(N_MESH_WARM, C)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = ms.sample_chains(N_MESH_PATH, C)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / N_MESH_PATH
+        check(tuple(q.shape) == (C, N_MESH_PATH) and bool(torch.isfinite(q).all()), f"{label}: chain-major traces")
+        tau, valid, secs = tau_report(torch, q)
+        print(f"  {label}, {C} chains chain-major: {dt * 1e3:.4f} ms a step, {C / dt:.1f} samples/s aggregate, "
+              f"mean tau {tau:.4f} (valid {valid}), tau_sections {secs}, {C / (tau * dt):.1f} ESS/sec aggregate")
+        mesh_device_report(torch, f"{label}, {C} chains", lambda ms=ms: ms.sample_chains(4, C), 4, dt)
+
+    prior4.set_qoi(lambda x: x.mean())
+    prior4.sample(N_MESH_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = prior4.sample(N_MESH4_TIME)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / N_MESH4_TIME
+    check(bool(torch.isfinite(q).all()), "refine-4 chain not finite")
+    print(f"  refine-4 prior, 1 chain ({prior4.n} DOFs, {prior4.sampler.n_levels} levels): "
+          f"{dt * 1e3:.4f} ms/cycle over {N_MESH4_TIME} steps")
+    mesh_device_report(torch, "refine-4 prior, 1 chain", lambda: prior4.sample(4), 4, dt)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"the mesh path launched a port kernel: {counts}")
+    print("  the mesh path launched no port kernel (no TPU kernel on this path)")
+
+
 def main():
     t_start = time.perf_counter()
     # the profiler (phases 3 on) leaves CUPTI's callbacks in place unless
@@ -1913,6 +2287,14 @@ def main():
     phase_linear(torch, dev)
     phase(f"22. {N_MAIN}^3 default V(2,2) path")
     counts["rb_gibbs_fd"] += phase_linear_path(torch, dev)["rb_gibbs_fd"]
+    torch.cuda.empty_cache()
+    phase("23. unstructured mesh set-up")
+    preset, post, prior32, prior4 = phase_mesh_setup(torch)
+    phase("24. unstructured mesh gates")
+    w, _ = phase_mesh_gates(torch, preset, post, prior32)
+    phase("25. unstructured mesh path")
+    phase_mesh_path(torch, post, prior32, prior4, w)
+    del post, prior32, prior4
     print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 

@@ -31,10 +31,16 @@ class ChainState(NamedTuple):
     key: int
 
 
-def init_chain(sampler, key: int, x0: Optional[torch.Tensor] = None) -> ChainState:
-    """Fresh chain state (zero start unless ``x0`` is given)."""
+def init_chain(sampler, key: int, x0: Optional[torch.Tensor] = None, batch: tuple = ()) -> ChainState:
+    """Fresh chain state (zero start unless ``x0`` is given).  ``batch``
+    appends trailing chain dims, the chain-major layout (x of shape
+    grid_shape + batch): C independent chains advanced by one keyed step.
+    Graph samplers take it (Gibbs, the MGMC stacks over them with a dense
+    Cholesky coarse level, LRC over them; see
+    :func:`parmgmc_tpu_torch.models.matern.batched_chains_supported`)."""
     if x0 is None:
-        x0 = torch.zeros(tuple(sampler.grid_shape), dtype=sampler.dtype, device=sampler.device)
+        shape = tuple(sampler.grid_shape) + tuple(batch)
+        x0 = torch.zeros(shape, dtype=sampler.dtype, device=sampler.device)
     return ChainState(x=x0, key=key)
 
 
@@ -50,10 +56,11 @@ class ExplicitNoise:
         return getattr(self.sampler, name)
 
     def step(self, key: int, x, b, aux=None):
-        from parmgmc_tpu_torch.samplers.gibbs import _draw
+        from parmgmc_tpu_torch.samplers.gibbs import _draw, with_batch
 
         key, sub = keys.split(key)
-        noises = _draw(sub, self.sampler.noise_shapes(), x.dtype, x.device)
+        shapes = with_batch(self.sampler.noise_shapes(), x.shape[len(self.sampler.grid_shape):])
+        noises = _draw(sub, shapes, x.dtype, x.device)
         return key, self.sampler.step_with_noise(x, b, noises)
 
 

@@ -18,7 +18,11 @@ so both packages can run on the very same numbers:
 * the deferred chain carry ``z`` in the port's compact layout from
   either JAX layout (``zx2`` and ``zf``), or the posterior's (z, B^T x)
   pair,
-* noise trees of numpy arrays.
+* noise trees of numpy arrays,
+* the unstructured-mesh objects, from any object holding the JAX
+  fields (read with ``np.asarray``): a graph operator, a sparse
+  transfer, an LRC operator over a graph, an MGMC sampler over a graph
+  hierarchy, and a graph patch-Gibbs sampler.
 """
 
 from __future__ import annotations
@@ -27,12 +31,15 @@ import numpy as np
 import torch
 
 from parmgmc_tpu_torch import resolve_device
+from parmgmc_tpu_torch.operators import graph as _graph
+from parmgmc_tpu_torch.operators import transfer as _transfer
 from parmgmc_tpu_torch.operators.lrc import LRCOperator
 from parmgmc_tpu_torch.operators.stencil import StencilOperator, fd_stencil
 from parmgmc_tpu_torch.operators.transfer import AggregateTransfer, GeometricTransfer
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
+from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
-from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler, star_patch
+from parmgmc_tpu_torch.samplers.patch_gibbs import GraphPatchGibbsSampler, PatchGibbsSampler, star_patch
 from parmgmc_tpu_torch.samplers.woodbury import WoodburySampler
 
 __all__ = [
@@ -48,6 +55,11 @@ __all__ = [
     "lrc_operator",
     "woodbury_sampler",
     "deferred_carry_from_jax",
+    "graph_operator",
+    "sparse_transfer",
+    "graph_lrc_operator",
+    "graph_mgmc_sampler",
+    "graph_patch_gibbs_sampler",
 ]
 
 
@@ -161,3 +173,69 @@ def deferred_carry_from_jax(z, layout, device=None):
     if layout == "zf":
         return tensor(z[:, ::2, ::2], device)
     raise ValueError(f"unknown deferred carry layout {layout!r} (zx2 or zf)")
+
+
+def _dtype_of(a) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, np.asarray(a).dtype)).dtype
+
+
+def graph_operator(g, device=None):
+    """The port's GraphOperator from an object with the JAX fields (vals,
+    cols, diag, perm, iperm, color_starts, color_counts)."""
+    vals = np.asarray(g.vals)
+    return _graph.graph_operator(
+        vals, np.asarray(g.cols), np.asarray(g.diag), np.asarray(g.perm), np.asarray(g.iperm),
+        g.color_starts, g.color_counts, dtype=_dtype_of(vals), device=device,
+    )
+
+
+def sparse_transfer(t, device=None):
+    """The port's SparseTransfer from an object with the JAX fields
+    (p_vals, p_cols, pt_vals, pt_cols)."""
+    pv = np.asarray(t.p_vals)
+    return _transfer.sparse_transfer(pv, np.asarray(t.p_cols), np.asarray(t.pt_vals),
+                                     np.asarray(t.pt_cols), dtype=_dtype_of(pv),
+                                     device=device)
+
+
+def graph_lrc_operator(op, device=None) -> LRCOperator:
+    """The port's LRC operator over a graph from a JAX LRCOperator whose
+    base is a graph operator (B (n, k) in internal order, no patch view)."""
+    return LRCOperator(base=graph_operator(op.base, device), B=tensor(np.asarray(op.B), device),
+                       sigma_inv=tensor(np.asarray(op.sigma_inv), device))
+
+
+def _graph_level(op, device):
+    return graph_lrc_operator(op, device) if hasattr(op, "B") else graph_operator(op, device)
+
+
+def graph_mgmc_sampler(smp, device=None) -> MGMCSampler:
+    """The port's MGMC sampler over the graph hierarchy of a JAX sampler:
+    its levels, transfers and dense Cholesky coarse factors, Gibbs
+    smoothers with each JAX smoother's omega and sweep (graph patch-Gibbs
+    smoothers carried across as they are), and its cycle shape."""
+    ops = [_graph_level(o, device) for o in smp.ops]
+    transfers = [sparse_transfer(t, device) for t in smp.transfers]
+    smoothers = []
+    for o, s in zip(ops[:-1], smp.smoothers):
+        if hasattr(s, "color_sets"):
+            smoothers.append(graph_patch_gibbs_sampler(s, device, o.base if hasattr(o, "B") else o))
+        else:
+            smoothers.append(GibbsSampler.create(o, omega=float(np.asarray(s.omega)), sweep=s.sweep))
+    Li = smp.coarse.Li
+    coarse = cholesky_sampler(np.asarray(smp.coarse.L), None if Li is None else np.asarray(Li),
+                              ops[-1].grid_shape, device)
+    return MGMCSampler.from_levels(ops, transfers, coarse, n_pre=smp.n_pre, n_post=smp.n_post,
+                                   n_coarse=smp.n_coarse, gamma=smp.gamma, smoothers=smoothers)
+
+
+def graph_patch_gibbs_sampler(s, device=None, op=None) -> GraphPatchGibbsSampler:
+    """The port's graph patch-Gibbs sampler from a JAX one: its members,
+    mask and colour sets (sentinel padding dropped), over ``op`` (the
+    sampler's own base carried across when None)."""
+    op = op if op is not None else graph_operator(s.base, device)
+    members = np.asarray(s.members)[:-1].astype(np.int64)
+    mask = np.asarray(s.member_mask)[:-1] > 0.5
+    n = members.shape[0]
+    sets = [cs[cs < n] for cs in np.asarray(s.color_sets)]
+    return GraphPatchGibbsSampler.from_sets(op, members, mask, sets)

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["split", "randint31", "generator"]
+__all__ = ["split", "fold_in", "randint31", "generator"]
 
 _M64 = (1 << 64) - 1
 
@@ -29,6 +29,12 @@ def split(key: int, n: int = 2) -> tuple:
     base = _splitmix64(int(key) & _M64)
     return tuple(_splitmix64(base ^ (0xD1B54A32D192ED03 * (i + 1) & _M64))
                  for i in range(n))
+
+
+def fold_in(key: int, data: int) -> int:
+    """A key derived from ``key`` and the integer ``data`` (the analogue
+    of ``jax.random.fold_in``)."""
+    return _splitmix64((int(key) & _M64) ^ _splitmix64(int(data) & _M64))
 
 
 def randint31(key: int) -> int:

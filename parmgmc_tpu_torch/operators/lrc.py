@@ -4,7 +4,11 @@
 The posterior precision of a Bayesian linear inverse problem with a
 Gaussian prior N(0, A^{-1}), observation operator B^T and a diagonal
 noise covariance Sigma.  ``B`` is stored grid-shaped ``(*grid, k)``;
-``sigma_inv`` is the length-k diagonal of Sigma^{-1}.
+``sigma_inv`` is the length-k diagonal of Sigma^{-1}.  The base is a
+stencil operator or a :class:`~parmgmc_tpu_torch.operators.graph.
+GraphOperator` (grid ``(n,)``, B ``(n, k)`` in its internal order); on a
+graph base x may carry the chain axis, ``(n, C)``, and the products take
+and give ``(k, C)`` coefficients.
 
 Localized columns (ball averages) carry a sparse *patch view*: column j's
 nonzeros lie in a box of a size common to all columns, starting at
@@ -123,13 +127,13 @@ def fused_patch_apply_add_(pv, starts, w, y):
 
 @dataclass(frozen=True, eq=False)
 class LRCOperator:
-    """A + B diag(sigma_inv) B^T with a stencil base operator A.
+    """A + B diag(sigma_inv) B^T with a stencil or graph base operator A.
 
     ``patch_vals``/``patch_starts`` (optional, from :func:`with_patches`)
     are the sparse view of B; the dense B stays authoritative and the
     patch products equal the dense ones up to summation order."""
 
-    base: StencilOperator
+    base: StencilOperator  # or a GraphOperator
     B: torch.Tensor  # (*grid, k)
     sigma_inv: torch.Tensor  # (k,)
     patch_vals: "torch.Tensor | None" = None  # (k, *box)
@@ -168,13 +172,16 @@ class LRCOperator:
         return self.base.device
 
     def bt_apply(self, x):
-        """(k,) = B^T x for a grid-shaped x."""
+        """(k,) = B^T x for a grid-shaped x; (k, C) for chain-major x."""
+        if x.ndim > self.ndim:
+            grid = list(range(self.ndim))
+            return torch.tensordot(self.B, x, dims=(grid, grid))
         if self.patch_vals is not None:
             return patch_dot(self.patch_vals, self.patch_index, x)
         return torch.tensordot(x, self.B, dims=self.ndim)
 
     def b_apply(self, w):
-        """Grid-shaped B w for a (k,) w."""
+        """Grid-shaped B w for a (k,) w (chain-major for a (k, C) w)."""
         if self.patch_vals is not None:
             y = torch.zeros(self.grid_shape, dtype=w.dtype, device=w.device)
             return patch_apply_add_(self.patch_vals, self.patch_starts, w, y)
@@ -196,7 +203,8 @@ class LRCOperator:
         bt = self.bt_apply(x)
         ax = self.base.apply(x)
         if self.patch_vals is None:
-            return ax + self.B @ (self.sigma_inv * bt)
+            si = self.sigma_inv if bt.ndim == 1 else self.sigma_inv[:, None]
+            return ax + self.B @ (si * bt)
         return patch_apply_add_(self.patch_vals, self.patch_starts, self.sigma_inv * bt, ax)
 
     def to_dense(self) -> torch.Tensor:

@@ -152,6 +152,29 @@ class StencilOperator:
         cols = self.apply(eye.reshape(n, *self.grid_shape)).reshape(n, n)
         return cols.T.contiguous()  # cols[i] = A e_i is column i
 
+    def to_csr(self):
+        """scipy CSR in float64 on the host (the sparse exact sampler's
+        input): row i holds diag[i] and coeff_o[i] at column i + o for
+        every in-grid offset o, as :meth:`apply`."""
+        import numpy as np
+        import scipy.sparse as sp
+
+        shape = self.grid_shape
+        n = self.n
+        idx = np.arange(n).reshape(shape)
+        rows, cols = [np.arange(n)], [np.arange(n)]
+        vals = [self.diag.detach().cpu().double().numpy().reshape(-1)]
+        for off, c in zip(self.offsets, self.coeffs):
+            src = tuple(slice(max(0, -o), s - max(0, o)) for o, s in zip(off, shape))
+            dst = tuple(slice(max(0, o), s - max(0, -o)) for o, s in zip(off, shape))
+            r = idx[src].reshape(-1)
+            rows.append(r)
+            cols.append(idx[dst].reshape(-1))
+            ca = c.detach().cpu().double().numpy()
+            vals.append(np.full(r.size, float(ca)) if ca.ndim == 0 else ca[src].reshape(-1))
+        return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                             shape=(n, n))
+
 
 class FDStencilOperator(StencilOperator):
     """Link-count FD operator whose ``diag`` and ``coeffs`` are made on

@@ -1,5 +1,5 @@
-"""Structured-grid transfers (port of ``GeometricTransfer`` and
-``AggregateTransfer`` in ``parmgmc_tpu.operators.transfer``).
+"""Grid transfers (port of ``GeometricTransfer``, ``AggregateTransfer``
+and ``SparseTransfer`` in ``parmgmc_tpu.operators.transfer``).
 
 Both implement ``prolong(xc) -> xf``, ``restrict(xf) -> xc`` with
 restrict = prolong^T and ``prolong_add(y, xc) = y + prolong(xc)``, the
@@ -12,6 +12,11 @@ coarse value into its 2^d fine block (an odd extent's last coarse cell
 covers one fine node); R = P^T sums the block.  Sums
 take the axis-0 pair first, then axis 1, then axis 2 -- the order the
 CUDA kernels use for their fused restriction.
+
+:class:`SparseTransfer` is the algebraic hierarchies' P (nf x nc), stored
+as ELL in both orientations: prolong and restrict are one flat row
+gather each (the JAX package gathers one ELL column at a time on levels
+of 8192 rows or more, a TPU layout choice).
 """
 
 from __future__ import annotations
@@ -19,11 +24,14 @@ from __future__ import annotations
 import itertools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
+
+from parmgmc_tpu_torch import resolve_device
 
 from parmgmc_tpu_torch.operators import stencil as _st
 
-__all__ = ["AggregateTransfer", "GeometricTransfer"]
+__all__ = ["AggregateTransfer", "GeometricTransfer", "SparseTransfer", "sparse_transfer_from_csr"]
 
 
 @dataclass(frozen=True)
@@ -99,3 +107,69 @@ class AggregateTransfer:
         split = itertools.chain.from_iterable((s // 2, 2) for s in self.fine_shape)
         cview = itertools.chain.from_iterable((s, 1) for s in xc.shape)
         return (y.reshape(*split) + xc.reshape(*cview)).reshape(self.fine_shape)
+
+
+def _ell_apply(vals, cols, x):
+    """sum_k vals[:, k] x[cols[:, k]]; x is (n,) or chain-major (n, C)."""
+    g = x[cols]
+    v = vals if g.ndim == 2 else vals[..., None]
+    return (v * g).sum(dim=1)
+
+
+@dataclass(frozen=True, eq=False)
+class SparseTransfer:
+    """P (nf x nc) as row-gather ELL in both orientations; applies accept
+    the chain axis ((n, C), chain-major)."""
+
+    p_vals: torch.Tensor  # (nf, w)
+    p_cols: torch.Tensor  # (nf, w) int64 into coarse
+    pt_vals: torch.Tensor  # (nc, wt)
+    pt_cols: torch.Tensor  # (nc, wt) int64 into fine
+
+    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
+        return _ell_apply(self.p_vals, self.p_cols, xc)
+
+    def restrict(self, xf: torch.Tensor) -> torch.Tensor:
+        return _ell_apply(self.pt_vals, self.pt_cols, xf)
+
+    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+        return y + self.prolong(xc)
+
+
+def _ell_from_csr(M):
+    """(vals, cols) of a scipy matrix in ELL, padded as the JAX package
+    pads (zero values, the row's first column)."""
+    import scipy.sparse as sp
+
+    M = sp.csr_matrix(M)
+    n = M.shape[0]
+    counts = np.diff(M.indptr)
+    w = max(1, int(counts.max()))
+    rows = np.repeat(np.arange(n), counts)
+    pos = np.arange(M.nnz) - M.indptr[rows]
+    vals = np.zeros((n, w))
+    cols = np.zeros((n, w), dtype=np.int64)
+    vals[rows, pos] = M.data
+    cols[rows, pos] = M.indices
+    first = np.where(counts > 0, M.indices[np.minimum(M.indptr[:-1], max(M.nnz - 1, 0))], 0)
+    pad = np.arange(w)[None, :] >= counts[:, None]
+    cols = np.where(pad, first[:, None], cols)
+    return vals, cols
+
+
+def sparse_transfer(p_vals, p_cols, pt_vals, pt_cols, dtype=torch.float64, device=None) -> SparseTransfer:
+    """A SparseTransfer from host ELL arrays, on ``device`` (the card when None)."""
+    dev = resolve_device(device)
+
+    def t(a, dt):
+        return torch.as_tensor(np.array(a), device=dev).to(dt)
+
+    return SparseTransfer(p_vals=t(p_vals, dtype), p_cols=t(p_cols, torch.int64),
+                          pt_vals=t(pt_vals, dtype), pt_cols=t(pt_cols, torch.int64))
+
+
+def sparse_transfer_from_csr(P, dtype=torch.float64, device=None) -> SparseTransfer:
+    """The transfer of the scipy prolongation P (nf x nc)."""
+    pv, pc = _ell_from_csr(P)
+    tv, tc = _ell_from_csr(P.T)
+    return sparse_transfer(pv, pc, tv, tc, dtype, device)

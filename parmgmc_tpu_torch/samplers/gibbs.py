@@ -30,6 +30,13 @@ coefficient fields, float64) takes the explicit-noise step with a
 sampler records at create time what the kernels need: ``omega``, the
 sweep direction, the FD parameters (kappa2, hinv2) and the scalar
 off-diagonals, so a step never reads the device.
+
+On a :class:`~parmgmc_tpu_torch.operators.graph.GraphOperator` (an
+unstructured mesh) the sweep is the operator's own colour-blocked
+``sor_sweep`` (the JAX ``_op_sweep`` dispatch) and every step is the
+explicit-noise step; there x may carry the chain axis, ``(n, C)``, and
+the keyed step then draws every noise leaf with that trailing axis, as
+the JAX ``_draw(..., batch)`` does.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 from parmgmc_tpu_torch import keys
 from parmgmc_tpu_torch.kernels._twin import f32, noise_factor
 from parmgmc_tpu_torch.kernels.rb_gibbs import fused_rb_gibbs_sweep, fused_rb_gibbs_sweep_fd
+from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
 from parmgmc_tpu_torch.operators.lrc import LRCOperator, column_patches, patch_apply_add_
 from parmgmc_tpu_torch.operators.stencil import (
     FDStencilOperator,
@@ -54,13 +62,21 @@ __all__ = ["GibbsSampler", "build_lrc_correction"]
 _STAR3 = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
 
 
-def build_lrc_correction(base: StencilOperator, B, sigma_inv, omega: float, sweep: str):
+def op_sweep(base, b, x, omega: float, sweep: str):
+    """The multicolour SOR sweep of ``base``: a graph operator's own
+    colour-blocked sweep, the parity sweep of a stencil."""
+    if isinstance(base, GraphOperator):
+        return base.sor_sweep(b, x, omega, sweep)
+    return sor_sweep(base, b, x, omega, sweep)
+
+
+def build_lrc_correction(base, B, sigma_inv, omega: float, sweep: str):
     """Bb = M^{-1} B (Sigma + B^T M^{-1} B)^{-1}, ``(*grid, k)``, for the
     sweep direction: M^{-1} B_j is one deterministic sweep from zero on
     column j, then one k x k solve."""
     k = B.shape[-1]
     C = torch.stack(
-        [sor_sweep(base, B[..., j], torch.zeros_like(B[..., j]), omega, sweep) for j in range(k)],
+        [op_sweep(base, B[..., j], torch.zeros_like(B[..., j]), omega, sweep) for j in range(k)],
         dim=-1,
     )
     grid = list(range(B.ndim - 1))
@@ -110,14 +126,14 @@ class GibbsSampler:
             raise ValueError(f"unknown sweep {sweep!r}")
         lrc = op if isinstance(op, LRCOperator) else None
         base = op.base if lrc is not None else op
-        if not isinstance(base, StencilOperator):
-            raise NotImplementedError("GibbsSampler on graph operators is ROADMAP.md item 19")
-        fd_params = coeff6 = None
+        if not isinstance(base, (StencilOperator, GraphOperator)):
+            raise TypeError(f"GibbsSampler needs a stencil or graph operator, got {type(base).__name__}")
+        fd_params = coeff6 = None  # stay None on a graph: no kernel
         if isinstance(base, FDStencilOperator):  # scalars only, nothing on the device
             fd_params = base.fd_params()
             if base.ndim == 3:
                 coeff6 = (f32(-base.hinv2),) * 6
-        elif base.is_star() and base.radius == 1:
+        elif isinstance(base, StencilOperator) and base.is_star() and base.radius == 1:
             fd_params = detect_fd_params(base)
             if set(base.offsets) == set(_STAR3) and all(c.ndim == 0 for c in base.coeffs):
                 m = dict(zip(base.offsets, base.coeffs))
@@ -184,12 +200,15 @@ class GibbsSampler:
         ns = self.noise_scale
         if ns is None:
             ns = noise_factor(self.omega, x.dtype) * torch.sqrt(self.base.diag)
-        btilde = b + ns * noise["eta"]
+        eta = noise["eta"]
+        btilde = bcast(b, eta) + bcast(ns, eta) * eta
         if self.is_lrc:
-            btilde = btilde + self.lrc.B @ (self.sqrt_sigma_inv * noise["eta_lr"])
-        x = sor_sweep(self.base, btilde, x, self.omega, direction)
+            eta_lr = noise["eta_lr"]
+            btilde = btilde + self.lrc.B @ (bcast(self.sqrt_sigma_inv, eta_lr) * eta_lr)
+        x = op_sweep(self.base, btilde, x, self.omega, direction)
         if self.is_lrc:
-            x = self._bb_apply_sub_(direction, x, torch.tensordot(x, self.lrc.B, dims=x.ndim))
+            bty = torch.tensordot(x, self.lrc.B, dims=x.ndim) if x.ndim == self.base.ndim else self.lrc.bt_apply(x)
+            x = self._bb_apply_sub_(direction, x, bty)
         return x
 
     def step_with_noise(self, x, b, noises):
@@ -248,7 +267,22 @@ class GibbsSampler:
         if self.has_kernel:
             return self._fused_step(key, x, b)
         key, sub = keys.split(key)
-        return key, self.step_with_noise(x, b, _draw(sub, self.noise_shapes(), x.dtype, x.device))
+        shapes = with_batch(self.noise_shapes(), x.shape[len(self.grid_shape):])
+        return key, self.step_with_noise(x, b, _draw(sub, shapes, x.dtype, x.device))
+
+
+def with_batch(shapes, batch):
+    """The shape tree with the trailing chain dims ``batch`` of the
+    chain-major layout appended to every leaf (the JAX ``_draw(...,
+    batch)``): each chain gets its own draws."""
+    batch = tuple(batch)
+    if not batch:
+        return shapes
+    if isinstance(shapes, tuple):
+        return shapes + batch
+    if isinstance(shapes, dict):
+        return {k: with_batch(v, batch) for k, v in shapes.items()}
+    return [with_batch(v, batch) for v in shapes]
 
 
 def _draw(key: int, shapes, dtype, device):

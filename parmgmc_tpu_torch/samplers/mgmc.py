@@ -57,6 +57,14 @@ then ``compress_stencil``): in 3D every level below the finest is a
 8-colour SOR.  ``coarsening="aggregate"`` keeps link-count FD in closed
 form on even extents (kappa2' = 2^d kappa2, hinv2' = 2^(d-1) hinv2) and
 probes P^T A P under aggregation for odd extents and non-FD stencils.
+
+A graph operator (an unstructured mesh) takes the smoothed-aggregation
+hierarchy (:func:`~parmgmc_tpu_torch.operators.aggregation.
+aggregation_hierarchy`, as the JAX package does) whatever the
+``coarsening``; its levels run no kernel (no chain kernel takes a
+:class:`~parmgmc_tpu_torch.operators.transfer.SparseTransfer` level), so
+every step is the general keyed cycle in plain torch, and x may carry
+the chain axis, ``(n, C)``.
 """
 
 from __future__ import annotations
@@ -69,6 +77,8 @@ from dataclasses import dataclass
 import torch
 
 from parmgmc_tpu_torch import keys
+from parmgmc_tpu_torch.operators.aggregation import aggregation_hierarchy
+from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
 from parmgmc_tpu_torch.operators.lrc import (
     LRCOperator,
     column_patches,
@@ -98,7 +108,7 @@ __all__ = ["MGMCSampler", "attach_chain_b_response", "build_hierarchy", "compute
 def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
     """(ops, transfers): per-level operators by Galerkin coarsening, grids
     halving (to ceil(n/2)) until fewer than ``coarsest_size`` points would
-    remain.
+    remain; a graph operator takes the smoothed-aggregation hierarchy.
 
     ``coarsening="linear"`` (the default, as in JAX): GeometricTransfer
     and the comb-probed P^T A P, compressed.  ``"aggregate"``:
@@ -110,8 +120,11 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
     if coarsening not in ("linear", "aggregate"):
         raise ValueError(f"unknown coarsening {coarsening!r} (linear or aggregate)")
     is_lrc = isinstance(op, LRCOperator)
-    if not isinstance(op.base if is_lrc else op, StencilOperator):
-        raise NotImplementedError("MGMC on graph operators is ROADMAP.md item 20")
+    base0 = op.base if is_lrc else op
+    if isinstance(base0, GraphOperator):
+        return aggregation_hierarchy(op, n_levels=n_levels, coarsest_size=coarsest_size)
+    if not isinstance(base0, StencilOperator):
+        raise TypeError(f"MGMC needs a stencil or graph operator, got {type(base0).__name__}")
     ops, transfers = [op], []
     while True:
         cur = ops[-1].base if is_lrc else ops[-1]
@@ -410,10 +423,11 @@ class MGMCSampler:
 
     def step_with_noise(self, x, b, noises):
         """x <- x + M_mg(b - A x) with explicit N(0,1) draws; ``b=None``
-        is a zero RHS."""
+        is a zero RHS.  ``x`` may carry trailing chain dims (the noises
+        then carry them too)."""
         if b is None:
             b = torch.zeros_like(x)
-        return x + self._cycle(0, b - self.fine_op.apply(x), noises)
+        return x + self._cycle(0, bcast(b, x) - self.fine_op.apply(x), noises)
 
     def prepare(self, b):
         return None
@@ -610,7 +624,7 @@ class MGMCSampler:
         key, sub = keys.split(key)
         if not self.deferred_eligible():
             self._require_keyed()
-            bz = torch.zeros_like(x) if b is None else b
+            bz = torch.zeros_like(x) if b is None else bcast(b, x)
             return key, x + self._cycle_general(0, bz - self.fine_op.apply(x), sub)
         if self.smoothers[0].is_lrc:
             xpy, rc, sub, *_ = self._lrc_down(sub, x, b)

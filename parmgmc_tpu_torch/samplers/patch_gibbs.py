@@ -23,6 +23,11 @@ sweep kernels (:func:`~parmgmc_tpu_torch.kernels.patch_sweep.
 fused_patch_sweep_sqfd`) when ``create`` found a 3D float32 squared FD
 operator, and the explicit-noise step with a ``torch.Generator`` draw
 otherwise.
+
+:class:`GraphPatchGibbsSampler` is the same smoother on an unstructured
+:class:`~parmgmc_tpu_torch.operators.graph.GraphOperator`: vertex-star
+patches, a distance-4 colouring, and batched Cholesky factors of each
+colour's patch matrices (no kernel; plain torch).
 """
 
 from __future__ import annotations
@@ -41,9 +46,9 @@ from parmgmc_tpu_torch.operators.stencil import (
     fd_stencil,
     star_offsets,
 )
-from parmgmc_tpu_torch.samplers.gibbs import _draw
+from parmgmc_tpu_torch.samplers.gibbs import _draw, with_batch
 
-__all__ = ["PatchGibbsSampler", "detect_squared_fd", "star_patch"]
+__all__ = ["PatchGibbsSampler", "GraphPatchGibbsSampler", "detect_squared_fd", "star_patch"]
 
 
 def star_patch(d: int) -> tuple:
@@ -249,3 +254,155 @@ class PatchGibbsSampler:
             return key, fused_patch_sweep_sqfd(x, b, *self.sq_fd_params, seed, stp)
         key, sub = keys.split(key)
         return key, self.step_with_noise(x, b, _draw(sub, self.noise_shapes(), x.dtype, x.device))
+
+
+@dataclass(frozen=True, eq=False)
+class GraphPatchGibbsSampler:
+    """Vertex-star block Gibbs on an unstructured GraphOperator (port of
+    the JAX ``GraphPatchGibbsSampler``).
+
+    The patch of node i is {i} and its neighbours, member lists padded to
+    the largest patch ``kmax`` with the sentinel slot n.  A distance-4
+    greedy colouring (the colouring of the cubed adjacency graph) makes
+    same-colour patches uncoupled and member-disjoint, so one colour pass
+    resamples all of its patches at once from their exact conditionals;
+    a sweep is the colours in order.  Set-up (host) as in JAX.
+
+    The JAX step unrolls each (kmax, kmax) Cholesky into elementwise ops
+    to keep ``(..., k, k)`` arrays out of the TPU compiler.  Here each
+    colour's patch matrices A_SS are gathered once, at create time, into a
+    ``(m_c, kmax, kmax)`` stack and factored by ``torch.linalg.cholesky``;
+    a pass is two batched triangular solves.  JAX's masked-slot convention
+    holds: a padded member has a unit diagonal and no coupling, and its
+    draw is thrown away.  The noise tree is JAX's, ``{"eta": (kmax, n)}``
+    (member a of the patch centred at i takes ``eta[a, i]``), so
+    explicit-noise steps agree with JAX to roundoff.  x may carry the
+    chain axis, ``(n, C)``: the factors are shared by every chain."""
+
+    base: object  # GraphOperator
+    kmax: int
+    # one (centres, members (m, k), mask (m, k), A_SS and its Cholesky
+    # factor (m, k, k), the members' diagonal (m, k) and ELL rows (m, k, w),
+    # the real members' rows and flat slots) per colour
+    passes: tuple
+
+    @staticmethod
+    def create(op) -> "GraphPatchGibbsSampler":
+        import numpy as np
+        import scipy.sparse as sp
+
+        from parmgmc_tpu_torch.operators.graph import greedy_coloring
+
+        n = op.n
+        vals = op.vals.detach().cpu().numpy()
+        cols = op.cols.cpu().numpy()
+        real = vals != 0.0
+        deg = real.sum(axis=1)
+        kmax = int(deg.max()) + 1
+        members = np.full((n, kmax), n, dtype=np.int64)
+        mask = np.zeros((n, kmax), dtype=bool)
+        members[:, 0] = np.arange(n)
+        mask[:, 0] = True
+        for i in range(n):
+            nb = cols[i][real[i]]
+            members[i, 1 : 1 + len(nb)] = nb
+            mask[i, 1 : 1 + len(nb)] = True
+
+        # distance-4 colouring: same-colour centres more than 3 hops apart
+        rows = np.repeat(np.arange(n), deg)
+        B = sp.csr_matrix((np.ones(len(rows), bool), (rows, cols[real])), shape=(n, n)) + sp.eye(
+            n, dtype=bool, format="csr")
+        B3 = ((B @ B) @ B).tocsr()
+        colors = greedy_coloring(B3.indptr, B3.indices, n)
+        return GraphPatchGibbsSampler.from_sets(
+            op, members, mask, [np.nonzero(colors == c)[0] for c in range(int(colors.max()) + 1)])
+
+    @staticmethod
+    def from_sets(op, members, mask, color_sets) -> "GraphPatchGibbsSampler":
+        """The sampler of the host set-up: members (n, kmax) sentinel-padded
+        with n, mask (n, kmax) of real members, and the centres of each
+        colour in sweep order.  Factors each colour's A_SS stack on the
+        operator's device."""
+        import numpy as np
+
+        n, kmax = members.shape
+        dev = op.device
+        vals_p = torch.cat([op.vals, op.vals.new_zeros((1, op.vals.shape[1]))])
+        cols_p = torch.cat([op.cols, op.cols.new_full((1, op.cols.shape[1]), n)])
+        diag_p = torch.cat([op.diag, op.diag.new_zeros(1)])
+        passes = []
+        for centres in color_sets:
+            centres = np.asarray(centres, dtype=np.int64)
+            mem_np = members[centres]
+            msk_np = mask[centres]
+            mem = torch.as_tensor(mem_np, device=dev)
+            msk = torch.as_tensor(msk_np, device=dev)
+            fm = msk.to(op.dtype)
+            # A_SS by matching ELL columns (padding entries carry 0)
+            va, ca = vals_p[mem], cols_p[mem]  # (m, k, w)
+            off = (va[:, :, None, :] * (ca[:, :, None, :] == mem[:, None, :, None])).sum(-1)
+            A = off * fm[:, :, None] * fm[:, None, :]
+            eye = torch.eye(kmax, dtype=op.dtype, device=dev)
+            dg = diag_p[mem] * fm + (1.0 - fm)
+            A = A * (1.0 - eye) + torch.diag_embed(dg)
+            L = torch.linalg.cholesky(A)
+            sel = torch.as_tensor(np.flatnonzero(msk_np.reshape(-1)), device=dev)
+            passes.append((torch.as_tensor(centres, device=dev), mem, fm, A, L, diag_p[mem], va, ca,
+                           mem.reshape(-1)[sel], sel))
+        return GraphPatchGibbsSampler(base=op, kmax=kmax, passes=tuple(passes))
+
+    @property
+    def ncolors(self) -> int:
+        return len(self.passes)
+
+    @property
+    def grid_shape(self):
+        return (self.base.n,)
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def noise_shapes(self):
+        return [{"eta": (self.kmax, self.base.n)}]
+
+    def prepare(self, b):
+        return None
+
+    def step_with_noise(self, x, b, noises):
+        """One sweep with explicit N(0, 1) draws ``eta`` (kmax, n[, C])."""
+        from parmgmc_tpu_torch.operators.graph import bcast
+
+        n, k = self.base.n, self.kmax
+        eta = noises[0]["eta"]
+        batch = tuple(x.shape[1:])
+        pad = x.new_zeros((1,) + batch)
+        if b is None:
+            b_p = x.new_zeros((n + 1,) + batch)
+        else:
+            b_p = torch.cat([bcast(b, x).expand((n,) + batch), pad])
+        x_p = torch.cat([x, pad])  # slot n: the sentinel, always 0
+        for centres, mem, fm, A, L, diag_s, vals_s, cols_s, rows, sel in self.passes:
+            m = mem.shape[0]
+            xm = x_p[mem]  # (m, k[, C])
+            xs = xm if batch else xm[..., None]  # (m, k, C)
+            # b_S - A_{S,rest} x_rest = mask (b - A x)_S + A_SS x_S, with
+            # (A x) at the members' rows only
+            g = x_p[cols_s]  # (m, k, w[, C])
+            r = b_p[mem] - (bcast(diag_s, xm) * xm + (bcast(vals_s, g) * g).sum(dim=2))
+            rhs = (r if batch else r[..., None]) * fm[..., None] + A @ xs
+            z = torch.linalg.solve_triangular(L, rhs, upper=False)
+            e = eta[:, centres].transpose(0, 1)  # (m, k[, C])
+            y = torch.linalg.solve_triangular(L.transpose(-1, -2), z + (e if batch else e[..., None]), upper=True)
+            y = y.reshape((m * k,) + batch)
+            x_p = x_p.index_copy(0, rows, y[sel])
+        return x_p[:n]
+
+    def step(self, key: int, x, b, aux=None):
+        key, sub = keys.split(key)
+        shapes = with_batch(self.noise_shapes(), x.shape[1:])
+        return key, self.step_with_noise(x, b, _draw(sub, shapes, x.dtype, x.device))

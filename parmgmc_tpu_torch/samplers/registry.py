@@ -14,7 +14,12 @@ nest.  Example::
 
 Types registered: ``gibbs`` (``"ordering": "natural"`` for
 :class:`~parmgmc_tpu_torch.samplers.sor.NaturalGibbsSampler`),
-``cholesky`` (dense), ``mgmc``, ``woodbury`` and ``patch_gibbs``.  Each
+``cholesky`` (``"mode"``: ``"dense"``, ``"sparse"`` for the host's
+:class:`~parmgmc_tpu_torch.samplers.cholesky.SparseCholeskySampler`,
+``"auto"`` for :func:`~parmgmc_tpu_torch.samplers.cholesky.exact_sampler`
+with ``"dense_threshold"``), ``mgmc``, ``woodbury`` and ``patch_gibbs``
+(:class:`~parmgmc_tpu_torch.samplers.patch_gibbs.GraphPatchGibbsSampler`
+on a graph operator).  Each
 builder consumes its options from the node and builds its samplers with
 the port's own ``create`` (on the operator's device), so a tree builds
 the same sampler the direct calls do.
@@ -24,12 +29,13 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+from parmgmc_tpu_torch.operators.graph import GraphOperator
 from parmgmc_tpu_torch.operators.lrc import LRCOperator
 from parmgmc_tpu_torch.operators.stencil import StencilOperator
-from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
+from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler, SparseCholeskySampler, exact_sampler
 from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler, build_hierarchy
-from parmgmc_tpu_torch.samplers.patch_gibbs import PatchGibbsSampler
+from parmgmc_tpu_torch.samplers.patch_gibbs import GraphPatchGibbsSampler, PatchGibbsSampler
 from parmgmc_tpu_torch.samplers.sor import NaturalGibbsSampler
 from parmgmc_tpu_torch.samplers.woodbury import WoodburySampler
 
@@ -69,19 +75,19 @@ def _build_gibbs(op, cfg):
 @register_sampler("cholesky")
 def _build_cholesky(op, cfg):
     mode = cfg.pop("mode", "dense")
-    if mode in ("sparse", "auto"):
-        raise NotImplementedError(
-            f"cholesky mode={mode!r} needs the sparse (SuperLU) sampler, ROADMAP.md item 21"
-        )
+    if mode == "sparse":
+        return SparseCholeskySampler.create(op)
+    if mode == "auto":
+        return exact_sampler(op, cfg.pop("dense_threshold", 20_000))
     return CholeskySampler.create(op)
 
 
 @register_sampler("patch_gibbs")
 def _build_patch_gibbs(op, cfg):
+    if isinstance(op, GraphOperator):
+        return GraphPatchGibbsSampler.create(op)
     if not isinstance(op, (StencilOperator, LRCOperator)):
-        raise NotImplementedError(
-            f"patch Gibbs on {type(op).__name__} (graph operators) is ROADMAP.md item 20"
-        )
+        raise TypeError(f"patch Gibbs needs a stencil or graph operator, got {type(op).__name__}")
     return PatchGibbsSampler.create(op)
 
 

@@ -10,7 +10,8 @@
   invariance identity (< 1e-10), and the keyed step with its draws off
   against the explicit step with zero noises (float32, 1e-5);
 * the Woodbury sampler's factor and step (float64);
-* the refusals that remain: graph operators.
+* LRC over a graph operator is taken (the mesh path), and an operator
+  that is neither a stencil nor a graph is refused.
 """
 
 import functools
@@ -262,20 +263,31 @@ def test_woodbury_matches_jax(solver):
 
 
 class _GraphLike:
-    """Stands in for an unstructured-mesh operator: no stencil."""
+    """Stands in for an operator that is neither a stencil nor a graph."""
 
     grid_shape = (10,)
     dtype = F64
 
 
 def test_lrc_operators_are_taken_and_graph_operators_refused():
+    """LRC operators over stencils and over graph operators are taken
+    (graph Gibbs, the aggregation hierarchy); an operator that is neither
+    is refused with a TypeError."""
+    from parmgmc_tpu_torch.models import mesh
+    from parmgmc_tpu_torch.operators.graph import GraphOperator, from_csr
+
     op, _, _, _ = _posterior(F32)
     assert GibbsSampler.create(op).is_lrc
     smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=32, coarsening="aggregate")
     assert smp._lrc_chain_eligible() and all(isinstance(o, lrc.LRCOperator) for o in smp.ops)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    g = from_csr(mesh.matern_precision_mesh(*mesh.unit_square_mesh(6), 2.0), device=DEV)
+    glrc = lrc.LRCOperator(g, torch.ones((g.n, 1), dtype=F64), torch.ones(1, dtype=F64))
+    assert GibbsSampler.create(glrc).is_lrc and isinstance(GibbsSampler.create(g).base, GraphOperator)
+    gsmp = MGMCSampler.create(glrc, coarsest_size=12)
+    assert gsmp.n_levels >= 2 and all(isinstance(o, lrc.LRCOperator) for o in gsmp.ops)
+    with pytest.raises(TypeError, match="stencil or graph"):
         GibbsSampler.create(_GraphLike())
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(TypeError, match="stencil or graph"):
         MGMCSampler.create(_GraphLike(), coarsening="aggregate")
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(TypeError, match="stencil or graph"):
         mgmc.build_hierarchy(lrc.LRCOperator(_GraphLike(), op.B, op.sigma_inv))

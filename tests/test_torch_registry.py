@@ -9,8 +9,8 @@ on the port, against the JAX package (CPU).
 * ``build_sampler`` against JAX's on the same config trees: the README
   posterior tree, the registry docstring's MGMC tree, an MGMC tree with
   natural-order smoothers, Woodbury trees and a patch-Gibbs tree, each
-  ``step_with_noise`` on the same numpy noises (float64); the refusals
-  (sparse and auto Cholesky, item 21; an unknown type);
+  ``step_with_noise`` on the same numpy noises (float64); the Cholesky
+  modes (dense, sparse, auto), an unknown type and a registered one;
 * the README quick start, ``MGMCSampler.create(gmrf_2d(64), n_pre=2,
   n_post=2)``: JAX's hierarchy, and a short chain that stays finite.
 """
@@ -191,15 +191,21 @@ def test_patch_gibbs_tree_matches_jax():
     assert isinstance(smp, PatchGibbsSampler)
     b = np.random.RandomState(4).randn(7, 6)
     _same_step(smp, jsmp, torch.from_numpy(b), jnp.asarray(b), 1e-10)
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(TypeError, match="stencil or graph"):
         build_sampler(object(), {"type": "patch_gibbs"})
 
 
 def test_registry_refusals_and_extension():
+    from parmgmc_tpu_torch.samplers.cholesky import SparseCholeskySampler
+
     op = gmrf_2d(6, 1.0, F64, device=DEV)
-    for mode in ("sparse", "auto"):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            build_sampler(op, {"type": "cholesky", "mode": mode})
+    assert isinstance(build_sampler(op, {"type": "cholesky", "mode": "sparse"}), SparseCholeskySampler)
+    assert isinstance(build_sampler(op, {"type": "cholesky", "mode": "auto"}), CholeskySampler)
+    auto = build_sampler(op, {"type": "cholesky", "mode": "auto", "dense_threshold": 20})
+    assert isinstance(auto, SparseCholeskySampler)
+    # the sparse factor of the stencil's CSR samples the dense law
+    S = auto._sqrt_apply(np.eye(op.n))
+    assert _rel(S @ S.T, np.linalg.inv(op.to_dense().numpy())) < 1e-12
     with pytest.raises(ValueError, match="unknown sampler type"):
         build_sampler(op, {"type": "hamiltonian"})
     assert isinstance(build_sampler(op, {"type": "cholesky", "mode": "dense"}), CholeskySampler)

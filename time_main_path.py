@@ -4,7 +4,8 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 time_main_path.py --trees OLD NEW --pairs 4 \\
-        [--drive 256-v10 256-post 256-v22 256-v22-linear 768-v10 768-v22 patch-256 patch-128 kernels]
+        [--drive 256-v10 256-post 256-v22 256-v22-linear 768-v10 768-v22 patch-256 patch-128 kernels
+                 wrench-post wrench-post-256 wrench4-prior]
         [--out FILE]
 
 Each run is its own process, so every checkout imports its own
@@ -38,6 +39,17 @@ linear drive; b = None but on the posterior drive):
   squared_shifted_laplace_fd(n^3, kappa=1) through ``sample_chain`` with
   the mean as QOI (phase 12: #11 at 256^3, #10 at 128^3); 2 warm-up
   sweeps, windows of 16 (256^3) or 32 (128^3); ms/sweep;
+* ``wrench-post``: ``chip_smoke.py`` phase 25's unstructured-mesh
+  posterior, examples/benchmark/wrench.json (wrench refine 3, 38,132 DOFs,
+  kappa 5, three ball observations, sigma^2 = 1e-6, float64) through
+  ``MaternMeshSampler.sample`` with the rect-region mean as QOI, one chain,
+  MGMC V(1,1) on the algebraic hierarchy; 8 warm-up steps, windows of 128;
+  ms/cycle;
+* ``wrench-post-256``: the same with 256 chains chain-major
+  (``sample_chains``); 8 warm-up steps, windows of 32; ms a step and
+  aggregate samples/s;
+* ``wrench4-prior``: wrench refine 4 (277,544 DOFs, five levels), the
+  prior, one chain, mean QOI; 4 warm-up steps, windows of 32; ms/cycle;
 * ``kernels``: device ms per call of the 256^3 main path's two kernels,
   queued behind a sleeping kernel (``device_ms``): #1 at 256^3 (b = None,
   z, both sums, noise; also at 128^3 and (16, 24, 96)) and #2 over the
@@ -84,7 +96,7 @@ import sys
 import time
 
 DRIVES = ("256-v10", "256-post", "256-v22", "256-v22-linear", "768-v10", "768-v22", "patch-256", "patch-128",
-          "kernels",
+          "wrench-post", "wrench-post-256", "wrench4-prior", "kernels",
           "chain-plans", "sweep-plans", "patch-kernels")
 DEV = "cuda"
 N_MAIN = 256
@@ -95,6 +107,10 @@ CHAINS = {"256-v10": (256, 1, 0, 64, 512), "256-post": (256, 1, 0, 64, 512),
           "768-v10": (768, 1, 0, 8, 32), "768-v22": (768, 2, 2, 2, 8)}
 # patch chains: (grid, warm-up sweeps, sweeps a window)
 PATCH_CHAINS = {"patch-256": (256, 2, 16), "patch-128": (128, 2, 32)}
+# unstructured-mesh chains: (refinements, posterior, chains, warm-up steps, steps a window)
+MESH_CHAINS = {"wrench-post": (3, True, 1, 8, 128), "wrench-post-256": (3, True, 256, 8, 32),
+               "wrench4-prior": (4, False, 1, 4, 32)}
+WRENCH_PRESET = "examples/benchmark/wrench.json"
 
 
 def posterior_problem(n):
@@ -197,6 +213,35 @@ def time_patch_chain(torch, drive, repeats):
     if not bool(torch.isfinite(st.x).all()):
         raise RuntimeError(f"{drive}: the chain state is not finite")
     return out
+
+
+def time_mesh_chain(torch, root, drive, repeats):
+    """{metric: [numbers]}: ms a step of ``repeats`` windows of one
+    unstructured-mesh drive through MaternMeshSampler (and aggregate
+    samples/s with many chains)."""
+    from parmgmc_tpu_torch.models.matern import MaternMeshSampler, observations_of, region_qoi
+
+    refine, posterior, chains, warm, steps = MESH_CHAINS[drive]
+    with open(os.path.join(root, WRENCH_PRESET)) as f:
+        preset = json.load(f)
+    ms = MaternMeshSampler(mesh_file="wrench", refinements=refine, kappa=float(preset["kappa"]),
+                           observations=observations_of(preset) if posterior else None, coarsest_size=128)
+    w = torch.as_tensor(region_qoi(ms.points, preset), device=ms.b.device)
+    ms.set_qoi(lambda x: x @ w)
+    run = (lambda k: ms.sample(k)) if chains == 1 else (lambda k: ms.sample_chains(k, chains))
+    run(warm)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        q = run(steps)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+    if not bool(torch.isfinite(q).all()):
+        raise RuntimeError(f"{drive}: the QOI trace is not finite")
+    if chains == 1:
+        return {f"{drive} ms/cycle": out}
+    return {f"{drive} ms/step": out, f"{drive} samples/s": [chains / t * 1e3 for t in out]}
 
 
 def device_ms(torch, fn, n=20):
@@ -510,6 +555,8 @@ def run_one(root, drives, repeats):
             res.update({k: [v] for k, v in time_patch_kernels(torch).items()})
         elif drive in PATCH_CHAINS:
             res[f"{drive} ms/sweep"] = time_patch_chain(torch, drive, repeats)
+        elif drive in MESH_CHAINS:
+            res.update(time_mesh_chain(torch, root, drive, repeats))
         else:
             res.update(time_chain(torch, drive, repeats))
         torch.cuda.empty_cache()
