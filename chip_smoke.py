@@ -211,10 +211,39 @@ Phases, in order; any failure raises and exits non-zero:
               idle share (profiler) and the torch ops a step (a dispatch
               mode); no port kernel is launched (the JAX mesh path reaches no
               Pallas kernel).
+26. structured Matérn façade, 256^3 -- MaternSampler((256,) * 3, kappa=1,
+              float32) with no device argument on the aggregate V(1,0)
+              hierarchy (coarsest 128 requested), its describe() text;
+              sample(512, burnin=16) with the mean as QOI (b = zeros):
+              exactly one #1 and one #2 launch a step and no other kernel,
+              the QOI's variance N in (0.7, 1.3) and its mean within
+              5 sqrt(tau / (512 N)) of 0 (the exact law: A 1 = kappa^2 1,
+              so Var mean(x) = 1 / (kappa^2 N)), tau, ms a step and
+              ess_per_sec; sample_mean_and_var(64): finite fields and a
+              pooled mean within 5 sqrt(tau / (64 N)) of 0; a checkpoint
+              (save_chain_state, load_chain_state) and one step from each
+              copy, bit for bit; cg_solve's iteration (tol 1e-5, at most
+              2000 iterations, the SSOR preconditioner) on b = 1 in float64
+              within a relative 1e-3 (2-norm) of the exact A^-1 1 = 1 /
+              kappa^2, and in float32 printed beside it, each with its
+              time and iterations; 20 Richardson iterations in float32
+              (finite residuals, printed with their time); the VTK file of
+              a 64^3 block of the mean.
+27. ex7 flow, 256^3 -- sample_until_converged on the same sampler with b =
+              1, the mean as QOI, 8 chains, check_every 50, method "rank",
+              overdispersion 1e3, at most 2000 steps: it converges, every
+              chain step launched exactly one #1 and one #2 (8 x steps of
+              each, no other kernel), the pooled mean QOI of the last half
+              within 5 sqrt(tau / (8 n N)) of 1 / kappa^2 = 1, rhat_rank,
+              ess_bulk and ess_tail of the traces, wall seconds; then the
+              façade's sample_chains(256, n_chains=4, burnin=16): shape (4,
+              256), each chain's QOI variance N in (0.7, 1.3), exactly
+              4 x 272 launches of #1 and of #2; last, profiling.trace of 4
+              steps, whose Chrome trace names both kernels.
 
 Each phase prints its wall time.  The last lines are the kernels' JSON
-record (launches from the main path that runs each kernel: phase 6 for
-the chain and tail kernels, phases 8 and 22 for the FD sweep, phase 9 for the
+record (launches from the main paths that run each kernel: phases 6, 26
+and 27 for the chain and tail kernels, phases 8 and 22 for the FD sweep, phase 9 for the
 streamed sweep, phase 12 for the patch sweeps, phase 14 for #4, phase 15
 for #5 and #3, phase 18 for #9 and #8; bound_ms from this run's shapes
 at the card's published peaks), the card as nvidia-smi prints it, and
@@ -262,6 +291,19 @@ N_MESH_WARM = 8
 N_MESH_1CHAIN = 1024
 N_MESH_PATH = 256
 N_MESH4_TIME = 256
+# the structured Matérn façade and the ex7 flow (phases 26 and 27)
+N_MATERN = 512
+N_MATERN_BURNIN = 16
+N_MATERN_MOMENTS = 64
+MATERN_VAR_GATE = 0.3  # var(QOI) N in 1 +- 0.3: ~5 standard errors at 512 draws, tau ~ 1
+N_EX7_CHAINS = 8
+N_EX7_CHECK = 50
+N_EX7_MAX = 2000
+N_FACADE_CHAINS = 4
+N_FACADE_STEPS = 256
+N_TRACE_STEPS = 4
+N_RICHARDSON = 20
+VTK_BLOCK = 64
 # the reference's relative sample-mean error bound is 0.02-0.10 (BASELINE.md):
 # the strict end; one posterior sample is ~0.41 |mu| away from the mean in
 # 2-norm (the exact law), so 256 x 96 samples expect ~0.003
@@ -2140,6 +2182,182 @@ def phase_mesh_path(torch, post, prior32, prior4, w):
     print("  the mesh path launched no port kernel (no TPU kernel on this path)")
 
 
+def expect_v10(counts, steps):
+    """The launch counts of ``steps`` V(1,0) chain steps at 256^3: one #1
+    and one #2 a step, no other kernel."""
+    return dict(dict.fromkeys(counts, 0), chain_down=steps, tail_down=steps)
+
+
+def phase_matern(torch):
+    """The structured Matérn façade at 256^3: describe, the QOI stream and
+    its exact law, moments, a checkpoint, the solvers on b = 1, a VTK
+    block; the façade and the launches of its sample run."""
+    import shutil
+    import tempfile
+
+    from parmgmc_tpu_torch import io, kernels, solvers
+    from parmgmc_tpu_torch.describe import describe
+    from parmgmc_tpu_torch.diagnostics.iact import ess_per_sec, iact
+    from parmgmc_tpu_torch.models.matern import MaternSampler
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+
+    t0 = time.perf_counter()
+    ms = MaternSampler((N_MAIN,) * 3, kappa=1.0, dtype=torch.float32, **POST_V10)
+    torch.cuda.synchronize()
+    check(ms.op.device.type == "cuda" and ms.b.device.type == "cuda",
+          f"MaternSampler with no device argument is on {ms.op.device}")
+    check(ms.sampler.deferred_eligible(), "the façade's sampler does not run the V(1,0) chain kernels")
+    print(f"  MaternSampler set-up {time.perf_counter() - t0:.2f} s; describe():")
+    print("\n".join("    " + line for line in describe(ms.sampler).splitlines()))
+    N = N_MAIN**3
+    ms.set_qoi(torch.mean)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = ms.sample(N_MATERN, burnin=N_MATERN_BURNIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = N_MATERN + N_MATERN_BURNIN
+    counts = kernels.launch_counts()
+    check(counts == expect_v10(counts, steps), f"the façade's sample run launched {counts} in {steps} steps")
+    q = q.double().cpu()
+    tau, valid = iact(q)
+    var_n = float(q.var()) * N
+    se = math.sqrt(max(tau, 1.0) / (N_MATERN * N))
+    print(f"  sample({N_MATERN}, burnin={N_MATERN_BURNIN}): {wall / steps * 1e3:.4f} ms a step, one #1 and one "
+          f"#2 launch a step; var(QOI) N {var_n:.4f}, mean(QOI) {float(q.mean()):+.3e} ({float(q.mean()) / se:+.2f} SE), "
+          f"tau {tau:.4f} (valid {valid}), ess_per_sec {ess_per_sec(q, wall):.2f} (over the call's {wall:.3f} s)")
+    check(abs(var_n - 1.0) < MATERN_VAR_GATE, f"var(QOI) N = {var_n}, the exact law gives 1")
+    check(abs(float(q.mean())) < 5 * se, f"mean(QOI) {float(q.mean())} is {float(q.mean()) / se:.2f} SE from 0")
+
+    mean, var = ms.sample_mean_and_var(N_MATERN_MOMENTS)
+    check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()), "sample_mean_and_var: not finite")
+    pooled = float(mean.double().mean())
+    se_m = math.sqrt(max(tau, 1.0) / (N_MATERN_MOMENTS * N))
+    print(f"  sample_mean_and_var({N_MATERN_MOMENTS}): pooled mean {pooled:+.3e} ({pooled / se_m:+.2f} SE), "
+          f"mean of var {float(var.double().mean()):.4e}")
+    check(abs(pooled) < 5 * se_m, f"the pooled mean {pooled} is {pooled / se_m:.2f} SE from 0")
+
+    tmp = tempfile.mkdtemp(prefix="smoke_", dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "state.npz")
+        io.save_chain_state(path, ms.state)
+        st = io.load_chain_state(path)
+        _, xa = ms.sampler.step(ms.state.key, ms.state.x, ms.b)
+        _, xb = ms.sampler.step(st.key, st.x, ms.b)
+        torch.cuda.synchronize()
+        check(st.key == ms.state.key and torch.equal(xa, xb), "a step from the loaded checkpoint differs")
+        print(f"  checkpoint of the {N_MAIN}^3 state ({os.path.getsize(path) / 2**20:.1f} MiB) and one step from "
+              f"each copy: bit for bit ({time.perf_counter() - t0:.2f} s)")
+
+        for dt in (torch.float64, torch.float32):
+            op = shifted_laplace_fd((N_MAIN,) * 3, 1.0, dtype=dt)
+            ones = torch.ones(op.grid_shape, dtype=dt, device=op.device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # cg_solve(op, ones, tol=1e-5, maxiter=2000) is cg(...)[0]
+            x, its = solvers.cg(op.apply, ones, tol=1e-5, maxiter=2000, M=solvers.sor_preconditioner(op))
+            torch.cuda.synchronize()
+            err = float(torch.linalg.vector_norm((x - 1.0).double()) / torch.linalg.vector_norm(ones.double()))
+            print(f"  cg_solve, b = 1, {str(dt)[6:]}: {its} iterations in {time.perf_counter() - t0:.3f} s, "
+                  f"relative 2-norm error {err:.3e} against A^-1 1 = 1")
+            if dt == torch.float64:
+                check(err < 1e-3, f"cg_solve in float64 is {err} from A^-1 1")
+            del op, ones, x
+        ones = torch.ones(ms.grid_shape, dtype=torch.float32, device=ms.op.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, res = solvers.richardson_solve(ms.op, ones, maxiter=N_RICHARDSON)
+        res = res.cpu()
+        secs = time.perf_counter() - t0
+        check(bool(torch.isfinite(res).all()), "richardson_solve: residuals not finite")
+        print(f"  richardson_solve, {N_RICHARDSON} iterations in {secs:.3f} s: residual 2-norms "
+              f"{float(res[0]):.4f} .. {float(res[-1]):.4f} (b = 1 is the smooth mode Gauss-Seidel barely moves)")
+        t0 = time.perf_counter()
+        vtk = os.path.join(tmp, "mean.vtk")
+        io.write_vtk_structured(vtk, {"mean": mean[:VTK_BLOCK, :VTK_BLOCK, :VTK_BLOCK]})
+        print(f"  write_vtk_structured of a {VTK_BLOCK}^3 block of the mean: "
+              f"{os.path.getsize(vtk) / 2**20:.1f} MiB in {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ms, counts
+
+
+def phase_ex7(torch, ms):
+    """The ex7 flow on the façade's sampler, the façade's many chains, a
+    profiler trace of four steps; the launches of the two chain runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from parmgmc_tpu_torch import kernels, profiling
+    from parmgmc_tpu_torch.diagnostics.iact import iact
+    from parmgmc_tpu_torch.diagnostics.rhat import ess_bulk, ess_tail, rhat_rank
+    from parmgmc_tpu_torch.diagnostics.stats import sample_until_converged
+
+    N = N_MAIN**3
+    ones = torch.ones(ms.grid_shape, dtype=torch.float32, device=ms.op.device)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trace, steps, rhat = sample_until_converged(
+        ms.sampler, ones, torch.mean, n_chains=N_EX7_CHAINS, check_every=N_EX7_CHECK, method="rank",
+        overdispersion=1e3, max_steps=N_EX7_MAX)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(counts == expect_v10(counts, N_EX7_CHAINS * steps),
+          f"the ex7 flow launched {counts} in {N_EX7_CHAINS} x {steps} steps")
+    check(rhat < 1.05 and trace.shape == (N_EX7_CHAINS, steps) and np.isfinite(trace).all(),
+          f"sample_until_converged: rhat {rhat} after {steps} steps, trace {trace.shape}")
+    tail = trace[:, steps // 2:]
+    taus, _ = iact(tail)
+    tau = float(np.maximum(taus, 1.0).mean())
+    se = math.sqrt(tau / (tail.size * N))
+    gap = float(tail.mean()) - 1.0
+    print(f"  sample_until_converged: {steps} steps a chain x {N_EX7_CHAINS} chains in {wall:.3f} s "
+          f"({wall / (steps * N_EX7_CHAINS) * 1e3:.4f} ms a chain step), rank R-hat {rhat:.4f}; step 0 QOI "
+          f"{trace[:, 0].min():+.4f} .. {trace[:, 0].max():+.4f}; last half mean QOI {float(tail.mean()):.6f} "
+          f"({gap / se:+.2f} SE from 1 / kappa^2 = 1, tau {tau:.4f})")
+    print(f"  on the traces: rhat_rank {rhat_rank(trace):.4f}, ess_bulk {ess_bulk(trace):.1f}, "
+          f"ess_tail {ess_tail(trace):.1f} of {trace.size} draws; one #1 and one #2 launch a chain step")
+    check(abs(gap) < 5 * se, f"the ex7 flow's mean QOI is {gap / se:.2f} SE from 1")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    q = ms.sample_chains(N_FACADE_STEPS, n_chains=N_FACADE_CHAINS, burnin=N_MATERN_BURNIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c2 = kernels.launch_counts()
+    n_steps = N_FACADE_CHAINS * (N_FACADE_STEPS + N_MATERN_BURNIN)
+    check(c2 == expect_v10(c2, n_steps), f"sample_chains launched {c2} in {n_steps} steps")
+    check(tuple(q.shape) == (N_FACADE_CHAINS, N_FACADE_STEPS) and bool(torch.isfinite(q).all()),
+          f"sample_chains gave {tuple(q.shape)}")
+    var_n = (q.double().var(dim=1) * N).cpu()
+    print(f"  sample_chains({N_FACADE_STEPS}, n_chains={N_FACADE_CHAINS}, burnin={N_MATERN_BURNIN}): "
+          f"{wall:.3f} s, var(QOI) N by chain {[round(float(v), 4) for v in var_n]}")
+    check(bool(((var_n - 1.0).abs() < MATERN_VAR_GATE).all()), f"a chain's var(QOI) N is off: {var_n}")
+    for k in counts:
+        counts[k] += c2[k]
+
+    tmp = tempfile.mkdtemp(prefix="trace_", dir=os.path.join(os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp):
+            ms.sample(N_TRACE_STEPS)
+        with open(os.path.join(tmp, "trace.json")) as f:
+            text = f.read()
+        names = [k for k in ("chain_march_kernel", "tail_grid_kernel") if k in text]
+        print(f"  profiling.trace of {N_TRACE_STEPS} steps: {len(text) / 2**20:.2f} MiB, names {names} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        check(len(names) == 2, "the profiler trace does not name both chain kernels")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     # the profiler (phases 3 on) leaves CUPTI's callbacks in place unless
@@ -2203,14 +2421,9 @@ def main():
     phase_deferred(torch, smp, b, main_smp)
     phase("6. main path")
 
-    def want_main(steps):  # one #1 and one #2 launch a step, no other kernel
-        w = dict.fromkeys(kernels.launch_counts(), 0)
-        w.update(chain_down=steps, tail_down=steps)
-        return w
-
     check(all(main_smp._tail_fused_eligible(l) for l in range(1, main_smp.n_levels - 1)),
           "the 256^3 hierarchy's levels below 0 do not all take the tail kernel")
-    counts = phase_main(torch, dev, main_smp, want=want_main)
+    counts = phase_main(torch, dev, main_smp, want=lambda steps: expect_v10(kernels.launch_counts(), steps))
     phase("7. moments gates: V(2,2) and Gibbs")
     gates = phase_moments_general(torch, dev, b)
     phase("8. V(2,2) path")
@@ -2295,6 +2508,14 @@ def main():
     phase("25. unstructured mesh path")
     phase_mesh_path(torch, post, prior32, prior4, w)
     del post, prior32, prior4
+    torch.cuda.empty_cache()
+    phase(f"26. structured Matérn façade, {N_MAIN}^3")
+    ms, c26 = phase_matern(torch)
+    phase(f"27. ex7 flow, {N_MAIN}^3")
+    c27 = phase_ex7(torch, ms)
+    del ms
+    for k in ("chain_down", "tail_down"):
+        counts[k] += c26[k] + c27[k]
     print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 
@@ -2335,4 +2556,16 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # with TEARDOWN_CUPTI=1 a process that ran a profiler session hangs
+    # for minutes in its exit teardown, even after one session: end the
+    # process here, once its output is out
+    try:
+        code = main()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -3,7 +3,8 @@
 A chain is a Python loop over the sampler's keyed ``step`` (the port's
 stand-in for ``lax.scan``); recorded values stay on the device until the
 loop ends, so the loop never waits for the device.  Keys are integers
-(:mod:`parmgmc_tpu_torch.keys`).
+(:mod:`parmgmc_tpu_torch.keys`).  Many independent chains run one after
+another through :func:`multi_chain` (the JAX package vmaps them).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ __all__ = [
     "sample_chain",
     "sample_chain_deferred",
     "sample_moments",
+    "multi_chain",
 ]
 
 
@@ -127,3 +129,55 @@ def sample_moments(sampler, state: ChainState, b, n_samples: int, burnin: int = 
             m2 = m2 + delta * (x - mean)
     var = m2 / max(n_samples - 1, 1)
     return ChainState(x=x, key=key), mean, var
+
+
+def _take(a, i: int):
+    """Chain i of a stacked argument: a ChainState (x of shape (C, ...),
+    key a tuple of C ints), a tensor (leading chain axis), or a tuple or
+    list of such."""
+    if isinstance(a, ChainState):
+        return ChainState(x=a.x[i], key=a.key[i])
+    if isinstance(a, (tuple, list)):
+        return type(a)(_take(v, i) for v in a)
+    return a[i]
+
+
+def _chains_of(a) -> int:
+    if isinstance(a, ChainState):
+        return len(a.key)
+    if isinstance(a, (tuple, list)):
+        return _chains_of(a[0])
+    return a.shape[0]
+
+
+def _stack(outs):
+    """The per-chain results stacked the way :func:`_take` reads them."""
+    first = outs[0]
+    if isinstance(first, ChainState):
+        return ChainState(x=torch.stack([o.x for o in outs]), key=tuple(o.key for o in outs))
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack([o[j] for o in outs]) for j in range(len(first)))
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    return tuple(outs)  # a key
+
+
+def multi_chain(fn: Callable, n_chains: int):
+    """``fn`` mapped over a leading chain axis of all its arguments (the
+    JAX ``vmap``): ChainStates stacked as x of shape (C, ...) and key a
+    tuple of C ints, tensors with a leading axis of C; the results come
+    back stacked the same way.
+
+    The chains run one after another through the sampler's own keyed
+    step, so a kernel sampler (whose kernels take one chain) runs its
+    kernels, and chain c gives bit for bit what ``fn`` gives on chain c
+    alone.  For C chains advanced by one keyed step on a plain-route
+    sampler, see the chain-major layout (``init_chain(..., batch=)``)."""
+
+    def run(*args):
+        for a in args:
+            if _chains_of(a) != n_chains:
+                raise ValueError(f"an argument holds {_chains_of(a)} chains, not {n_chains}")
+        return _stack([fn(*(_take(a, i) for a in args)) for i in range(n_chains)])
+
+    return run

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["autocorrelation", "iact", "ess"]
+__all__ = ["autocorrelation", "iact", "ess", "ess_per_sec"]
 
 
 def _next_pow_two(n: int) -> int:
@@ -72,3 +72,9 @@ def ess(x, c: int = 5):
     x = _as_tensor(x)
     tau, _ = iact(x, c=c)
     return x.shape[-1] / np.maximum(tau, 1.0)
+
+
+def ess_per_sec(x, wall_seconds: float, c: int = 5):
+    """Effective samples per second of wall time: :func:`ess` over
+    ``wall_seconds``."""
+    return ess(x, c=c) / wall_seconds

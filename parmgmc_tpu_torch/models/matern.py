@@ -1,5 +1,10 @@
-"""Matérn sampling on unstructured meshes (port of ``MaternMeshSampler``
-in ``parmgmc_tpu.models.matern``).
+"""Matérn random-field sampler façades (port of ``parmgmc_tpu.models.matern``).
+
+:class:`MaternSampler` samples the structured-grid Whittle-Matérn field
+with precision kappa^2 - Laplace (``shifted_laplace_fd``) through an MGMC
+chain: ``sample`` streams a QOI, ``sample_mean_and_var`` records moments,
+``sample_chains`` runs many independent chains (the reference's MS
+object).
 
 Given a Gmsh mesh (or points and cells), optional uniform refinements and
 kappa, :class:`MaternMeshSampler` assembles the P1 (or CG2) precision
@@ -11,8 +16,9 @@ colour-blocked internal order stays inside.
 
 Many chains run chain-major on the graph samplers (:func:`
 batched_chains_supported`): one state x of shape (n, C), one keyed step
-advancing every chain.  The other samplers' many-chain layout (a vmapped
-chain axis) is ROADMAP.md item 17a and is refused here.
+advancing every chain.  Every other sampler runs them one at a time
+through :func:`~parmgmc_tpu_torch.chain.multi_chain` (the JAX package
+vmaps a leading chain axis), so a kernel sampler runs its kernels.
 """
 
 from __future__ import annotations
@@ -22,10 +28,10 @@ from typing import Callable, Optional
 import torch
 
 from parmgmc_tpu_torch import keys, resolve_device
-from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_moments
+from parmgmc_tpu_torch.chain import ChainState, init_chain, multi_chain, sample_chain, sample_moments
 from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
 
-__all__ = ["MaternMeshSampler", "batched_chains_supported", "observations_of", "region_qoi"]
+__all__ = ["MaternMeshSampler", "MaternSampler", "batched_chains_supported", "observations_of", "region_qoi"]
 
 
 def observations_of(preset: dict):
@@ -58,6 +64,48 @@ def region_qoi(points, preset: dict):
     if not m.any():
         return None
     return m / m.sum()
+
+
+class MaternSampler:
+    """Gaussian random fields with the Matérn-type precision kappa^2 -
+    Laplace on a structured grid (``shifted_laplace_fd``), zero mean.
+
+    ``sampler`` replaces the default ``MGMCSampler.create(op,
+    **mgmc_kwargs)``.  The operator and the chain live on ``device`` (the
+    card when None)."""
+
+    def __init__(self, grid_shape, kappa: float = 1.0, dtype=torch.float32, seed: int = 0,
+                 sampler: Optional[object] = None, device=None, **mgmc_kwargs):
+        from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+
+        self.grid_shape = tuple(grid_shape)
+        self.kappa = float(kappa)
+        self.op = shifted_laplace_fd(self.grid_shape, kappa, dtype=dtype, device=resolve_device(device))
+        self.sampler = sampler or MGMCSampler.create(self.op, **mgmc_kwargs)
+        self.state = init_chain(self.sampler, int(seed))
+        self.b = torch.zeros(self.grid_shape, dtype=dtype, device=self.op.device)  # zero-mean field
+        self._qoi: Optional[Callable] = None
+        self._chain_states = {}
+
+    def set_qoi(self, fn: Callable):
+        """The QOI applied to each sample (the reference's MSSetQOI)."""
+        self._qoi = fn
+
+    def sample(self, n: int = 1, burnin: int = 0):
+        """Advance the chain n steps (after ``burnin``); the stacked QOI
+        values (or samples)."""
+        self.state, out = sample_chain(self.sampler, self.state, self.b, n, extract=self._qoi, burnin=burnin)
+        return out
+
+    def sample_mean_and_var(self, n: int, burnin: int = 0):
+        """(mean, var) fields over n recorded steps."""
+        self.state, mean, var = sample_moments(self.sampler, self.state, self.b, n, burnin=burnin)
+        return mean, var
+
+    def sample_chains(self, n: int, n_chains: int, burnin: int = 0):
+        """(n_chains, n, ...) QOI traces of ``n_chains`` independent chains
+        (see :func:`_sample_chains`)."""
+        return _sample_chains(self, None, n, n_chains, burnin)
 
 
 class MaternMeshSampler:
@@ -158,24 +206,38 @@ class MaternMeshSampler:
 
     def sample_chains(self, n: int, n_chains: int, burnin: int = 0):
         """(n_chains, n, ...) QOI traces (original order) of ``n_chains``
-        independent chains, run chain-major.  The chains' state is made
-        once per ``n_chains`` (its key folded from the main chain's) and
-        kept on the façade, so calls continue them."""
-        if not batched_chains_supported(self.sampler):
-            raise NotImplementedError(
-                f"many chains of {type(self.sampler).__name__} on this hierarchy need the vmapped "
-                "chain layout, ROADMAP.md item 17a")
-        user = self._qoi or (lambda x: x)
-        iperm = self.op.iperm
-        # permute once, chain-major, then map the user's QOI over the chains
-        extract = lambda x: torch.func.vmap(user, in_dims=-1)(x[iperm])
-        if n_chains not in self._chain_states:
-            self._chain_states[n_chains] = init_chain(
-                self.sampler, keys.fold_in(self.state.key, n_chains), batch=(n_chains,))
-        st, out = sample_chain(self.sampler, self._chain_states[n_chains], self.b, n,
-                               extract=extract, burnin=burnin)
-        self._chain_states[n_chains] = st
+        independent chains (see :func:`_sample_chains`)."""
+        return _sample_chains(self, self.op.iperm, n, n_chains, burnin)
+
+
+def _sample_chains(ms, iperm, n, n_chains, burnin):
+    """The many-chains driver of both façades: (n_chains, n, ...) QOI
+    traces.  The chains' states are made once per ``n_chains`` (keys from
+    the main chain's key folded with ``n_chains``) and kept on the façade,
+    so calls continue them.
+
+    Graph samplers (:func:`batched_chains_supported`) run chain-major: one
+    state x of shape (n, C), one keyed step for every chain, the user's
+    QOI mapped over the chains after one permutation.  Every other sampler
+    runs the chains one at a time through :func:`multi_chain`, each with
+    its own key (JAX ``split(fold_in(key, n_chains), n_chains)``)."""
+    user = ms._qoi or (lambda x: x)
+    key = keys.fold_in(ms.state.key, n_chains)
+    states = ms._chain_states
+    if batched_chains_supported(ms.sampler):
+        perm = (lambda x: x) if iperm is None else (lambda x: x[iperm])
+        extract = lambda x: torch.func.vmap(user, in_dims=-1)(perm(x))
+        if n_chains not in states:
+            states[n_chains] = init_chain(ms.sampler, key, batch=(n_chains,))
+        states[n_chains], out = sample_chain(ms.sampler, states[n_chains], ms.b, n, extract=extract, burnin=burnin)
         return out.transpose(0, 1)  # (n_steps, C, ...) -> (C, n_steps, ...)
+    per = user if iperm is None else (lambda x: user(x[iperm]))
+    if n_chains not in states:
+        x0 = torch.zeros((n_chains, *ms.sampler.grid_shape), dtype=ms.sampler.dtype, device=ms.sampler.device)
+        states[n_chains] = ChainState(x=x0, key=keys.split(key, n_chains))
+    run = multi_chain(lambda st: sample_chain(ms.sampler, st, ms.b, n, extract=per, burnin=burnin), n_chains)
+    states[n_chains], out = run(states[n_chains])
+    return out
 
 
 def batched_chains_supported(sampler) -> bool:

@@ -41,6 +41,7 @@ the JAX ``_draw(..., batch)`` does.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -119,6 +120,9 @@ class GibbsSampler:
     Bb_bw: "torch.Tensor | None" = None
     Bb_fw_patches: "tuple | None" = None  # (vals (k, *box), starts)
     Bb_bw_patches: "tuple | None" = None
+    # "kernel": the keyed step runs the sweep kernels where they apply;
+    # "torch": always the explicit-noise step (registry.lax_variant)
+    impl: str = "kernel"
 
     @staticmethod
     def create(op, omega: float = 1.0, sweep: str = "forward") -> "GibbsSampler":
@@ -212,7 +216,11 @@ class GibbsSampler:
         return x
 
     def step_with_noise(self, x, b, noises):
-        """One Gibbs iteration with explicit N(0,1) draws (deterministic)."""
+        """One Gibbs iteration with explicit N(0,1) draws (deterministic).
+        ``x`` may carry trailing chain dims (the draws then carry them
+        too); a stencil operator takes the chains one at a time."""
+        if not isinstance(self.base, GraphOperator) and x.ndim > self.base.ndim:
+            return per_chain(self.step_with_noise, x, b, noises, self.base.ndim)
         if self.sweep == "symmetric":
             x = self._half_step(x, b, noises[0], "forward")
             return self._half_step(x, b, noises[1], "backward")
@@ -231,7 +239,14 @@ class GibbsSampler:
     @property
     def has_kernel(self) -> bool:
         """Does the keyed step run the sweep kernels?"""
-        return self.coeff6 is not None and self.dtype == torch.float32
+        return self.impl == "kernel" and self.coeff6 is not None and self.dtype == torch.float32
+
+    @property
+    def route(self) -> str:
+        """The keyed step's route: the sweep kernel's wrapper, or torch."""
+        if not self.has_kernel:
+            return "torch"
+        return "fused_rb_gibbs_sweep_fd" if self.fd_params is not None else "fused_rb_gibbs_sweep"
 
     def _fused_step(self, key: int, x, b):
         key, k1, k2 = keys.split(key, 3)
@@ -263,12 +278,50 @@ class GibbsSampler:
 
     def step(self, key: int, x, b, aux=None):
         """(key, x'): one keyed Gibbs iteration.  ``b=None`` declares a
-        zero RHS (the kernels then read no b)."""
+        zero RHS (the kernels then read no b).  ``x`` may carry trailing
+        chain dims on the plain route; a kernel sampler refuses them."""
+        batch = x.shape[len(self.grid_shape):]
         if self.has_kernel:
+            refuse_batch(self, batch)
             return self._fused_step(key, x, b)
         key, sub = keys.split(key)
-        shapes = with_batch(self.noise_shapes(), x.shape[len(self.grid_shape):])
-        return key, self.step_with_noise(x, b, _draw(sub, shapes, x.dtype, x.device))
+        return key, self.step_with_noise(x, b, _draw(sub, with_batch(self.noise_shapes(), batch), x.dtype, x.device))
+
+
+def refuse_batch(sampler, batch) -> None:
+    """Raise when a kernel sampler's keyed step is given trailing chain
+    dims: its kernels take one chain, and it never switches to the plain
+    route unasked (as the JAX package's Pallas samplers do not vmap)."""
+    if batch:
+        raise ValueError(
+            f"{type(sampler).__name__}'s keyed step runs CUDA kernels on one chain (x of shape "
+            f"grid_shape), not on trailing chain dims {tuple(batch)}: take "
+            "samplers.registry.lax_variant(sampler) for the plain-torch route, or run the "
+            "chains one at a time (chain.multi_chain)")
+
+
+def per_chain(fn, x, b, noises, ndim: int):
+    """``fn(x, b, noises)`` on each chain of the trailing chain dims of
+    ``x`` (and of ``b`` and every draw, where they carry them), stacked
+    back: the stencil operators take one chain."""
+    batch = tuple(x.shape[ndim:])
+    C = math.prod(batch)
+
+    def chain(t, c):  # every draw and x carry the chain dims; b may not
+        return t.reshape(*t.shape[: t.ndim - len(batch)], C)[..., c]
+
+    def tree(t, c):
+        if isinstance(t, dict):
+            return {k: tree(v, c) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [tree(v, c) for v in t]
+        return chain(t, c)
+
+    def rhs(c):
+        return b if b is None or b.ndim == ndim else chain(b, c)
+
+    out = [fn(chain(x, c), rhs(c), tree(noises, c)) for c in range(C)]
+    return torch.stack(out, dim=-1).reshape(x.shape)
 
 
 def with_batch(shapes, batch):

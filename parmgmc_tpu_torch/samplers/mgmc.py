@@ -424,10 +424,25 @@ class MGMCSampler:
     def step_with_noise(self, x, b, noises):
         """x <- x + M_mg(b - A x) with explicit N(0,1) draws; ``b=None``
         is a zero RHS.  ``x`` may carry trailing chain dims (the noises
-        then carry them too)."""
+        then carry them too): graph levels take them chain-major, stencil
+        levels one chain at a time."""
+        if x.ndim > len(self.grid_shape) and not self._graph():
+            return gibbs.per_chain(self.step_with_noise, x, b, noises, len(self.grid_shape))
         if b is None:
             b = torch.zeros_like(x)
         return x + self._cycle(0, bcast(b, x) - self.fine_op.apply(x), noises)
+
+    def _graph(self) -> bool:
+        """Are the levels graph operators (an unstructured mesh)?"""
+        op0 = self.fine_op
+        return isinstance(op0.base if isinstance(op0, LRCOperator) else op0, GraphOperator)
+
+    @property
+    def has_kernel(self) -> bool:
+        """Does the keyed step run a kernel: the chain kernels, or a
+        smoother's or the coarse sampler's?"""
+        return self.deferred_eligible() or any(
+            getattr(s, "has_kernel", False) for s in (*self.smoothers, self.coarse))
 
     def prepare(self, b):
         return None
@@ -471,7 +486,7 @@ class MGMCSampler:
         if not self._block_level(0):
             return False
         s0 = self.smoothers[0]
-        if s0.sweep not in ("forward", "backward"):
+        if s0.sweep not in ("forward", "backward") or not s0.has_kernel:
             return False
         if s0.is_lrc:
             return self.lrc_aux is not None
@@ -620,7 +635,20 @@ class MGMCSampler:
     def step(self, key: int, x, b, aux=None):
         """(key, x'): one keyed chain step.  ``b=None`` declares a zero RHS:
         the chain kernel then reads no b at all, the general cycle
-        substitutes zeros for the fine residual."""
+        substitutes zeros for the fine residual.  ``x`` may carry trailing
+        chain dims on the plain route (a graph hierarchy runs them
+        chain-major through the general keyed cycle, a stencil one takes
+        the explicit-noise step with every draw carrying them, as the JAX
+        package's keyed step does); a kernel sampler refuses them."""
+        batch = x.shape[len(self.grid_shape):]
+        if batch:
+            if self.has_kernel:
+                gibbs.refuse_batch(self, batch)
+            if not self._graph():
+                self._require_keyed()
+                key, sub = keys.split(key)
+                shapes = gibbs.with_batch(self.noise_shapes(), batch)
+                return key, self.step_with_noise(x, b, gibbs._draw(sub, shapes, x.dtype, x.device))
         key, sub = keys.split(key)
         if not self.deferred_eligible():
             self._require_keyed()
@@ -739,6 +767,7 @@ class MGMCSampler:
                 "levels under aggregation with even extents), as the JAX "
                 "deferred_eligible; use sample_chain"
             )
+        gibbs.refuse_batch(self, xpy.shape[len(self.grid_shape):])
         pair = isinstance(z, tuple)
         z, btx = z if pair else (z, None)
         key, sub = keys.split(key)

@@ -46,7 +46,7 @@ from parmgmc_tpu_torch.operators.stencil import (
     fd_stencil,
     star_offsets,
 )
-from parmgmc_tpu_torch.samplers.gibbs import _draw, with_batch
+from parmgmc_tpu_torch.samplers.gibbs import _draw, per_chain, refuse_batch, with_batch
 
 __all__ = ["PatchGibbsSampler", "GraphPatchGibbsSampler", "detect_squared_fd", "star_patch"]
 
@@ -94,6 +94,9 @@ class PatchGibbsSampler:
     patch_offsets: tuple  # k member offsets, centre first
     ncolor_base: int  # colours = ncolor_base ** ndim
     sq_fd_params: "tuple | None" = None  # (kappa2, hinv2) of F when A = F^2
+    # "kernel": the keyed step runs the patch kernels where they apply;
+    # "torch": always the explicit-noise step (registry.lax_variant)
+    impl: str = "kernel"
     # the explicit-noise step's per-colour tables, built at its first call
     _plain: dict = field(default_factory=dict, init=False, repr=False)
 
@@ -118,6 +121,16 @@ class PatchGibbsSampler:
     @property
     def device(self):
         return self.base.device
+
+    @property
+    def has_kernel(self) -> bool:
+        """Does the keyed step run the patch kernels?"""
+        return self.impl == "kernel" and self.sq_fd_params is not None
+
+    @property
+    def route(self) -> str:
+        """The keyed step's route: the patch kernel's wrapper, or torch."""
+        return "fused_patch_sweep_sqfd" if self.has_kernel else "torch"
 
     def noise_shapes(self):
         return [{"eta": (len(self.patch_offsets), *self.grid_shape)}]
@@ -224,7 +237,10 @@ class PatchGibbsSampler:
 
     def step_with_noise(self, x, b, noises):
         """One full coloured patch sweep with explicit draws
-        (deterministic).  ``b=None`` means a zero RHS."""
+        (deterministic).  ``b=None`` means a zero RHS; trailing chain dims
+        of ``x`` (and the draws) are taken one chain at a time."""
+        if x.ndim > self.base.ndim:
+            return per_chain(self.step_with_noise, x, b, noises, self.base.ndim)
         if b is None:  # zero-RHS (prior) convention
             b = torch.zeros_like(x)
         tab = self._tables()
@@ -248,12 +264,14 @@ class PatchGibbsSampler:
     def step(self, key: int, x, b, aux=None):
         """(key, x'): one keyed sweep.  ``b=None`` declares a zero RHS
         (the kernels then read no b)."""
-        if self.sq_fd_params is not None:
+        batch = x.shape[self.base.ndim:]
+        if self.has_kernel:
+            refuse_batch(self, batch)
             key, k1, k2 = keys.split(key, 3)
             seed, stp = keys.randint31(k1), keys.randint31(k2)
             return key, fused_patch_sweep_sqfd(x, b, *self.sq_fd_params, seed, stp)
         key, sub = keys.split(key)
-        return key, self.step_with_noise(x, b, _draw(sub, self.noise_shapes(), x.dtype, x.device))
+        return key, self.step_with_noise(x, b, _draw(sub, with_batch(self.noise_shapes(), batch), x.dtype, x.device))
 
 
 @dataclass(frozen=True, eq=False)

@@ -27,6 +27,7 @@ the same sampler the direct calls do.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict
 
 from parmgmc_tpu_torch.operators.graph import GraphOperator
@@ -39,7 +40,31 @@ from parmgmc_tpu_torch.samplers.patch_gibbs import GraphPatchGibbsSampler, Patch
 from parmgmc_tpu_torch.samplers.sor import NaturalGibbsSampler
 from parmgmc_tpu_torch.samplers.woodbury import WoodburySampler
 
-__all__ = ["build_sampler", "register_sampler"]
+__all__ = ["build_sampler", "lax_variant", "register_sampler"]
+
+
+def lax_variant(sampler):
+    """The same sampler with every kernel route turned to plain torch
+    (``impl="torch"``), recursively through MGMC smoothers and Woodbury's
+    inner sampler (the JAX ``lax_variant``).
+
+    The samplers, their update order and their math are unchanged; the
+    keyed steps draw their noise from ``keys.generator``, as the
+    explicit-noise route does, and launch no kernel.  An MGMC sampler also
+    drops the rank-k matrices of its level-0 chain kernel.  Take it for
+    trailing chain dims on a structured sampler (the kernels take one
+    chain), or to run a configuration without a GPU kernel."""
+
+    def fix(obj):
+        if getattr(obj, "impl", "torch") != "torch":
+            obj = dataclasses.replace(obj, impl="torch")
+        if hasattr(obj, "smoothers"):
+            obj = dataclasses.replace(obj, smoothers=tuple(fix(s) for s in obj.smoothers), lrc_aux=None)
+        if hasattr(obj, "sampler"):  # Woodbury's inner sampler
+            obj = dataclasses.replace(obj, sampler=fix(obj.sampler))
+        return obj
+
+    return fix(sampler)
 
 _REGISTRY: Dict[str, Callable] = {}
 

@@ -24,6 +24,7 @@ import torch
 
 from parmgmc_tpu_torch import keys
 from parmgmc_tpu_torch.samplers.gibbs import _draw
+from parmgmc_tpu_torch.solvers import cg
 
 __all__ = ["WoodburySampler"]
 
@@ -34,35 +35,15 @@ def _solve_columns_dense(base, B):
     return torch.linalg.solve(A, B.reshape(base.n, -1)).reshape(B.shape)
 
 
-def _cg(apply, b, tol, maxiter):
-    """x with A x = b by conjugate gradients from zero, stopping when
-    |r|^2 <= tol^2 |b|^2 (the JAX ``cg`` rule) or after ``maxiter`` steps.
-    Set-up only: reads |r|^2 to the host every step."""
-    x = torch.zeros_like(b)
-    r = b.clone()
-    p = r.clone()
-    gamma = torch.sum(r * r)
-    stop = tol**2 * float(gamma)
-    for _ in range(maxiter):
-        if float(gamma) <= stop:
-            break
-        Ap = apply(p)
-        alpha = gamma / torch.sum(p * Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        gamma_new = torch.sum(r * r)
-        p = r + (gamma_new / gamma) * p
-        gamma = gamma_new
-    return x
-
-
 def _solve_columns_cg(base, B, tol=None, maxiter=10_000):
     """A^{-1} B matrix-free, one CG solve a column (large grids).  The
     default tolerance follows the dtype: 1e-10 cannot be reached in
     float32."""
     if tol is None:
         tol = 1e-10 if B.dtype == torch.float64 else 2e-6
-    cols = [_cg(base.apply, B[..., j].contiguous(), tol, maxiter) for j in range(B.shape[-1])]
+    # unpreconditioned CG from zero, JAX's stopping rule; reads |r|^2 to
+    # the host every step (set-up only)
+    cols = [cg(base.apply, B[..., j].contiguous(), tol=tol, maxiter=maxiter)[0] for j in range(B.shape[-1])]
     return torch.stack(cols, dim=-1)
 
 

@@ -19,7 +19,9 @@ wrappers' refusals, and the posterior chain step (#1 and #7 with rank-k
 corrections) against its materialised form and its deferred form against
 the plain chain (1e-3, relative max-norm), with its launches; the linear
 hierarchy's Galerkin levels against R A P (1e-5), and its keyed cycles'
-launches (fault F3: no chain kernel).  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+launches (fault F3: no chain kernel); the structured Matérn façade's
+launches (one #1 and one #2 a chain step) and ``chain.multi_chain`` bit
+for bit against separate chains.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -532,3 +534,40 @@ def test_linear_hierarchy_launches_no_chain_kernel(dev):
         assert bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all())
         with pytest.raises(NotImplementedError):
             smp.step_deferred(0, st.x, smp.deferred_init(torch.float32), None)
+
+
+def test_matern_sampler_runs_the_chain_kernels(dev):
+    """The structured Matérn façade at 32^3 with no device argument: on the
+    card, one #1 and one #2 launch a step of ``sample`` and of every chain
+    of ``sample_chains``, finite QOI traces, and a batched x refused."""
+    from parmgmc_tpu_torch.models.matern import MaternSampler
+
+    ms = MaternSampler((32, 32, 32), kappa=1.0, **V10)
+    assert ms.op.device.type == "cuda" and ms.sampler.deferred_eligible()
+    ms.set_qoi(torch.mean)
+    kernels.reset_launch_counts()
+    q = ms.sample(6, burnin=2)
+    qc = ms.sample_chains(5, n_chains=3)
+    counts = kernels.launch_counts()
+    assert counts == dict(dict.fromkeys(counts, 0), chain_down=8 + 15, tail_down=8 + 15), counts
+    assert q.shape == (6,) and qc.shape == (3, 5)
+    assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(qc).all())
+    with pytest.raises(ValueError, match="lax_variant"):
+        ms.sampler.step(1, torch.zeros((32, 32, 32, 2), device=dev), None)
+
+
+def test_multi_chain_is_separate_chains_on_the_card(dev):
+    """chain.multi_chain over three kernel chains equals three separate
+    sample_chain calls bit for bit (#1 and #2 on every step)."""
+    from parmgmc_tpu_torch.chain import ChainState, multi_chain
+
+    smp = MGMCSampler.create(shifted_laplace_fd((32, 32, 32), 1.0, device=dev), **V10)
+    g = torch.Generator(device=dev).manual_seed(3)
+    x0 = torch.randn(3, 32, 32, 32, generator=g, device=dev)
+    ks = (4, 5, 6)
+    kernels.reset_launch_counts()
+    st, q = multi_chain(lambda s: sample_chain(smp, s, None, 4, extract=torch.mean), 3)(ChainState(x=x0, key=ks))
+    assert kernels.launch_counts()["chain_down"] == 12
+    for c in range(3):
+        st_c, q_c = sample_chain(smp, ChainState(x=x0[c], key=ks[c]), None, 4, extract=torch.mean)
+        assert torch.equal(st.x[c], st_c.x) and torch.equal(q[c], q_c)

@@ -218,11 +218,24 @@ def test_matern_mesh_sampler_chain_major_moments():
 
 
 def test_matern_mesh_sampler_refuses_the_vmapped_layout():
+    """A sampler outside the chain-major layout (patch smoothers on the
+    graph levels) once was refused here; it now runs its chains one at a
+    time (chain.multi_chain), each chain the plain chain under its key
+    split(fold_in(key, C), C), in original node order."""
+    from parmgmc_tpu_torch import keys
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+
     pts, cells = mesh.unit_square_mesh(4)
     ms = MaternMeshSampler(points=pts, cells=cells, kappa=2.0, coarsest_size=12, device=DEV)
     ms.sampler = build_sampler(ms.op, {"type": "mgmc", "coarsest_size": 12, "smoother": {"type": "patch_gibbs"}})
-    with pytest.raises(NotImplementedError, match="item 17a"):
-        ms.sample_chains(2, 4)
+    assert not batched_chains_supported(ms.sampler)
+    w = torch.linspace(0.0, 1.0, ms.n, dtype=torch.float64)
+    ms.set_qoi(lambda x: x @ w)
+    q = ms.sample_chains(2, 4)
+    assert q.shape == (4, 2) and torch.isfinite(q).all()
+    for c, k in enumerate(keys.split(keys.fold_in(ms.state.key, 4), 4)):
+        _, qc = sample_chain(ms.sampler, init_chain(ms.sampler, k), ms.b, 2, extract=lambda x: x[ms.op.iperm] @ w)
+        assert torch.equal(qc, q[c])
 
 
 def test_woodbury_on_a_graph_posterior_matches_jax():

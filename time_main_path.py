@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 time_main_path.py --trees OLD NEW --pairs 4 \\
         [--drive 256-v10 256-post 256-v22 256-v22-linear 768-v10 768-v22 patch-256 patch-128 kernels
-                 wrench-post wrench-post-256 wrench4-prior]
+                 wrench-post wrench-post-256 wrench4-prior matern-256 ex7-256]
         [--out FILE]
 
 Each run is its own process, so every checkout imports its own
@@ -50,6 +50,17 @@ linear drive; b = None but on the posterior drive):
   aggregate samples/s;
 * ``wrench4-prior``: wrench refine 4 (277,544 DOFs, five levels), the
   prior, one chain, mean QOI; 4 warm-up steps, windows of 32; ms/cycle;
+* ``matern-256``: ``chip_smoke.py`` phase 26's structured Matérn façade,
+  ``MaternSampler((256,) * 3, kappa=1.0, dtype=float32)`` on the aggregate
+  V(1,0) hierarchy (one #1 and one #2 launch a step), ``sample`` with the
+  mean as QOI (b = zeros); 16 warm-up steps, then windows of 512 steps;
+  ms a step, the device busy time a step (windows of 32 steps queued
+  behind a sleeping kernel) and the idle share;
+* ``ex7-256``: phase 27's ex7 flow on the same sampler,
+  ``sample_until_converged`` with 8 chains, b = 1, the mean as QOI,
+  ``check_every=50``, ``method="rank"``, overdispersion 1e3, ``seed`` the
+  window's index: the wall seconds of the whole flow and the steps a chain
+  it took to converge, a window each;
 * ``kernels``: device ms per call of the 256^3 main path's two kernels,
   queued behind a sleeping kernel (``device_ms``): #1 at 256^3 (b = None,
   z, both sums, noise; also at 128^3 and (16, 24, 96)) and #2 over the
@@ -96,7 +107,7 @@ import sys
 import time
 
 DRIVES = ("256-v10", "256-post", "256-v22", "256-v22-linear", "768-v10", "768-v22", "patch-256", "patch-128",
-          "wrench-post", "wrench-post-256", "wrench4-prior", "kernels",
+          "wrench-post", "wrench-post-256", "wrench4-prior", "matern-256", "ex7-256", "kernels",
           "chain-plans", "sweep-plans", "patch-kernels")
 DEV = "cuda"
 N_MAIN = 256
@@ -111,6 +122,9 @@ PATCH_CHAINS = {"patch-256": (256, 2, 16), "patch-128": (128, 2, 32)}
 MESH_CHAINS = {"wrench-post": (3, True, 1, 8, 128), "wrench-post-256": (3, True, 256, 8, 32),
                "wrench4-prior": (4, False, 1, 4, 32)}
 WRENCH_PRESET = "examples/benchmark/wrench.json"
+# the structured Matérn drives: warm-up steps, steps a window (matern-256)
+MATERN = (16, 512)
+AGGREGATE_V10 = dict(n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
 
 
 def posterior_problem(n):
@@ -242,6 +256,45 @@ def time_mesh_chain(torch, root, drive, repeats):
     if chains == 1:
         return {f"{drive} ms/cycle": out}
     return {f"{drive} ms/step": out, f"{drive} samples/s": [chains / t * 1e3 for t in out]}
+
+
+def time_matern(torch, drive, repeats):
+    """{metric: [numbers]}: the structured Matérn façade at 256^3
+    (matern-256: ms a step, device busy ms a step, idle share; ex7-256: the
+    ex7 flow's wall seconds and steps a chain)."""
+    from parmgmc_tpu_torch.diagnostics.stats import sample_until_converged
+    from parmgmc_tpu_torch.models.matern import MaternSampler
+
+    ms = MaternSampler((N_MAIN,) * 3, kappa=1.0, dtype=torch.float32, **AGGREGATE_V10)
+    ms.set_qoi(torch.mean)
+    warm, steps = MATERN
+    ms.sample(warm)
+    torch.cuda.synchronize()
+    if drive == "ex7-256":
+        ones = torch.ones(ms.grid_shape, dtype=torch.float32, device=ms.op.device)
+        secs, nsteps = [], []
+        for r in range(repeats):
+            t0 = time.perf_counter()
+            trace, n, rhat = sample_until_converged(ms.sampler, ones, torch.mean, n_chains=8, check_every=50,
+                                                    method="rank", overdispersion=1e3, seed=r, max_steps=2000)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            nsteps.append(float(n))
+            if not (rhat < 1.05 and bool(torch.isfinite(torch.as_tensor(trace)).all())):
+                raise RuntimeError(f"{drive}: no convergence (rhat {rhat} after {n} steps)")
+        return {f"{drive} s": secs, f"{drive} steps": nsteps}
+    out = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        q = ms.sample(steps)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+    if not bool(torch.isfinite(q).all()):
+        raise RuntimeError(f"{drive}: the QOI trace is not finite")
+    n_win = 32
+    busy = device_ms(torch, lambda: ms.sample(n_win), 2) / n_win
+    return {f"{drive} ms/step": out, f"{drive} device busy ms/step": [busy],
+            f"{drive} idle share": [max(0.0, 1.0 - busy / statistics.median(out))]}
 
 
 def device_ms(torch, fn, n=20):
@@ -557,6 +610,8 @@ def run_one(root, drives, repeats):
             res[f"{drive} ms/sweep"] = time_patch_chain(torch, drive, repeats)
         elif drive in MESH_CHAINS:
             res.update(time_mesh_chain(torch, root, drive, repeats))
+        elif drive in ("matern-256", "ex7-256"):
+            res.update(time_matern(torch, drive, repeats))
         else:
             res.update(time_chain(torch, drive, repeats))
         torch.cuda.empty_cache()
