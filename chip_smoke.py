@@ -240,16 +240,41 @@ Phases, in order; any failure raises and exits non-zero:
               256), each chain's QOI variance N in (0.7, 1.3), exactly
               4 x 272 launches of #1 and of #2; last, profiling.trace of 4
               steps, whose Chrome trace names both kernels.
+28. the kernels on shards -- #7, #1 (256^3) and #3 (128^3, level 1) on
+              halo-extended blocks (shards 0, 1 and 3 of 4; halos of 2, 4
+              and 2 rows) with row_offset / n0_global, noise on: the kept
+              rows bit for bit the full-grid kernel's, each block against
+              its twin on the same block (1e-4); then #8, #9, #4 and #5 on
+              the 16-row shards of phase 14's (32, 768, 768) grid the same
+              way.
+29. the sharded path, 256^3 -- parallel.fused.make_sharded_mgmc_step on
+              the aggregate V(1,0) sampler on 1, 2 and 4 slots (cuda:0, or
+              distinct cards where the machine has them), b = None: exactly
+              S #1 and S #3 launches a step (levels 0 and 1 sharded) and no
+              twin, the noise-on state after 3 steps bit for bit the same at
+              every S, noise off against step_with_noise with zero noises
+              (1e-5), ms a step beside the unsharded MGMCSampler.step (the
+              machinery overhead), the device time of a step (queued behind
+              a sleeping kernel) and the idle share; at S = 4 a 512-step
+              chain after 16 burn-in: var(QOI) N in 1 +- 0.3 and its mean
+              within 5 SE of 0; phase 20's posterior on 4 slots: noise off
+              against step_with_noise (5e-5), four #1 a step and no other
+              kernel, the QOI's exact law (variance in 1 +- 0.3 of it, mean
+              within 5 SE) over 512 steps; make_sharded_gibbs_step at 256^3
+              on 4 slots, one step in each halo mode: the frozen step's
+              block interiors (two rows in from each block edge) equal the
+              exact step's.
 
 Each phase prints its wall time.  The last lines are the kernels' JSON
-record (launches from the main paths that run each kernel: phases 6, 26
-and 27 for the chain and tail kernels, phases 8 and 22 for the FD sweep, phase 9 for the
-streamed sweep, phase 12 for the patch sweeps, phase 14 for #4, phase 15
-for #5 and #3, phase 18 for #9 and #8; bound_ms from this run's shapes
+record (launches from the main paths that run each kernel: phases 6, 26,
+27 and 29 for the chain kernel, 6, 26 and 27 for the tail kernel, phases 8 and 22 for the FD sweep, phase 9 for the
+streamed sweep, phase 12 for the patch sweeps, phase 14 for #4, phases 15
+and 29 for #3, phase 15 for #5, phase 18 for #9 and #8; bound_ms from this run's shapes
 at the card's published peaks), the card as nvidia-smi prints it, and
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -304,6 +329,13 @@ N_FACADE_STEPS = 256
 N_TRACE_STEPS = 4
 N_RICHARDSON = 20
 VTK_BLOCK = 64
+# the sharded path (phases 28 and 29): slots on one card, or on distinct
+# cards where the machine has them
+SHARD_COUNTS = (1, 2, 4)
+SHARDS_MAX = 4
+N_SHARD_TIME = 64
+N_SHARD_QOI = 512
+SHARD_VAR_GATE = 0.3  # var(QOI) in exact * (1 +- 0.3) at 512 draws, as phase 26
 # the reference's relative sample-mean error bound is 0.02-0.10 (BASELINE.md):
 # the strict end; one posterior sample is ~0.41 |mu| away from the mean in
 # 2-norm (the exact law), so 256 x 96 samples expect ~0.003
@@ -2358,6 +2390,300 @@ def phase_ex7(torch, ms):
     return counts
 
 
+
+def shard_block(torch, a, lo, hi, h):
+    """Rows lo - h .. hi + h of a as a fresh tensor, zero rows beyond its
+    ends: the halo-extended block of rows lo .. hi that the sharded path
+    hands a kernel."""
+    pad = a.new_zeros((h, *a.shape[1:]))
+    return torch.cat([pad, a, pad])[lo : hi + 2 * h].contiguous()
+
+
+def shard_checks(torch, label, x, b, blocks, calls):
+    """Each (name, halo, fn, twin, args, kw, split) of ``calls`` on the
+    halo-extended blocks ``blocks`` of (x, b) with row_offset / n0_global,
+    noise on: the kept rows bit for bit the full-grid kernel's, the block
+    against its twin on the same block (1e-4, the noisy tolerance of phase
+    3).  ``split`` maps (outputs, h) to the kept parts."""
+    n0 = x.shape[0]
+    worst = {}
+    for name, h, fn, twin, args, kw, keep in calls:
+        full = fn(x, b, *args, **kw)
+        for lo, hi in blocks:
+            xe, be = shard_block(torch, x, lo, hi, h), shard_block(torch, b, lo, hi, h)
+            off = dict(row_offset=lo - h, n0_global=n0)
+            got = fn(xe, be, *args, **kw, **off)
+            want = twin(xe, be, *args, **kw, **off)
+            got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            rel = max(rel_err(a, w)[0] for a, w in zip(got_t, want_t))
+            worst[name] = max(worst.get(name, 0.0), rel)
+            check(rel <= 1e-4, f"{label} {name} rows {lo}..{hi}: kernel vs twin {rel:.3e}")
+            for gk, fk in zip(keep(got, h), keep(full, 0, lo, hi)):
+                check(torch.equal(gk, fk), f"{label} {name} rows {lo}..{hi}: kept rows differ "
+                      "from the full-grid kernel")
+    print(f"  {label}: blocks {blocks} bit for bit the full-grid kernels; worst vs twin "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+
+
+def phase_shard_kernels(torch, dev):
+    """Phase 28: the kernels of the sharded path on halo-extended blocks."""
+    from parmgmc_tpu_torch.kernels import mg_sweep, rb_gibbs
+
+    t_start = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(28)
+
+    def sweep_keep(out, h, lo=None, hi=None):
+        return (out[h:-h],) if lo is None else (out[lo:hi],)
+
+    def chain_keep(out, h, lo=None, hi=None):
+        if lo is None:
+            return out[0][h:-h], out[1][h // 2 : -h // 2]
+        return out[0][lo:hi], out[1][lo // 2 : hi // 2]
+
+    def zero_fn(fn):  # #3 takes b alone
+        return lambda x, b, *a, **k: fn(b, *a, **k)
+
+    n = N_MAIN
+    n_loc = n // SHARDS_MAX
+    blocks = [(s * n_loc, (s + 1) * n_loc) for s in (0, 1, SHARDS_MAX - 1)]
+    x, b = (torch.randn((n,) * 3, generator=g, device=dev) for _ in range(2))
+    h2 = float((n - 1) ** 2)
+    fine = ([-h2] * 6, 1.0, h2)
+    coarse = ([-h2 / 2] * 6, 8.0, h2 / 2)  # level 1 of the aggregate hierarchy
+    shard_checks(torch, f"{n}^3 on {SHARDS_MAX} shards", x, b, blocks, [
+        ("#7", 2, rb_gibbs.fused_rb_gibbs_sweep_fd, rb_gibbs.fused_rb_gibbs_sweep_fd_reference,
+         (*fine, 1.0, 3, 5), dict(sweep="forward"), sweep_keep),
+        ("#1", 4, mg_sweep.fused_chain_down_fd, mg_sweep.fused_chain_down_fd_reference,
+         (*fine, 1.0, 7, 9), {}, chain_keep),
+    ])
+    xc, bc = x[: n // 2, : n // 2, : n // 2].contiguous(), b[: n // 2, : n // 2, : n // 2].contiguous()
+    n_loc = n // 2 // SHARDS_MAX
+    shard_checks(torch, f"{n // 2}^3 (level 1) on {SHARDS_MAX} shards", xc, bc,
+                 [(s * n_loc, (s + 1) * n_loc) for s in (0, 1, SHARDS_MAX - 1)], [
+        ("#3", 2, zero_fn(mg_sweep.fused_zero_gibbs_restrict_fd),
+         zero_fn(mg_sweep.fused_zero_gibbs_restrict_fd_reference), (*coarse, 1.0, 7, 9), {},
+         lambda out, h, lo=None, hi=None: ((out[0][h:-h], out[1][1:-1]) if lo is None
+                                            else (out[0][lo:hi], out[1][lo // 2 : hi // 2]))),
+    ])
+    del x, b, xc, bc
+    # the large-plane routes (#8, #9; #4, #5) on 16-row shards of phase 14's grid
+    shape = (32, N_BIG, N_BIG)
+    x, b = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    h2 = float((N_BIG - 1) ** 2)
+    shard_checks(torch, f"{shape} on 2 shards", x, b, [(0, 16), (16, 32)], [
+        ("#8", 2, lambda x, b, *a, **k: rb_gibbs.fused_rb_gibbs_sweep_2d(x, b, None, *a, **k),
+         lambda x, b, *a, staged=True, **k: rb_gibbs.fused_rb_gibbs_sweep_2d_reference(
+             x, b, None, *a, **k),
+         ([-h2] * 6, 1.0, 3, 5), dict(fd_params=(1.0, h2), staged=False, sweep="backward"),
+         sweep_keep),
+        ("#9", 2, rb_gibbs.fused_rb_gibbs_sweep_2d_staged,
+         rb_gibbs.fused_rb_gibbs_sweep_2d_staged_reference, ([-h2] * 6, 1.0, 3, 5),
+         dict(fd_params=(1.0, h2)), sweep_keep),
+        ("#4", 4, mg_sweep.fused_chain_down_2d, mg_sweep.fused_chain_down_2d_reference,
+         ([-h2] * 6, 1.0, h2, 1.0, 7, 9), {}, chain_keep),
+        ("#5", 4, mg_sweep.fused_chain_down_2d_staged, mg_sweep.fused_chain_down_2d_staged_reference,
+         ([-h2] * 6, 1.0, h2, 1.0, 7, 9), {}, chain_keep),
+    ])
+    print(f"  phase 28 wall {time.perf_counter() - t_start:.1f} s")
+
+
+def slot_devices(torch, n):
+    """S slots: distinct cards where the machine has S, else S slots on cuda:0."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def zero_tree(torch, shapes, dev):
+    if isinstance(shapes, tuple):
+        return torch.zeros(shapes, device=dev)
+    if isinstance(shapes, dict):
+        return {k: zero_tree(torch, v, dev) for k, v in shapes.items()}
+    return [zero_tree(torch, v, dev) for v in shapes]
+
+
+def sharded_qoi_chain(torch, step, xs, b, n_burn, n):
+    """(xs, q): n steps of a sharded chain after n_burn, q the mean of
+    each state (block sums added on the device, read once at the end)."""
+    key = 3
+    for _ in range(n_burn):
+        key, xs = step(key, xs, b)
+    npts = sum(x.numel() for x in xs)
+    qs = []
+    for _ in range(n):
+        key, xs = step(key, xs, b)
+        qs.append(sum(x.sum().to(xs[0].device) for x in xs) / npts)
+    return xs, torch.stack(qs).double().cpu()
+
+
+def phase_sharded_path(torch, dev, smi):
+    """Phase 29: make_sharded_mgmc_step at 256^3 on 1, 2 and 4 slots."""
+    import numpy as np
+
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+    from parmgmc_tpu_torch.diagnostics.iact import iact
+    from parmgmc_tpu_torch.kernels import mg_sweep, rb_gibbs
+    from parmgmc_tpu_torch.models.obs import make_posterior_operator
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.parallel.fused import make_sharded_mgmc_step
+    from parmgmc_tpu_torch.parallel.mesh import make_mesh, shard_array, unshard
+    from parmgmc_tpu_torch.parallel.sharded import make_sharded_gibbs_step
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    t_start = time.perf_counter()
+    n = N_MAIN
+    npts = n**3
+    op = gmrf_3d(n, kappa=1.0)
+    smp = MGMCSampler.create(op, **POST_V10)
+    g = torch.Generator(device=dev).manual_seed(29)
+    x0 = torch.randn((n,) * 3, generator=g, device=dev)
+    ref0 = smp.step_with_noise(x0, None, zero_tree(torch, smp.noise_shapes(), dev))
+
+    def no_twin(*a, **k):
+        raise SmokeFailure("a CUDA shard ran a twin")
+
+    twins = [mock.patch.object(mg_sweep, name, no_twin) for name in (
+        "fused_chain_down_fd_reference", "fused_chain_down_2d_reference",
+        "fused_zero_gibbs_restrict_fd_reference")] + [
+        mock.patch.object(rb_gibbs, "fused_rb_gibbs_sweep_fd_reference", no_twin)]
+
+    def timed(run, steps):
+        run(8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    # the unsharded keyed step (sample_chain: #1 and #2 a step)
+    holder = [init_chain(smp, 0)]
+
+    def plain(k):
+        holder[0], _ = sample_chain(smp, holder[0], None, k)
+
+    ms_plain = timed(plain, N_SHARD_TIME)
+    busy_plain = queued_ms(torch, lambda: smp.step(1, holder[0].x, None), 2)
+    del holder
+    print(f"  unsharded MGMCSampler.step: {ms_plain:.4f} ms/step, device {busy_plain:.4f} ms/step "
+          f"({smi})")
+
+    bits, counts = None, {}
+    for S in SHARD_COUNTS:
+        mesh = make_mesh((S,), devices=slot_devices(torch, S))
+        step = make_sharded_mgmc_step(smp, mesh)
+        with contextlib.ExitStack() as stack:
+            for t in twins:
+                stack.enter_context(t)
+            kernels.reset_launch_counts()
+            key, xs = 5, shard_array(x0, mesh)
+            for _ in range(3):
+                key, xs = step(key, xs, None)
+            c = kernels.launch_counts()
+            want = dict(dict.fromkeys(c, 0), chain_down=3 * S, zero_restrict=3 * S)
+            check(c == want, f"{S} shards: 3 steps launched {c}, expected {want}")
+            out = unshard(xs, device=dev)
+            check(bool(torch.isfinite(out).all()), f"{S} shards: state not finite")
+            if bits is None:
+                bits = out
+            check(torch.equal(out, bits), f"{S} shards: the noise-on bits differ from 1 shard's")
+            _, off = make_sharded_mgmc_step(smp, mesh, with_noise=False)(5, shard_array(x0, mesh), None)
+            rel, _ = rel_err(unshard(off, device=dev), ref0)
+            check(rel < 1e-5, f"{S} shards, noise off, against step_with_noise: {rel:.3e}")
+            carry = [shard_array(x0, mesh)]
+
+            def run(k):
+                key = 1
+                for _ in range(k):
+                    key, carry[0] = step(key, carry[0], None)
+
+            ms = timed(run, N_SHARD_TIME)
+            busy = queued_ms(torch, lambda: step(1, carry[0], None), 2)
+            print(f"  {S} shard(s) on {sorted(set(map(str, mesh.slots())))}: {ms:.4f} ms/step "
+                  f"({ms / ms_plain:.3f} x the unsharded step), device {busy:.4f} ms/step, idle share "
+                  f"~{max(0.0, 1.0 - busy / ms):.3f}; noise off vs step_with_noise {rel:.2e}; "
+                  f"launches a step {c['chain_down'] // 3} #1, {c['zero_restrict'] // 3} #3")
+            if S == SHARDS_MAX:
+                kernels.reset_launch_counts()
+                xs, q = sharded_qoi_chain(torch, step, shard_array(x0, mesh), None, 16, N_SHARD_QOI)
+                counts = kernels.launch_counts()
+                steps = 16 + N_SHARD_QOI
+                want = dict(dict.fromkeys(counts, 0), chain_down=S * steps, zero_restrict=S * steps)
+                check(counts == want, f"the {S}-shard chain launched {counts}, expected {want}")
+                var_ratio = q.var().item() * npts
+                tau, valid = iact(q)
+                zmean = q.mean().item() * math.sqrt(npts * N_SHARD_QOI)
+                print(f"  {S}-shard chain, {N_SHARD_QOI} steps: var(QOI) N {var_ratio:.4f} (exact 1), "
+                      f"mean / SE {zmean:.3f}, tau {tau:.4f} (valid {valid})")
+                check(abs(var_ratio - 1.0) < SHARD_VAR_GATE, "sharded QOI variance off the prior law")
+                check(abs(zmean) < 5.0 * math.sqrt(max(tau, 1.0)), "sharded QOI mean off zero")
+        del step, carry
+    del smp, ref0
+    torch.cuda.empty_cache()
+
+    # the 256^3 posterior (phase 20's problem) on 4 slots
+    k = 5
+    rng = np.random.default_rng(0)
+    coords = 0.15 + 0.7 * rng.random((k, 3))
+    obsvals = rng.standard_normal(k)
+    post, f = make_posterior_operator(gmrf_3d(n, kappa=1.0), 0.01, coords, np.full(k, 0.12), obsvals)
+    t0 = time.perf_counter()
+    smp = MGMCSampler.create(post, **POST_V10)
+    t_create = time.perf_counter() - t0
+    mesh = make_mesh((SHARDS_MAX,), devices=slot_devices(torch, SHARDS_MAX))
+    fs = shard_array(f, mesh)
+    _, off = make_sharded_mgmc_step(smp, mesh, with_noise=False)(5, shard_array(x0, mesh), fs)
+    ref = smp.step_with_noise(x0, f, zero_tree(torch, smp.noise_shapes(), dev))
+    rel, _ = rel_err(unshard(off, device=dev), ref)
+    check(rel < 5e-5, f"sharded posterior, noise off, against step_with_noise: {rel:.3e}")
+    step = make_sharded_mgmc_step(smp, mesh)
+    with contextlib.ExitStack() as stack:
+        for t in twins:
+            stack.enter_context(t)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        xs, q = sharded_qoi_chain(torch, step, shard_array(x0, mesh), fs, 16, N_SHARD_QOI)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / (16 + N_SHARD_QOI) * 1e3
+        c = kernels.launch_counts()
+    steps = 16 + N_SHARD_QOI
+    want = dict(dict.fromkeys(c, 0), chain_down=SHARDS_MAX * steps)
+    check(c == want, f"the sharded posterior launched {c}, expected {want}")
+    counts["chain_down"] += c["chain_down"]
+    m, v = posterior_qoi_law(torch, post, obsvals)
+    tau, valid = iact(q)
+    var_ratio = q.var().item() / v
+    zmean = (q.mean().item() - m) / math.sqrt(v / N_SHARD_QOI)
+    print(f"  {SHARDS_MAX}-shard posterior (set-up {t_create:.2f} s): {dt:.4f} ms/step with the QOI; "
+          f"noise off vs step_with_noise {rel:.2e}; QOI var / exact {var_ratio:.4f}, mean / SE off "
+          f"{zmean:.3f}, tau {tau:.4f} (valid {valid})")
+    check(abs(var_ratio - 1.0) < SHARD_VAR_GATE, "sharded posterior QOI variance off its exact law")
+    check(abs(zmean) < 5.0 * math.sqrt(max(tau, 1.0)), "sharded posterior QOI mean off its exact law")
+    check(all(bool(torch.isfinite(x).all()) for x in xs), "sharded posterior state not finite")
+    del smp, post, f, fs, xs, step, ref, off
+    torch.cuda.empty_cache()
+
+    # the plain sharded Gibbs step, each halo mode, one step from x0
+    outs = {}
+    for mode in ("exact", "frozen"):
+        gstep = make_sharded_gibbs_step(op, mesh, omega=1.0, halo_mode=mode)
+        _, xs = gstep(9, shard_array(x0, mesh), None)
+        outs[mode] = unshard(xs, device=dev)
+    interior = torch.ones(n, dtype=torch.bool, device=dev)
+    n_loc = n // SHARDS_MAX
+    for s in range(SHARDS_MAX):
+        for d in range(2):  # the frozen halo reaches two rows in from a block edge
+            interior[s * n_loc + d] = False
+            interior[s * n_loc + n_loc - 1 - d] = False
+    d_int = (outs["frozen"][interior] - outs["exact"][interior]).abs().max().item()
+    d_all = (outs["frozen"] - outs["exact"]).abs().max().item()
+    print(f"  sharded Gibbs step, {SHARDS_MAX} shards: frozen vs exact interior {d_int:.2e}, "
+          f"at the block edges {d_all:.2e}")
+    check(bool(torch.isfinite(outs["frozen"]).all()) and d_int < 1e-5,
+          "the frozen-halo step's interiors differ from the exact step's")
+    print(f"  phase 29 wall {time.perf_counter() - t_start:.1f} s")
+    return counts
+
 def main():
     t_start = time.perf_counter()
     # the profiler (phases 3 on) leaves CUPTI's callbacks in place unless
@@ -2516,6 +2842,13 @@ def main():
     del ms
     for k in ("chain_down", "tail_down"):
         counts[k] += c26[k] + c27[k]
+    torch.cuda.empty_cache()
+    phase(f"28. the kernels on shards, {N_MAIN}^3 and (32, {N_BIG}, {N_BIG})")
+    phase_shard_kernels(torch, dev)
+    phase(f"29. the sharded path, {N_MAIN}^3 on {', '.join(map(str, SHARD_COUNTS))} shards")
+    c29 = phase_sharded_path(torch, dev, smi)
+    for k in ("chain_down", "zero_restrict"):
+        counts[k] += c29[k]
     print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 

@@ -33,6 +33,18 @@
 // by the same instructions in every mode and plan, so #1, #4 and #5 agree
 // bit for bit and #3(b) equals #5(x = 0, b).
 //
+// The array may be a block of a larger grid (a halo-extended shard of
+// parmgmc_tpu_torch/parallel/fused.py): array plane i is global row g =
+// row_offset + i of n0g rows (row_offset = 0, n0g = n0 for a whole grid;
+// both even, so rc's plane pairs are the global aggregates).  The
+// parity, the FD link count and the noise counter follow g.  Planes
+// outside the global grid (the first and last shards' outer halos, vlo
+// and vhi below) are outside the grid: x and b are streamed as zeros
+// there (the tensor maps and copies start at plane vlo), no cell of
+// theirs is computed, and their xpy and rc are 0; so no cell reads a
+// neighbour across a global end.  No z with such planes.  For a whole
+// grid nothing changes: the same instructions run on the same values.
+//
 // What bounds it on an H100: device memory by the count, instruction
 // issue in fact.  At 768^3 the chain (#5, b = None, z) reads x (1.81 GB)
 // and z (0.23 GB) and writes xpy and rc (2.04 GB): 1.22 ms at 3.35 TB/s.
@@ -128,10 +140,11 @@ struct Coeffs {
   float c0lo, c0hi, c1lo, c1hi, c2lo, c2hi;
 };
 
-// in-grid link count of a cell: D = kappa2 + hinv2 * links takes one of 7
-// values, so D, omega / D and nscale * sqrt(D) come from per-block tables
-__device__ __forceinline__ int links_at(int i, int j, int k, int n0, int n1, int n2) {
-  return (i >= 1) + (i <= n0 - 2) + (j >= 1) + (j <= n1 - 2) + (k >= 1) + (k <= n2 - 2);
+// in-grid link count of a cell of global row g of n0g: D = kappa2 + hinv2
+// * links takes one of 7 values, so D, omega / D and nscale * sqrt(D) come
+// from per-block tables
+__device__ __forceinline__ int links_at(int g, int j, int k, int n0g, int n1, int n2) {
+  return (g >= 1) + (g <= n0g - 2) + (j >= 1) + (j <= n1 - 2) + (k >= 1) + (k <= n2 - 2);
 }
 
 // off-diagonal star sum at in-plane cell c of plane ring entries lo (i-1),
@@ -167,7 +180,7 @@ __global__ void __launch_bounds__(NT, 3)
                        float* __restrict__ rc, float* __restrict__ xsum,
                        float* __restrict__ zsum, int n0, int n1, int n2, int t0, int use_tma,
                        Coeffs q, float kappa2, float hinv2, float omega, float nscale,
-                       uint32_t prefix, int color0,
+                       uint32_t prefix, int color0, int row_offset, int n0g, int vlo, int vhi,
                        const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mb,
                        const __grid_constant__ CUtensorMap mz) {
@@ -197,6 +210,9 @@ __global__ void __launch_bounds__(NT, 3)
   const int first = o_lo - HALO, last = o_hi + HALO - 1;  // x planes streamed
   const int bfirst = o_lo - 2;                            // b planes o_lo - 2 .. o_hi + 1
   const int m0 = n0 >> 1, m1 = n1 >> 1, m2 = n2 >> 1;
+  // planes vlo .. vhi - 1 lie inside the global grid; x and b loads start there
+  const size_t skip = (size_t)vlo * n1 * n2;
+  const int nin = vhi - vlo;
   if (tid == 0) {
     rx.init(use_tma ? 1 : 32, NCONS / 32);
     rb.init(use_tma ? 1 : 32, NCONS / 32);
@@ -218,10 +234,10 @@ __global__ void __launch_bounds__(NT, 3)
         if (use_tma) {
           if (lane == 0) {
             pmg::mbar_expect_tx(bar, X1 * X2 * 4);
-            pmg::tma_load_3d(dst, &mx, bar, g2 - 4, g1 - 3, p);
+            pmg::tma_load_3d(dst, &mx, bar, g2 - 4, g1 - 3, p - vlo);
           }
         } else {
-          pmg::cpasync_box(dst, x, X1, X2, g2 - 4, g1 - 3, p, n0, n1, n2, lane);
+          pmg::cpasync_box(dst, x + skip, X1, X2, g2 - 4, g1 - 3, p - vlo, nin, n1, n2, lane);
           pmg::cpasync_arrive(bar);
         }
         if (has_z && (p == first || (p & 1) == 0)) {
@@ -249,10 +265,10 @@ __global__ void __launch_bounds__(NT, 3)
         if (use_tma) {
           if (lane == 0) {
             pmg::mbar_expect_tx(bar, B1 * B2 * 4);
-            pmg::tma_load_3d(dst, &mb, bar, g2 - 4, g1 - 2, p);
+            pmg::tma_load_3d(dst, &mb, bar, g2 - 4, g1 - 2, p - vlo);
           }
         } else {
-          pmg::cpasync_box(dst, b, B1, B2, g2 - 4, g1 - 2, p, n0, n1, n2, lane);
+          pmg::cpasync_box(dst, b + skip, B1, B2, g2 - 4, g1 - 2, p - vlo, nin, n1, n2, lane);
           pmg::cpasync_arrive(bar);
         }
       }
@@ -269,6 +285,12 @@ __global__ void __launch_bounds__(NT, 3)
   // every row and column the block computes on (the strip + 2) is inside
   // the grid and has both in-plane links
   const bool inner = g1 >= 3 && g1 + T1 + 3 <= n1 && g2 >= 3 && g2 + T2 + 3 <= n2;
+  // plane i of an inner block takes the 6-link path: two axis-0 links in
+  // the global grid (so inside it) and inside the array
+  const auto full = [&](int i) {
+    return inner && i >= vlo && i < vhi && row_offset + i >= 1 && row_offset + i <= n0g - 2;
+  };
+  const int rp = row_offset & 1;  // parity of the global row of plane 0
   float reven[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // phase 4: r of the even plane
   float xacc = 0.f, zacc = 0.f;
   auto xplane = [&](int p) { return xs + ((p - first) % NX) * XSF; };
@@ -319,7 +341,7 @@ __global__ void __launch_bounds__(NT, 3)
       if (has_b) rb.wait_full(i - bfirst);
       const float* bp = has_b ? bplane(i) : nullptr;
       float* vp = vplane(i);
-      const bool in0 = i >= 0 && i < n0;
+      const bool in0 = i >= vlo && i < vhi;
       // the strip + 1, and the colour-0 cells of the ring around it (its
       // colour-1 cells have no reader); v computed for all first, then
       // stored, so the batch's noise draws overlap
@@ -350,18 +372,19 @@ __global__ void __launch_bounds__(NT, 3)
             } else if (e < 2 * (R1 - 2) + R2) {  // rows 0 and R1 - 1
               const int r = e - 2 * (R1 - 2);
               a1 = r < R2 / 2 ? 0 : R1 - 1;
-              a2 = 2 * (r % (R2 / 2)) + ((color0 ^ (i + g1 + g2 + a1)) & 1);
+              a2 = 2 * (r % (R2 / 2)) + ((color0 ^ (i + rp + g1 + g2 + a1)) & 1);
             } else {                             // columns 0 and R2 - 1
               const int r = e - 2 * (R1 - 2) - R2;
               a2 = r < (R1 - 2) / 2 ? 0 : R2 - 1;
-              a1 = 1 + 2 * (r % ((R1 - 2) / 2)) + ((1 ^ color0 ^ (i + g1 + g2 + a2)) & 1);
+              a1 = 1 + 2 * (r % ((R1 - 2) / 2)) + ((1 ^ color0 ^ (i + rp + g1 + g2 + a2)) & 1);
             }
           }
           const int j = g1 + a1 - 2, k = g2 + a2 - 2;
           at[u] = a1 * R2 + a2;
           if (F || (in0 && j >= 0 && j < n1 && k >= 0 && k < n2)) {
-            const uint32_t id = ((uint32_t)i * n1 + j) * n2 + k;  // the noise counter
-            const int l = F ? 6 : links_at(i, j, k, n0, n1, n2);
+            const int g = row_offset + i;
+            const uint32_t id = ((uint32_t)g * n1 + j) * n2 + k;  // the noise counter
+            const int l = F ? 6 : links_at(g, j, k, n0g, n1, n2);
             float ax = 0.f;
             if (has_x) {
               const int c = (a1 + 1) * X2 + (a2 + 2);
@@ -369,7 +392,7 @@ __global__ void __launch_bounds__(NT, 3)
             }
             float r = (has_b ? bp[a1 * B2 + (a2 + 2)] : 0.f) - ax;
             if (kNoise) r = r + (F ? n6 : ntab[l]) * pmg::eta<true>(prefix, id);
-            if (((i + j + k) & 1) == color0) r = (F ? w6 : wtab[l]) * r;
+            if (((i + rp + j + k) & 1) == color0) r = (F ? w6 : wtab[l]) * r;
             v[u] = r;
           }
         }
@@ -377,7 +400,7 @@ __global__ void __launch_bounds__(NT, 3)
         for (int u = 0; u < R_PER_THREAD; ++u)
           if (at[u] >= 0) vp[at[u]] = v[u];
       };
-      if (inner && i >= 1 && i <= n0 - 2)
+      if (full(i))
         run(std::true_type{});
       else
         run(std::false_type{});
@@ -388,7 +411,7 @@ __global__ void __launch_bounds__(NT, 3)
     //    only colour-0 neighbours); then x + P z of plane s + 1
     {
       const int i = s - 2;  // planes o_lo - 1 .. o_hi
-      if (i >= o_lo - 1 && i >= 0 && i < n0) {
+      if (i >= o_lo - 1 && i >= vlo && i < vhi) {
         const float* vl = vplane(i - 1);
         float* vm = vplane(i);
         const float* vh = vplane(i + 1);
@@ -404,12 +427,13 @@ __global__ void __launch_bounds__(NT, 3)
             at[u] = -1;
             if (t >= (R1 - 2) * ((R2 - 2) / 2)) continue;
             const int a1 = 1 + t / ((R2 - 2) / 2);
-            const int a2 = 1 + 2 * (t % ((R2 - 2) / 2)) + ((color0 ^ (i + g1 + g2 + a1)) & 1);
+            const int a2 =
+                1 + 2 * (t % ((R2 - 2) / 2)) + ((color0 ^ (i + rp + g1 + g2 + a1)) & 1);
             const int j = g1 + a1 - 2, k = g2 + a2 - 2;
             if (F || (j >= 0 && j < n1 && k >= 0 && k < n2)) {
-              const int c = a1 * R2 + a2;
+              const int c = a1 * R2 + a2, g = row_offset + i;
               at[u] = c;
-              v[u] = (F ? w6 : wtab[links_at(i, j, k, n0, n1, n2)]) *
+              v[u] = (F ? w6 : wtab[links_at(g, j, k, n0g, n1, n2)]) *
                      (vm[c] - neigh(vl, vm, vh, c, R2, q));
             }
           }
@@ -417,7 +441,7 @@ __global__ void __launch_bounds__(NT, 3)
           for (int u = 0; u < Y_PER_THREAD; ++u)
             if (at[u] >= 0) vm[at[u]] = v[u];
         };
-        if (inner && i >= 1 && i <= n0 - 2)
+        if (full(i))
           run(std::true_type{});
         else
           run(std::false_type{});
@@ -442,6 +466,7 @@ __global__ void __launch_bounds__(NT, 3)
       const float* bp = has_b ? bplane(i) : nullptr;
       const int k = g2 + lane;
       float r[2][2], o[2][2];  // [row pair][row of the pair]
+      const bool in4 = i >= vlo && i < vhi;  // else the plane's outputs are 0
       const auto run = [&](auto tag) {
         constexpr bool F = decltype(tag)::value;
         const float d6 = dtab[6];
@@ -449,9 +474,13 @@ __global__ void __launch_bounds__(NT, 3)
         for (int u = 0; u < 2; ++u)
 #pragma unroll
           for (int dj = 0; dj < 2; ++dj) {
-            const int a1 = 2 * (warp + NWARPS * u) + dj, j = g1 + a1;
+            if (!F && !in4) {
+              r[u][dj] = o[u][dj] = 0.f;
+              continue;
+            }
+            const int a1 = 2 * (warp + NWARPS * u) + dj, j = g1 + a1, g = row_offset + i;
             const int cy = (a1 + 2) * R2 + (lane + 2);
-            const float d = F ? d6 : dtab[links_at(i, j, k, n0, n1, n2)];
+            const float d = F ? d6 : dtab[links_at(g, j, k, n0g, n1, n2)];
             float xv = 0.f, ax = 0.f;
             if (has_x) {
               const int cx = (a1 + 3) * X2 + (lane + 4);
@@ -464,7 +493,7 @@ __global__ void __launch_bounds__(NT, 3)
             o[u][dj] = xv + yv;
           }
       };
-      if (inner && i >= 1 && i <= n0 - 2)
+      if (full(i))
         run(std::true_type{});
       else
         run(std::false_type{});
@@ -510,14 +539,19 @@ int launch(const float* x, const float* b, const float* z, float* xpy, float* rc
            float* xsum, float* zsum, int n0, int n1, int n2, int t0, int use_tma,
            float c0lo, float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
            float kappa2, float hinv2, float omega, float nscale, unsigned int prefix,
-           int color0, int with_noise, void* stream) {
+           int color0, int with_noise, int row_offset, int n0g, void* stream) {
   if (n0 <= 0 || n1 <= 0 || n2 <= 0 || (n0 | n1 | n2) & 1 || t0 <= 0 || (t0 & 1) ||
-      (z && !x))
+      (z && !x) || n0g <= 0 || ((row_offset | n0g) & 1))
     return (int)cudaErrorInvalidValue;
+  // the planes inside the global grid (even bounds: whole aggregates)
+  const int vlo = row_offset < 0 ? -row_offset : 0;
+  const int vhi = n0 < n0g - row_offset ? n0 : n0g - row_offset;
+  if (vhi <= vlo || (z && (vlo != 0 || vhi != n0))) return (int)cudaErrorInvalidValue;
+  const size_t skip = (size_t)vlo * n1 * n2;
   CUtensorMap mx, mb, mz;
   if (use_tma) {
-    if (!pmg::encode_planes(&mx, x, n0, n1, n2, X1, X2) ||
-        !pmg::encode_planes(&mb, b, n0, n1, n2, B1, B2) ||
+    if (!pmg::encode_planes(&mx, x ? x + skip : nullptr, vhi - vlo, n1, n2, X1, X2) ||
+        !pmg::encode_planes(&mb, b ? b + skip : nullptr, vhi - vlo, n1, n2, B1, B2) ||
         !pmg::encode_planes(&mz, z, n0 / 2, n1 / 2, n2 / 2, Z1, Z2))
       return (int)cudaErrorInvalidValue;
   } else {
@@ -535,7 +569,8 @@ int launch(const float* x, const float* b, const float* z, float* xpy, float* rc
   const Coeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0,
                                                    use_tma, q, kappa2, hinv2, omega, nscale,
-                                                   (uint32_t)prefix, color0, mx, mb, mz);
+                                                   (uint32_t)prefix, color0, row_offset, n0g,
+                                                   vlo, vhi, mx, mb, mz);
   return (int)cudaGetLastError();
 }
 
@@ -563,10 +598,11 @@ void pmg_chain_march_occupancy(int with_x, int with_b, int with_z, int* out) {
   const float *x, const float *b, const float *z, float *xpy, float *rc, float *xsum,      \
       float *zsum, int n0, int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,    \
       float c1lo, float c1hi, float c2lo, float c2hi, float kappa2, float hinv2,           \
-      float omega, float nscale, unsigned int prefix, int color0, int with_noise, void *stream
+      float omega, float nscale, unsigned int prefix, int color0, int with_noise,           \
+      int row_offset, int n0g, void *stream
 #define PMG_CHAIN_PASS                                                                   \
   x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0, use_tma, c0lo, c0hi, c1lo, c1hi, c2lo, c2hi, \
-      kappa2, hinv2, omega, nscale, prefix, color0, with_noise, stream
+      kappa2, hinv2, omega, nscale, prefix, color0, with_noise, row_offset, n0g, stream
 
 // #5, #4, #3
 int pmg_chain_march(PMG_CHAIN_ARGS) { return launch(PMG_CHAIN_PASS); }

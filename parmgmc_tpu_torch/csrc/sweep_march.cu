@@ -30,6 +30,17 @@
 // the same values whatever the plan, so #9, #8 and #7 (#8 and #6 with the
 // diagonal streamed) agree bit for bit.
 //
+// The array may be a block of a larger grid (a halo-extended shard of
+// parmgmc_tpu_torch/parallel/fused.py): array plane i is global row g =
+// row_offset + i of n0g rows (row_offset = 0, n0g = n0 for a whole grid).
+// The parity, the FD link count and the noise counter follow g.  Planes
+// outside the global grid (the first and last shards' outer halos, vlo
+// and vhi below) are outside the grid: they are streamed as zeros (the
+// tensor maps and copies start at plane vlo), no cell of theirs is
+// updated, and their output is 0; so no cell reads a neighbour across a
+// global end.  For a whole grid nothing changes: the same instructions
+// run on the same values.
+//
 // What bounds it on an H100: device memory by the count, instruction
 // issue in fact.  At 768^3 it reads x and b and writes x' (5.44 GB, 1.62
 // ms at 3.35 TB/s; a streamed D adds 1.81 GB).  Each cell costs 48 float
@@ -108,7 +119,7 @@ __global__ void __launch_bounds__(NT, 3)
                        const float* __restrict__ d, float* __restrict__ out,
                        int n0, int n1, int n2, int t0, int use_tma, pmg::StarCoeffs q,
                        float kappa2, float hinv2, float omega, float nscale,
-                       uint32_t prefix, int color0,
+                       uint32_t prefix, int color0, int row_offset, int n0g, int vlo, int vhi,
                        const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mb,
                        const __grid_constant__ CUtensorMap md) {
@@ -119,6 +130,9 @@ __global__ void __launch_bounds__(NT, 3)
   __shared__ float nstab[7], wtab[7];
   const bool has_b = b != nullptr;
   const int nbox = (int)has_b + (int)kStreamD;  // boxes in a b/D stage
+  // planes vlo .. vhi - 1 lie inside the global grid; loads start there
+  const size_t skip = (size_t)vlo * n1 * n2;
+  const int nin = vhi - vlo;
   float* xs = smem;
   float* bs = xs + NX * XSF;
   float* ys = bs + NB * nbox * BSF;
@@ -150,10 +164,10 @@ __global__ void __launch_bounds__(NT, 3)
       if (use_tma) {
         if (lane == 0) {
           pmg::mbar_expect_tx(&rx.full[u % NX], X1 * X2 * 4);
-          pmg::tma_load_3d(dst, &mx, &rx.full[u % NX], g2 - 4, g1 - 2, p);
+          pmg::tma_load_3d(dst, &mx, &rx.full[u % NX], g2 - 4, g1 - 2, p - vlo);
         }
       } else {
-        pmg::cpasync_box(dst, x, X1, X2, g2 - 4, g1 - 2, p, n0, n1, n2, lane);
+        pmg::cpasync_box(dst, x + skip, X1, X2, g2 - 4, g1 - 2, p - vlo, nin, n1, n2, lane);
         pmg::cpasync_arrive(&rx.full[u % NX]);
       }
       const int v = u - 2, pb = p - 1;  // b/D plane bfirst + v
@@ -164,14 +178,16 @@ __global__ void __launch_bounds__(NT, 3)
       if (use_tma) {
         if (lane == 0) {
           pmg::mbar_expect_tx(bar, nbox * B1 * B2 * 4);
-          if (has_b) pmg::tma_load_3d(bdst, &mb, bar, g2 - 4, g1 - 1, pb);
-          if (kStreamD) pmg::tma_load_3d(bdst + (has_b ? BSF : 0), &md, bar, g2 - 4, g1 - 1, pb);
+          if (has_b) pmg::tma_load_3d(bdst, &mb, bar, g2 - 4, g1 - 1, pb - vlo);
+          if (kStreamD)
+            pmg::tma_load_3d(bdst + (has_b ? BSF : 0), &md, bar, g2 - 4, g1 - 1, pb - vlo);
         }
       } else {
-        if (has_b) pmg::cpasync_box(bdst, b, B1, B2, g2 - 4, g1 - 1, pb, n0, n1, n2, lane);
+        if (has_b)
+          pmg::cpasync_box(bdst, b + skip, B1, B2, g2 - 4, g1 - 1, pb - vlo, nin, n1, n2, lane);
         if (kStreamD)
-          pmg::cpasync_box(bdst + (has_b ? BSF : 0), d, B1, B2, g2 - 4, g1 - 1, pb, n0, n1, n2,
-                           lane);
+          pmg::cpasync_box(bdst + (has_b ? BSF : 0), d + skip, B1, B2, g2 - 4, g1 - 1, pb - vlo,
+                           nin, n1, n2, lane);
         pmg::cpasync_arrive(bar);
       }
     }
@@ -184,18 +200,20 @@ __global__ void __launch_bounds__(NT, 3)
   // and colour 1 on plane i - 1 (o_lo .. o_hi - 1), each thread on cells of
   // the colour being updated only (no divergence between the colours)
   // the cell update; F (compile time): the cell is inside the grid with
-  // 6 links (an inner block's plane 1 .. n0 - 2)
+  // 6 links (an inner block's plane of global row 1 .. n0g - 2)
+  const int rp = row_offset & 1;  // parity of the global row of plane 0
   const auto update = [&](auto tag, float xc, float lo0, float hi0, float lo1, float hi1,
                           float lo2, float hi2, const float* bp, const float* dp, int cb, int i,
                           int j, int k) {
     constexpr bool F = decltype(tag)::value;
-    const uint32_t id = ((uint32_t)i * n1 + j) * n2 + k;  // the noise counter
+    const int g = row_offset + i;
+    const uint32_t id = ((uint32_t)g * n1 + j) * n2 + k;  // the noise counter
     const float bv = has_b ? bp[cb] : 0.f;
     if (kStreamD)
       return pmg::sor_cell(xc, lo0, hi0, lo1, hi1, lo2, hi2, q, dp[cb], bv, omega, nscale,
                            prefix, id, kNoise);
     const int l = F ? 6
-                    : (i >= 1) + (i <= n0 - 2) + (j >= 1) + (j <= n1 - 2) + (k >= 1) +
+                    : (g >= 1) + (g <= n0g - 2) + (j >= 1) + (j <= n1 - 2) + (k >= 1) +
                           (k <= n2 - 2);
     return pmg::sor_cell_pre(xc, lo0, hi0, lo1, hi1, lo2, hi2, q, nstab[l], wtab[l], bv, omega,
                              prefix, id, kNoise);
@@ -203,6 +221,11 @@ __global__ void __launch_bounds__(NT, 3)
   // every row and column of the strip + 1 is inside the grid with both
   // in-plane links
   const bool inner = g1 >= 2 && g1 + T1 + 2 <= n1 && g2 >= 2 && g2 + T2 + 2 <= n2;
+  // plane i of an inner block takes the 6-link path: two axis-0 links in
+  // the global grid (so inside it) and inside the array
+  const auto full = [&](int i) {
+    return inner && i >= vlo && i < vhi && row_offset + i >= 1 && row_offset + i <= n0g - 2;
+  };
   for (int i = o_lo - 1; i <= o_hi; ++i) {
     const int ux = i - xfirst, ub = i - bfirst, uy = i - (o_lo - 1);
     if (i == o_lo - 1) {
@@ -220,7 +243,7 @@ __global__ void __launch_bounds__(NT, 3)
       const float* bp = bs + (ub % NB) * nbox * BSF;
       const float* dp = bp + (has_b ? BSF : 0);
       float* yp = ys + (uy % NY) * (Y1 * Y2);
-      const bool in0 = i >= 0 && i < n0;
+      const bool in0 = i >= vlo && i < vhi;
       const auto run = [&](auto tag) {
         constexpr bool F = decltype(tag)::value;
         float v[C0_PER_THREAD];
@@ -233,7 +256,7 @@ __global__ void __launch_bounds__(NT, 3)
           if ((u + 1) * NCONS <= Y1 * (Y2 / 2) || t < Y1 * (Y2 / 2)) {
             const int a1 = t / (Y2 / 2), h = t - a1 * (Y2 / 2);
             const int j = g1 + a1 - 1;
-            const int a2 = 2 * h + (((i + j + g2 - 1) & 1) ^ color0);
+            const int a2 = 2 * h + (((i + rp + j + g2 - 1) & 1) ^ color0);
             const int k = g2 + a2 - 1;
             at[u] = a1 * Y2 + a2;
             if (F || (in0 && j >= 0 && j < n1 && k >= 0 && k < n2)) {
@@ -247,7 +270,7 @@ __global__ void __launch_bounds__(NT, 3)
         for (int u = 0; u < C0_PER_THREAD; ++u)
           if (at[u] >= 0) yp[at[u]] = v[u];
       };
-      if (inner && i >= 1 && i <= n0 - 2)
+      if (full(i))
         run(std::true_type{});
       else
         run(std::false_type{});
@@ -265,6 +288,7 @@ __global__ void __launch_bounds__(NT, 3)
       const float* bp = bs + ((ub - 1) % NB) * nbox * BSF;
       const float* dp = bp + (has_b ? BSF : 0);
       float v1[C1_PER_THREAD], v0[C1_PER_THREAD];
+      const bool in1 = i1 >= vlo && i1 < vhi;  // else the plane's output is 0
       const auto run = [&](auto tag) {
         constexpr bool F = decltype(tag)::value;
 #pragma unroll
@@ -272,18 +296,18 @@ __global__ void __launch_bounds__(NT, 3)
           const int t = tid + u * NCONS;
           const int a1 = t / (T2 / 2), h = t % (T2 / 2);
           const int j = g1 + a1;
-          const int odd = ((i1 + j) & 1) == color0;  // colour 1 at k = g2 + 2h + odd
+          const int odd = ((i1 + rp + j) & 1) == color0;  // colour 1 at k = g2 + 2h + odd
           const int a2 = 2 * h + odd, k = g2 + a2;
           const int c = (a1 + 1) * Y2 + (a2 + 1);
           v0[u] = ym[c + 1 - 2 * odd];
           v1[u] = 0.f;
-          if (F || (j < n1 && k < n2))
+          if (F || (in1 && j < n1 && k < n2))
             v1[u] = update(tag, xm[(a1 + 2) * X2 + (a2 + 4)], yl[c], yh[c], ym[c - Y2],
                            ym[c + Y2], ym[c - 1], ym[c + 1], bp, dp, (a1 + 1) * B2 + (a2 + 4),
                            i1, j, k);
         }
       };
-      if (inner && i1 >= 1 && i1 <= n0 - 2)
+      if (full(i1))
         run(std::true_type{});
       else
         run(std::false_type{});
@@ -293,7 +317,7 @@ __global__ void __launch_bounds__(NT, 3)
         const int a1 = t / (T2 / 2), h = t % (T2 / 2);
         const int j = g1 + a1, k = g2 + 2 * h;
         if (j >= n1 || k >= n2) continue;
-        const int odd = ((i1 + j) & 1) == color0;
+        const int odd = ((i1 + rp + j) & 1) == color0;
         const float lo = odd ? v0[u] : v1[u], hi = odd ? v1[u] : v0[u];
         float* o = out + ((size_t)i1 * n1 + j) * n2 + k;
         if (k + 1 < n2 && (n2 & 1) == 0) {
@@ -322,14 +346,19 @@ template <bool kStreamD>
 int launch_mode(const float* x, const float* b, const float* d, float* out, int n0, int n1,
                 int n2, int t0, int use_tma, const pmg::StarCoeffs& q, float kappa2,
                 float hinv2, float omega, float nscale, unsigned int prefix, int color0,
-                int with_noise, void* stream) {
+                int with_noise, int row_offset, int n0g, void* stream) {
   const int nbox = (b != nullptr) + (int)kStreamD;
   const int smem = smem_bytes(nbox);
+  // the planes inside the global grid
+  const int vlo = row_offset < 0 ? -row_offset : 0;
+  const int vhi = n0 < n0g - row_offset ? n0 : n0g - row_offset;
+  if (vhi <= vlo) return (int)cudaErrorInvalidValue;
+  const size_t skip = (size_t)vlo * n1 * n2;
   CUtensorMap mx, mb, md;
   if (use_tma) {
-    if (!pmg::encode_planes(&mx, x, n0, n1, n2, X1, X2) ||
-        !pmg::encode_planes(&mb, b, n0, n1, n2, B1, B2) ||
-        !pmg::encode_planes(&md, kStreamD ? d : nullptr, n0, n1, n2, B1, B2))
+    if (!pmg::encode_planes(&mx, x + skip, vhi - vlo, n1, n2, X1, X2) ||
+        !pmg::encode_planes(&mb, b ? b + skip : nullptr, vhi - vlo, n1, n2, B1, B2) ||
+        !pmg::encode_planes(&md, kStreamD ? d + skip : nullptr, vhi - vlo, n1, n2, B1, B2))
       return (int)cudaErrorInvalidValue;
   } else {
     pmg::encode_planes(&mx, nullptr, 0, 0, 0, 0, 0);
@@ -342,20 +371,21 @@ int launch_mode(const float* x, const float* b, const float* d, float* out, int 
   const dim3 grid((n2 + T2 - 1) / T2, (n1 + T1 - 1) / T1, (n0 + t0 - 1) / t0);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, b, d, out, n0, n1, n2, t0, use_tma, q,
                                                    kappa2, hinv2, omega, nscale,
-                                                   (uint32_t)prefix, color0, mx, mb, md);
+                                                   (uint32_t)prefix, color0, row_offset, n0g,
+                                                   vlo, vhi, mx, mb, md);
   return (int)cudaGetLastError();
 }
 
 int launch(const float* x, const float* b, const float* d, float* out, int n0, int n1,
            int n2, int t0, int use_tma, const pmg::StarCoeffs& q, float kappa2, float hinv2,
            float omega, float nscale, unsigned int prefix, int color0, int with_noise,
-           void* stream) {
-  if (n0 <= 0 || n1 <= 0 || n2 <= 0 || t0 <= 0) return (int)cudaErrorInvalidValue;
+           int row_offset, int n0g, void* stream) {
+  if (n0 <= 0 || n1 <= 0 || n2 <= 0 || t0 <= 0 || n0g <= 0) return (int)cudaErrorInvalidValue;
   if (d)
     return launch_mode<true>(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega,
-                             nscale, prefix, color0, with_noise, stream);
+                             nscale, prefix, color0, with_noise, row_offset, n0g, stream);
   return launch_mode<false>(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega,
-                            nscale, prefix, color0, with_noise, stream);
+                            nscale, prefix, color0, with_noise, row_offset, n0g, stream);
 }
 
 }  // namespace
@@ -384,11 +414,11 @@ int pmg_sweep_march_staged(const float* x, const float* b, const float* d, float
                            int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
                            float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
                            float hinv2, float omega, float nscale, unsigned int prefix,
-                           int color0, int with_noise, void* stream) {
+                           int color0, int with_noise, int row_offset, int n0g, void* stream) {
   if (d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, nullptr, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, stream);
+                prefix, color0, with_noise, row_offset, n0g, stream);
 }
 
 // #8: d == nullptr: FD mode (D from kappa2, hinv2), else D is read from d
@@ -396,10 +426,11 @@ int pmg_sweep_march_windowed(const float* x, const float* b, const float* d, flo
                              int n0, int n1, int n2, int t0, int use_tma, float c0lo,
                              float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
                              float kappa2, float hinv2, float omega, float nscale,
-                             unsigned int prefix, int color0, int with_noise, void* stream) {
+                             unsigned int prefix, int color0, int with_noise, int row_offset,
+                             int n0g, void* stream) {
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, stream);
+                prefix, color0, with_noise, row_offset, n0g, stream);
 }
 
 // #7: the full sweep below the plane limit, FD (d must be nullptr)
@@ -407,11 +438,11 @@ int pmg_sweep_march_fd(const float* x, const float* b, const float* d, float* ou
                        int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
                        float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
                        float hinv2, float omega, float nscale, unsigned int prefix, int color0,
-                       int with_noise, void* stream) {
+                       int with_noise, int row_offset, int n0g, void* stream) {
   if (d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, nullptr, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, stream);
+                prefix, color0, with_noise, row_offset, n0g, stream);
 }
 
 // #6: the full sweep below the plane limit, D streamed (d is required)
@@ -419,11 +450,11 @@ int pmg_sweep_march_diag(const float* x, const float* b, const float* d, float* 
                          int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
                          float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
                          float hinv2, float omega, float nscale, unsigned int prefix,
-                         int color0, int with_noise, void* stream) {
+                         int color0, int with_noise, int row_offset, int n0g, void* stream) {
   if (!d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, stream);
+                prefix, color0, with_noise, row_offset, n0g, stream);
 }
 
 }  // extern "C"

@@ -72,15 +72,15 @@ _F = ctypes.c_float
 _U = ctypes.c_uint32
 # the marching sweeps: (x, b, d, out, n0, n1, n2, t0, use_tma, six
 # coefficients, kappa2, hinv2, omega, nscale, prefix, color0, with_noise,
-# stream)
-_MARCH_SWEEP = ([_P] * 4 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I)
+# row_offset, n0_global, stream)
+_MARCH_SWEEP = ([_P] * 4 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _I, _I, _P], _I)
 # the patch sweeps: (x, b, out, n0, n1, n2, kappa2, hinv2, prefixes,
 # with_noise, stream)
 _PATCH = ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I)
 # the marching chain: (x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0,
 # use_tma, six coefficients, kappa2, hinv2, omega, nscale, prefix, color0,
-# with_noise, stream)
-_MARCH_CHAIN = ([_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _P], _I)
+# with_noise, row_offset, n0_global, stream)
+_MARCH_CHAIN = ([_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _I, _I, _P], _I)
 _SIGNATURES = {
     "pmg_chain_march": _MARCH_CHAIN,
     "pmg_chain_march_fd": _MARCH_CHAIN,

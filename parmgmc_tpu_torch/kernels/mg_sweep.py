@@ -31,6 +31,15 @@ card at 256^3; and, for large planes, in that of :func:`chain_plan`,
 required).  Each has its own twin; their xpy/y and rc agree bit for bit
 (the plan moves work, not arithmetic), and the partial sums are one per
 work item of the plan.
+
+Every wrapper takes ``row_offset`` and ``n0_global`` (as the JAX ones
+do): x and b are then the block of rows ``row_offset ..`` of a grid of
+``n0_global`` rows (a halo-extended shard of
+``parmgmc_tpu_torch.parallel.fused``): the parity, the FD link count and
+the noise counter follow the global row, and rows outside the global grid
+read as zeros and come out as zeros (:class:`._twin.Rows`).  Both must be
+even (``rc`` then restricts the global aggregates), and a block of a
+larger grid takes no ``z`` and no partial sums.
 """
 
 from __future__ import annotations
@@ -58,11 +67,16 @@ __all__ = [
     "fused_zero_gibbs_restrict_fd_reference",
 ]
 
-def _check_args(x, b, z, with_zsum):
+def _check_args(x, b, z, with_zsum, rows=None, with_xsum=False):
     if x.ndim != 3 or any(s % 2 for s in x.shape):
         raise ValueError(f"chain kernel needs a 3D grid of even extents, got {tuple(x.shape)}")
-    if x.numel() >= 2**32:
-        raise ValueError("the noise counter is 32-bit: grids need fewer than 2^32 points")
+    rows = rows or _twin.Rows(x.shape[0])
+    rows.check(x.shape[1] * x.shape[2])
+    if not rows.whole:
+        if (rows.offset | rows.n0) & 1:
+            raise ValueError(f"row_offset {rows.offset} and n0_global {rows.n0} must be even")
+        if z is not None or with_xsum or with_zsum:
+            raise ValueError("z and the partial sums take a whole grid, not a block of rows")
     if b is not None and b.shape != x.shape:
         raise ValueError(f"b shape {tuple(b.shape)} != x shape {tuple(x.shape)}")
     zshape = tuple(s // 2 for s in x.shape)
@@ -72,9 +86,20 @@ def _check_args(x, b, z, with_zsum):
         raise ValueError("with_zsum requires z")
 
 
-def _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z):
+def _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z,
+                rows=None):
     """(xpy, rc) of the chain down-phase in plain torch; x = None is the
-    zero state (the from-zero level of :func:`fused_zero_gibbs_restrict_fd`)."""
+    zero state (the from-zero level of :func:`fused_zero_gibbs_restrict_fd`);
+    ``rows`` (a :class:`._twin.Rows`) places the block in the global grid."""
+    like = b if x is None else x
+    rows = rows or _twin.Rows(like.shape[0])
+    return _twin.on_inside(
+        lambda r, x, b, z: _chain_rows(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
+                                       with_noise, z, r),
+        rows, (x, b, z), (1, 0.5))
+
+
+def _chain_rows(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z, rows):
     like = b if x is None else x
     dt, dev = like.dtype, like.device
     shape = tuple(like.shape)
@@ -88,16 +113,16 @@ def _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_nois
         xt = xt + z[:, None, :, None, :, None].expand(
             shape[0] // 2, 2, shape[1] // 2, 2, shape[2] // 2, 2
         ).reshape(shape)
-    D = _twin.fd_diag(shape, kappa2, hinv2, dt, dev)
+    D = _twin.fd_diag(shape, kappa2, hinv2, dt, dev, rows)
     ax = D * xt + neigh(xt)
     r = (0.0 - ax) if b is None else (b - ax)
     rt = r
     if with_noise:
         prefix = _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN)
-        eta = _noise.eta_hash(prefix, _twin.flat_index(shape, dev), dt)
+        eta = _noise.eta_hash(prefix, _twin.flat_index(shape, dev, rows.offset), dt)
         rt = r + (_twin.noise_factor(omega, dt) * torch.sqrt(D)) * eta
     color0 = 0 if sweep == "forward" else 1
-    par = _twin.parity(shape, dev)
+    par = _twin.parity(shape, dev, rows.offset)
     winv = _twin.scalar(omega, dt, dev) / D
     v0 = torch.where(par == color0, winv * rt, rt)
     y = torch.where(par != color0, winv * (v0 - neigh(v0)), v0)
@@ -116,17 +141,21 @@ def _with_sums(xpy, rc, z, tile, with_xsum, with_zsum):
 def fused_chain_down_fd_reference(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+    row_offset=0, n0_global=None,
 ):
     """Plain-torch twin of :func:`fused_chain_down_fd` (any device):
     partial sums per work item of :func:`chain_fd_plan`."""
-    _check_args(x, b, z, with_zsum)
-    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, z, with_zsum, rows, with_xsum)
+    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z,
+                          rows)
     return _with_sums(xpy, rc, z, chain_fd_plan(x.shape).tile, with_xsum, with_zsum)
 
 
 def fused_chain_down_fd(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+    row_offset=0, n0_global=None,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase,
     partial sums per work item of :func:`chain_fd_plan`.
@@ -138,12 +167,14 @@ def fused_chain_down_fd(
         return fused_chain_down_fd_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
             with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
+            row_offset=row_offset, n0_global=n0_global,
         )
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
-    _check_args(x, b, z, with_zsum)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, z, with_zsum, rows, with_xsum)
     return _launch_march("chain_down", x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-                         with_noise, z, with_xsum, with_zsum)
+                         with_noise, z, with_xsum, with_zsum, rows)
 
 
 # -- large planes: the marching kernel (csrc/chain_march.cu) ------------------
@@ -190,38 +221,48 @@ def chain_down_2d_supported(shape) -> bool:
 def fused_chain_down_2d_staged_reference(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+    row_offset=0, n0_global=None,
 ):
     """Plain-torch twin of :func:`fused_chain_down_2d_staged` (any device):
     partial sums per work item of :func:`chain_plan`."""
-    _check_args(x, b, z, with_zsum)
-    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, z, with_zsum, rows, with_xsum)
+    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z,
+                          rows)
     return _with_sums(xpy, rc, z, chain_plan(x.shape).tile, with_xsum, with_zsum)
 
 
 def fused_chain_down_2d_reference(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+    row_offset=0, n0_global=None,
 ):
     """Plain-torch twin of :func:`fused_chain_down_2d` (any device): partial
     sums per work item of :func:`chain_plan`."""
-    _check_args(x, b, z, with_zsum)
-    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, z, with_zsum, rows, with_xsum)
+    xpy, rc = _chain_math(x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, z,
+                          rows)
     return _with_sums(xpy, rc, z, chain_plan(x.shape).tile, with_xsum, with_zsum)
 
 
 def fused_zero_gibbs_restrict_fd_reference(
     b, coeffs, kappa2, hinv2, omega, seed, step, *, sweep="forward", with_noise=True,
+    row_offset=0, n0_global=None,
 ):
     """Plain-torch twin of :func:`fused_zero_gibbs_restrict_fd` (any device)."""
-    _check_args(b, b, None, False)
-    return _chain_math(None, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, None)
+    rows = _twin.Rows(b.shape[0], row_offset, n0_global)
+    _check_args(b, b, None, False, rows)
+    return _chain_math(None, b, coeffs, kappa2, hinv2, omega, seed, step, sweep, with_noise, None,
+                       rows)
 
 
 def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-                  with_noise, z, with_xsum, with_zsum):
+                  with_noise, z, with_xsum, with_zsum, rows):
     """Launch ``csrc/chain_march.cu`` on CUDA tensors, #1 (``counter``
     ``chain_down``) in the geometry of :func:`chain_fd_plan` through its own
-    entry, the others in that of :func:`chain_plan`; count it under
+    entry, the others in that of :func:`chain_plan`, on the rows ``rows``
+    (a :class:`._twin.Rows`) of the global grid; count it under
     ``counter``."""
     like = b if x is None else x
     if sweep not in ("forward", "backward"):
@@ -233,7 +274,10 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
     n0, n1, n2 = like.shape
     fd = counter == "chain_down"
     plan = (chain_fd_plan if fd else chain_plan)(like.shape, with_z=z is not None)
-    tma = plan.tma and all(t.data_ptr() % 16 == 0 for t in (x, b, z) if t is not None)
+    # x and b stream from the first row inside the global grid
+    skip = rows.inside()[0] * n1 * n2 * like.element_size()
+    tma = plan.tma and all((t.data_ptr() + (0 if t is z else skip)) % 16 == 0
+                           for t in (x, b, z) if t is not None)
     nblk = plan.items
     xpy = torch.empty_like(like)
     rc = torch.empty((n0 // 2, n1 // 2, n2 // 2), dtype=like.dtype, device=like.device)
@@ -246,7 +290,7 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
             plan.seg, int(tma), *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _twin.noise_factor(omega),
             _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN),
-            0 if sweep == "forward" else 1, int(with_noise),
+            0 if sweep == "forward" else 1, int(with_noise), rows.offset, rows.n0,
             torch.cuda.current_stream(like.device).cuda_stream,
         )
     kernels.check_launch(err, counter)
@@ -261,6 +305,7 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
 def fused_chain_down_2d_staged(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+    row_offset=0, n0_global=None,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase of
     :func:`fused_chain_down_fd` for large planes, by column strips marching
@@ -275,17 +320,20 @@ def fused_chain_down_2d_staged(
         return fused_chain_down_2d_staged_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
             with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
+            row_offset=row_offset, n0_global=n0_global,
         )
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
-    _check_args(x, b, z, with_zsum)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, z, with_zsum, rows, with_xsum)
     return _launch_march("chain_2d_staged", x, b, coeffs, kappa2, hinv2, omega, seed, step,
-                         sweep, with_noise, z, with_xsum, with_zsum)
+                         sweep, with_noise, z, with_xsum, with_zsum, rows)
 
 
 def fused_chain_down_2d(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
+    row_offset=0, n0_global=None,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): as
     :func:`fused_chain_down_2d_staged`, in the same launch geometry, on its
@@ -298,16 +346,19 @@ def fused_chain_down_2d(
         return fused_chain_down_2d_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
             with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
+            row_offset=row_offset, n0_global=n0_global,
         )
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
-    _check_args(x, b, z, with_zsum)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, z, with_zsum, rows, with_xsum)
     return _launch_march("chain_2d", x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-                         with_noise, z, with_xsum, with_zsum)
+                         with_noise, z, with_xsum, with_zsum, rows)
 
 
 def fused_zero_gibbs_restrict_fd(
     b, coeffs, kappa2, hinv2, omega, seed, step, *, sweep="forward", with_noise=True,
+    row_offset=0, n0_global=None,
 ):
     """(y, rc): one level's down-phase from zero -- y the red/black sweep
     from zero of b~ = b + noise, rc = R(b - A y) -- the chain down-phase
@@ -320,9 +371,11 @@ def fused_zero_gibbs_restrict_fd(
     if b.device.type == "cpu":
         return fused_zero_gibbs_restrict_fd_reference(
             b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep, with_noise=with_noise,
+            row_offset=row_offset, n0_global=n0_global,
         )
     if b.device.type != "cuda":
         raise ValueError(f"no zero-start level kernel for device {b.device}")
-    _check_args(b, b, None, False)
+    rows = _twin.Rows(b.shape[0], row_offset, n0_global)
+    _check_args(b, b, None, False, rows)
     return _launch_march("zero_restrict", None, b, coeffs, kappa2, hinv2, omega, seed, step,
-                         sweep, with_noise, None, False, False)
+                         sweep, with_noise, None, False, False, rows)

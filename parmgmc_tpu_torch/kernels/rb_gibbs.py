@@ -11,7 +11,12 @@ star stencil with the six scalar off-diagonals ``coeffs`` ordered
         x_r <- (1 - omega) x_r + (omega / D_r) (b~_r - sum_nbr c x_nbr)
 
 with parity (i + j + k) % 2 and c0 = 0 for ``sweep="forward"``, 1 for
-``"backward"``.  eta is the counter-hash draw of :mod:`._noise` keyed by
+``"backward"``.  The FD wrappers (#7, #8, #9) take ``row_offset`` and
+``n0_global`` (as the JAX ones do): x is then the block of rows
+``row_offset ..`` of a grid of ``n0_global`` rows (a halo-extended shard of
+``parmgmc_tpu_torch.parallel.fused``): the parity, the FD link count and
+the noise counter follow the global row, and rows outside the global grid
+read as zeros and come out as zeros (:class:`._twin.Rows`).  eta is the counter-hash draw of :mod:`._noise` keyed by
 (seed, step, :data:`~._noise.SWEEP_DOMAIN`, flat index); the TPU kernels'
 row-keyed hardware PRNG has no counterpart.
 
@@ -65,11 +70,10 @@ def _color0(sweep: str) -> int:
     return 0 if sweep == "forward" else 1
 
 
-def _check_args(x, b, diag):
+def _check_args(x, b, diag, rows=None):
     if x.ndim != 3:
         raise ValueError(f"sweep kernel needs a 3D grid, got {tuple(x.shape)}")
-    if x.numel() >= 2**32:
-        raise ValueError("the noise counter is 32-bit: grids need fewer than 2^32 points")
+    (rows or _twin.Rows(x.shape[0])).check(x.shape[1] * x.shape[2])
     for name, t in (("b", b), ("diag", diag)):
         if t is not None and t.shape != x.shape:
             raise ValueError(f"{name} shape {tuple(t.shape)} != x shape {tuple(x.shape)}")
@@ -82,7 +86,16 @@ def _nscale(omega, noise_mult, dtype=torch.float32) -> float:
     return _twin.f32(_twin.noise_factor(omega, dtype) * _twin.f32(noise_mult))
 
 
-def _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise):
+def _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise,
+                     rows=None):
+    rows = rows or _twin.Rows(x.shape[0])
+    return _twin.on_inside(
+        lambda r, x, b, D: _sweep_rows(x, b, D, coeffs, omega, seed, step, noise_mult, sweep,
+                                       with_noise, r),
+        rows, (x, b, D), (1,))
+
+
+def _sweep_rows(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise, rows):
     color0 = _color0(sweep)
     dt, dev = x.dtype, x.device
     shape = tuple(x.shape)
@@ -90,9 +103,9 @@ def _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with
     bt = torch.zeros_like(x) if b is None else b
     if with_noise:
         prefix = _noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN)
-        eta = _noise.eta_hash(prefix, _twin.flat_index(shape, dev), dt)
+        eta = _noise.eta_hash(prefix, _twin.flat_index(shape, dev, rows.offset), dt)
         bt = bt + (_nscale(omega, noise_mult, dt) * torch.sqrt(D)) * eta
-    par = _twin.parity(shape, dev)
+    par = _twin.parity(shape, dev, rows.offset)
     om = _twin.scalar(omega, dt, dev)
     for color in (color0, 1 - color0):
         upd = (1.0 - om) * x + (om / D) * (bt - _twin.star_neigh(x, c))
@@ -102,12 +115,14 @@ def _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with
 
 def fused_rb_gibbs_sweep_fd_reference(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True,
+    sweep="forward", with_noise=True, row_offset=0, n0_global=None,
 ):
     """Plain-torch twin of :func:`fused_rb_gibbs_sweep_fd` (any device)."""
-    _check_args(x, b, None)
-    D = _twin.fd_diag(tuple(x.shape), kappa2, hinv2, x.dtype, x.device)
-    return _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, None, rows)
+    D = _twin.fd_diag(tuple(x.shape), kappa2, hinv2, x.dtype, x.device, rows)
+    return _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise,
+                            rows)
 
 
 def fused_rb_gibbs_sweep_reference(
@@ -141,21 +156,26 @@ def _full_sweep_plan(shape) -> _march.MarchPlan:
 
 
 def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sweep,
-            with_noise, counter, entry, plan):
+            with_noise, counter, entry, plan, rows=None):
     """Launch the C function ``entry`` (an entry point of
     ``csrc/sweep_march.cu``) on CUDA tensors in the geometry of ``plan``
-    (a :class:`_march.MarchPlan`); count it under ``counter``."""
+    (a :class:`_march.MarchPlan`), on the rows ``rows`` (a
+    :class:`._twin.Rows`; the whole grid when None) of the global grid;
+    count it under ``counter``."""
     if x.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {x.device}")
     color0 = _color0(sweep)
-    _check_args(x, b, diag)
+    rows = rows or _twin.Rows(x.shape[0])
+    _check_args(x, b, diag, rows)
     for name, t in (("x", x), ("b", b), ("diag", diag)):
         if t is not None:
             kernels.check_input(name, t, x)
     lib = kernels.lib()
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()
-    aligned = all(t.data_ptr() % 16 == 0 for t in (x, b, diag) if t is not None)
+    # the kernel streams from the first row inside the global grid
+    skip = rows.inside()[0] * x.shape[1] * x.shape[2] * x.element_size()
+    aligned = all((t.data_ptr() + skip) % 16 == 0 for t in (x, b, diag) if t is not None)
     geometry = (plan.seg, int(plan.tma and aligned))
     with torch.cuda.device(x.device):
         err = getattr(lib, entry)(
@@ -163,7 +183,8 @@ def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sw
             *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _nscale(omega, noise_mult),
             _noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN),
-            color0, int(with_noise), torch.cuda.current_stream(x.device).cuda_stream,
+            color0, int(with_noise), rows.offset, rows.n0,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check_launch(err, counter)
     return out
@@ -175,29 +196,32 @@ def _large_plane(x) -> bool:
 
 def fused_rb_gibbs_sweep_fd(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True,
+    sweep="forward", with_noise=True, row_offset=0, n0_global=None,
 ):
     """x': one stochastic red/black sweep of the link-count FD operator
-    (kappa2, hinv2) with off-diagonals ``coeffs``.
+    (kappa2, hinv2) with off-diagonals ``coeffs``; x holds rows
+    ``row_offset ..`` of a grid of ``n0_global`` rows (default: the whole
+    grid).
 
     Planes over :data:`_PLANE_LIMIT` points go to
-    :func:`fused_rb_gibbs_sweep_2d` (#9 for this FD form).  Otherwise CPU
-    tensors run :func:`fused_rb_gibbs_sweep_fd_reference`; CUDA tensors
-    launch ``csrc/sweep_march.cu`` in FD mode (float32, contiguous) or
-    raise."""
+    :func:`fused_rb_gibbs_sweep_2d` (#9 for this FD form), with the two
+    row arguments.  Otherwise CPU tensors run
+    :func:`fused_rb_gibbs_sweep_fd_reference`; CUDA tensors launch
+    ``csrc/sweep_march.cu`` in FD mode (float32, contiguous) or raise."""
     if _large_plane(x):
         return fused_rb_gibbs_sweep_2d(
             x, b, None, coeffs, omega, seed, step, noise_mult, sweep=sweep,
-            with_noise=with_noise, fd_params=(kappa2, hinv2),
+            with_noise=with_noise, fd_params=(kappa2, hinv2), row_offset=row_offset,
+            n0_global=n0_global,
         )
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_fd_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
-            sweep=sweep, with_noise=with_noise,
+            sweep=sweep, with_noise=with_noise, row_offset=row_offset, n0_global=n0_global,
         )
     return _launch(x, b, None, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs_fd", "pmg_sweep_march_fd",
-                   full_sweep_plan(x.shape))
+                   full_sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global))
 
 
 def fused_rb_gibbs_sweep(
@@ -238,7 +262,7 @@ def _fd_pair(fd_params) -> tuple:
 
 def fused_rb_gibbs_sweep_2d_reference(
     x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True, fd_params=None,
+    sweep="forward", with_noise=True, fd_params=None, row_offset=0, n0_global=None,
 ):
     """Plain-torch twin of :func:`fused_rb_gibbs_sweep_2d` (any device): the
     function of :func:`fused_rb_gibbs_sweep_fd_reference` when ``fd_params``
@@ -246,17 +270,19 @@ def fused_rb_gibbs_sweep_2d_reference(
     with ``diag`` when not."""
     if (diag is None) == (fd_params is None):
         raise ValueError("the 2D sweep takes exactly one of diag and fd_params")
-    _check_args(x, b, diag)
+    rows = _twin.Rows(x.shape[0], row_offset, n0_global)
+    _check_args(x, b, diag, rows)
     if fd_params is None:
         D = diag
     else:
-        D = _twin.fd_diag(tuple(x.shape), *_fd_pair(fd_params), x.dtype, x.device)
-    return _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise)
+        D = _twin.fd_diag(tuple(x.shape), *_fd_pair(fd_params), x.dtype, x.device, rows)
+    return _sweep_reference(x, b, D, coeffs, omega, seed, step, noise_mult, sweep, with_noise,
+                            rows)
 
 
 def fused_rb_gibbs_sweep_2d_staged_reference(
     x, b, coeffs, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True, fd_params=None,
+    sweep="forward", with_noise=True, fd_params=None, row_offset=0, n0_global=None,
 ):
     """Plain-torch twin of :func:`fused_rb_gibbs_sweep_2d_staged` (any
     device)."""
@@ -264,13 +290,14 @@ def fused_rb_gibbs_sweep_2d_staged_reference(
         raise ValueError("the staged 2D sweep is FD-form only: fd_params is required")
     return fused_rb_gibbs_sweep_2d_reference(
         x, b, None, coeffs, omega, seed, step, noise_mult, sweep=sweep,
-        with_noise=with_noise, fd_params=fd_params,
+        with_noise=with_noise, fd_params=fd_params, row_offset=row_offset, n0_global=n0_global,
     )
 
 
 def fused_rb_gibbs_sweep_2d(
     x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True, fd_params=None, staged=True,
+    sweep="forward", with_noise=True, fd_params=None, staged=True, row_offset=0,
+    n0_global=None,
 ):
     """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` (``fd_params`` =
     (kappa2, hinv2), ``diag`` None) or of :func:`fused_rb_gibbs_sweep`
@@ -282,29 +309,33 @@ def fused_rb_gibbs_sweep_2d(
     function auto-routes them; the staged kernel takes every 3D shape, so
     the JAX tile probe has no counterpart.  ``staged=False`` keeps an FD
     call on this entry point and counter (the JAX ``tile2d=`` call of
-    ``bench.py --selftest-staged``).  CPU tensors run the twin; CUDA tensors launch
-    ``csrc/sweep_march.cu`` (float32, contiguous) or raise."""
+    ``bench.py --selftest-staged``).  ``row_offset``/``n0_global`` as for
+    :func:`fused_rb_gibbs_sweep_fd`, forwarded to #9.  CPU tensors run the
+    twin; CUDA tensors launch ``csrc/sweep_march.cu`` (float32, contiguous)
+    or raise."""
     if (diag is None) == (fd_params is None):
         raise ValueError("the 2D sweep takes exactly one of diag and fd_params")
     if fd_params is not None and staged:
         return fused_rb_gibbs_sweep_2d_staged(
             x, b, coeffs, omega, seed, step, noise_mult, sweep=sweep,
-            with_noise=with_noise, fd_params=fd_params,
+            with_noise=with_noise, fd_params=fd_params, row_offset=row_offset,
+            n0_global=n0_global,
         )
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_2d_reference(
             x, b, diag, coeffs, omega, seed, step, noise_mult, sweep=sweep,
-            with_noise=with_noise, fd_params=fd_params,
+            with_noise=with_noise, fd_params=fd_params, row_offset=row_offset,
+            n0_global=n0_global,
         )
     kappa2, hinv2 = (0.0, 0.0) if fd_params is None else _fd_pair(fd_params)
     return _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs_2d", "pmg_sweep_march_windowed",
-                   sweep_plan(x.shape))
+                   sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global))
 
 
 def fused_rb_gibbs_sweep_2d_staged(
     x, b, coeffs, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True, fd_params=None,
+    sweep="forward", with_noise=True, fd_params=None, row_offset=0, n0_global=None,
 ):
     """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` with ``fd_params`` =
     (kappa2, hinv2) for large planes, by column strips marching down
@@ -312,7 +343,8 @@ def fused_rb_gibbs_sweep_2d_staged(
     :func:`fused_rb_gibbs_sweep_2d` and #7.
 
     Port of ``parmgmc_tpu/kernels/rb_gibbs.py::fused_rb_gibbs_sweep_2d_staged``
-    (FD only: raises without ``fd_params``).  CPU tensors run the twin;
+    (FD only: raises without ``fd_params``).  ``row_offset``/``n0_global``
+    as for :func:`fused_rb_gibbs_sweep_fd`.  CPU tensors run the twin;
     CUDA tensors launch ``csrc/sweep_march.cu`` (float32, contiguous) or
     raise."""
     if fd_params is None:
@@ -320,8 +352,9 @@ def fused_rb_gibbs_sweep_2d_staged(
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_2d_staged_reference(
             x, b, coeffs, omega, seed, step, noise_mult, sweep=sweep,
-            with_noise=with_noise, fd_params=fd_params,
+            with_noise=with_noise, fd_params=fd_params, row_offset=row_offset,
+            n0_global=n0_global,
         )
     return _launch(x, b, None, coeffs, *_fd_pair(fd_params), omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs_2d_staged", "pmg_sweep_march_staged",
-                   sweep_plan(x.shape))
+                   sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global))

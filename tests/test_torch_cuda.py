@@ -21,7 +21,10 @@ the plain chain (1e-3, relative max-norm), with its launches; the linear
 hierarchy's Galerkin levels against R A P (1e-5), and its keyed cycles'
 launches (fault F3: no chain kernel); the structured Matérn façade's
 launches (one #1 and one #2 a chain step) and ``chain.multi_chain`` bit
-for bit against separate chains.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+for bit against separate chains; the kernels on halo-extended blocks with
+``row_offset``/``n0_global`` (#7, #8, #9, #1, #4, #5, #3) against their
+twins and bit for bit the full-grid kernel's rows, and the sharded MGMC
+step's launches on two slots of one card.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -571,3 +574,89 @@ def test_multi_chain_is_separate_chains_on_the_card(dev):
     for c in range(3):
         st_c, q_c = sample_chain(smp, ChainState(x=x0[c], key=ks[c]), None, 4, extract=torch.mean)
         assert torch.equal(st.x[c], st_c.x) and torch.equal(q[c], q_c)
+
+
+def _rows_block(a, lo, hi, h):
+    """Rows lo - h .. hi + h of a as a fresh tensor, zero rows beyond its
+    ends: the halo-extended block of rows lo .. hi."""
+    pad = a.new_zeros((h, *a.shape[1:]))
+    return torch.cat([pad, a, pad])[lo : hi + 2 * h].contiguous()
+
+
+# (shape, block rows): TMA rows (n2 % 4 == 0) and cp.async rows, the first,
+# an inner and the last block
+@pytest.mark.parametrize("shape", [(32, 24, 96), (24, 10, 34)])
+def test_kernels_on_shards_match_twins_and_full_grid(dev, shape):
+    """#7 (and #8/#9), #1 (and #4/#5) and #3 on halo-extended blocks with
+    row_offset / n0_global, noise on: against their twins on the same
+    block (1e-4), and the kept rows bit for bit the full-grid kernel."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x, b = (torch.randn(*shape, generator=g, device=dev) for _ in range(2))
+    n0 = shape[0]
+    h2 = float((n0 - 1) ** 2)
+    coeffs = [-h2] * 6
+    fd = (1.0, h2)
+    for lo, hi in ((0, 8), (8, 16), (n0 - 8, n0)):
+        for h, kind in ((2, "sweep"), (4, "chain"), (2, "zero")):
+            xe, be = _rows_block(x, lo, hi, h), _rows_block(b, lo, hi, h)
+            kw = dict(row_offset=lo - h, n0_global=n0)
+            if kind == "sweep":
+                calls = [
+                    (fused_rb_gibbs_sweep_fd, fused_rb_gibbs_sweep_fd_reference,
+                     (coeffs, *fd, 1.2, 3, 5), {}),
+                    (lambda *a, **k: fused_rb_gibbs_sweep_2d(*a, staged=False, **k),
+                     fused_rb_gibbs_sweep_2d_reference, (None, coeffs, 1.2, 3, 5),
+                     dict(fd_params=fd)),
+                    (fused_rb_gibbs_sweep_2d_staged, fused_rb_gibbs_sweep_2d_staged_reference,
+                     (coeffs, 1.2, 3, 5), dict(fd_params=fd)),
+                ]
+                for fn, ref, args, extra in calls:
+                    got = fn(xe, be, *args, sweep="backward", **extra, **kw)
+                    assert _rel(got, ref(xe, be, *args, sweep="backward", **extra, **kw)) <= 1e-4
+                    full = fn(x, b, *args, sweep="backward", **extra)
+                    assert torch.equal(got[h:-h], full[lo:hi]), (ref.__name__, lo)
+            elif kind == "chain":
+                args = (coeffs, *fd, 1.1, 7, 9)
+                for fn, ref in ((fused_chain_down_fd, fused_chain_down_fd_reference),
+                                (fused_chain_down_2d, fused_chain_down_2d_reference),
+                                (fused_chain_down_2d_staged, fused_chain_down_2d_staged_reference)):
+                    got = fn(xe, be, *args, **kw)
+                    want = ref(xe, be, *args, **kw)
+                    assert max(_rel(a, w) for a, w in zip(got, want)) <= 1e-4, fn.__name__
+                    full = fn(x, b, *args)
+                    assert torch.equal(got[0][h:-h], full[0][lo:hi]), (fn.__name__, lo)
+                    assert torch.equal(got[1][h // 2 : -h // 2], full[1][lo // 2 : hi // 2])
+            else:
+                args = (coeffs, *fd, 1.1, 7, 9)
+                got = fused_zero_gibbs_restrict_fd(be, *args, **kw)
+                want = fused_zero_gibbs_restrict_fd_reference(be, *args, **kw)
+                assert max(_rel(a, w) for a, w in zip(got, want)) <= 1e-4
+                full = fused_zero_gibbs_restrict_fd(b, *args)
+                assert torch.equal(got[0][h:-h], full[0][lo:hi])
+                assert torch.equal(got[1][1:-1], full[1][lo // 2 : hi // 2])
+
+
+def test_sharded_step_launches_on_two_slots(dev):
+    """make_sharded_mgmc_step on two slots of one card, (32, 8, 256), 3
+    levels, min_local=4: levels 0 and 1 sharded, so two #1 and two #3
+    launches a step and no other kernel; the noise-on bits equal the
+    one-slot step's."""
+    from parmgmc_tpu_torch.parallel.fused import make_sharded_mgmc_step
+    from parmgmc_tpu_torch.parallel.mesh import make_mesh, shard_array, unshard
+
+    smp = MGMCSampler.create(shifted_laplace_fd((32, 8, 256), 1.0, device=dev), n_levels=3,
+                             n_pre=1, n_post=0, coarsening="aggregate")
+    x = torch.randn(32, 8, 256, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    outs = []
+    for n in (1, 2):
+        mesh = make_mesh((n,), devices=["cuda:0"] * n)
+        step = make_sharded_mgmc_step(smp, mesh, min_local=4)
+        kernels.reset_launch_counts()
+        key, xs = 5, shard_array(x, mesh)
+        for _ in range(3):
+            key, xs = step(key, xs, None)
+        counts = kernels.launch_counts()
+        assert counts == dict(dict.fromkeys(counts, 0), chain_down=3 * n, zero_restrict=3 * n), counts
+        outs.append(unshard(xs))
+    assert torch.equal(outs[0], outs[1])
+    assert bool(torch.isfinite(outs[0]).all())

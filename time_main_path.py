@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 time_main_path.py --trees OLD NEW --pairs 4 \\
         [--drive 256-v10 256-post 256-v22 256-v22-linear 768-v10 768-v22 patch-256 patch-128 kernels
-                 wrench-post wrench-post-256 wrench4-prior matern-256 ex7-256]
+                 wrench-post wrench-post-256 wrench4-prior matern-256 ex7-256 sharded-256]
         [--out FILE]
 
 Each run is its own process, so every checkout imports its own
@@ -61,6 +61,15 @@ linear drive; b = None but on the posterior drive):
   ``check_every=50``, ``method="rank"``, overdispersion 1e3, ``seed`` the
   window's index: the wall seconds of the whole flow and the steps a chain
   it took to converge, a window each;
+* ``sharded-256``: ``chip_smoke.py`` phase 29's sharded path,
+  ``parallel.fused.make_sharded_mgmc_step`` on gmrf_3d(256)'s aggregate
+  V(1,0) sampler (b = None) on S = 1, 2 and 4 slots (distinct cards where
+  the machine has S, else S slots on cuda:0), beside the unsharded
+  ``MGMCSampler.step`` (``sample_chain``, #1 and #2): 8 warm-up steps, then
+  windows of 64 steps; ms a step, the device busy time of one step queued
+  behind a sleeping kernel, the idle share, and ms a step over the
+  unsharded step's (the machinery overhead of
+  ``examples/probe_sharded_overhead.py``);
 * ``kernels``: device ms per call of the 256^3 main path's two kernels,
   queued behind a sleeping kernel (``device_ms``): #1 at 256^3 (b = None,
   z, both sums, noise; also at 128^3 and (16, 24, 96)) and #2 over the
@@ -108,7 +117,7 @@ import time
 
 DRIVES = ("256-v10", "256-post", "256-v22", "256-v22-linear", "768-v10", "768-v22", "patch-256", "patch-128",
           "wrench-post", "wrench-post-256", "wrench4-prior", "matern-256", "ex7-256", "kernels",
-          "chain-plans", "sweep-plans", "patch-kernels")
+          "chain-plans", "sweep-plans", "patch-kernels", "sharded-256")
 DEV = "cuda"
 N_MAIN = 256
 N_BIG = 768
@@ -124,6 +133,8 @@ MESH_CHAINS = {"wrench-post": (3, True, 1, 8, 128), "wrench-post-256": (3, True,
 WRENCH_PRESET = "examples/benchmark/wrench.json"
 # the structured Matérn drives: warm-up steps, steps a window (matern-256)
 MATERN = (16, 512)
+# the sharded drive: slot counts, warm-up steps, steps a window
+SHARDED = ((1, 2, 4), 8, 64)
 AGGREGATE_V10 = dict(n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
 
 
@@ -295,6 +306,62 @@ def time_matern(torch, drive, repeats):
     busy = device_ms(torch, lambda: ms.sample(n_win), 2) / n_win
     return {f"{drive} ms/step": out, f"{drive} device busy ms/step": [busy],
             f"{drive} idle share": [max(0.0, 1.0 - busy / statistics.median(out))]}
+
+
+def time_sharded(torch, repeats):
+    """{metric: [numbers]}: the sharded 256^3 V(1,0) step on 1, 2 and 4
+    slots beside the unsharded keyed step (ms a step, device busy ms a
+    step, idle share, ratio to the unsharded step)."""
+    from parmgmc_tpu_torch.chain import init_chain, sample_chain
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.parallel.fused import make_sharded_mgmc_step
+    from parmgmc_tpu_torch.parallel.mesh import make_mesh, shard_array
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    counts, warm, steps = SHARDED
+    smp = MGMCSampler.create(gmrf_3d(N_MAIN, kappa=1.0, device=DEV), **AGGREGATE_V10)
+
+    def windows(run):
+        run(warm)
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            run(steps)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) / steps * 1e3)
+        return out
+
+    st = [init_chain(smp, 0)]
+
+    def plain(k):
+        st[0], _ = sample_chain(smp, st[0], None, k)
+
+    res = {"sharded-256 unsharded ms/step": windows(plain)}
+    busy = device_ms(torch, lambda: smp.step(1, st[0].x, None), 2)
+    res["sharded-256 unsharded device busy ms/step"] = [busy]
+    base = statistics.median(res["sharded-256 unsharded ms/step"])
+    for n in counts:
+        devices = [f"cuda:{i}" for i in range(n)] if torch.cuda.device_count() >= n else ["cuda:0"] * n
+        mesh = make_mesh((n,), devices=devices)
+        step = make_sharded_mgmc_step(smp, mesh)
+        xs = [shard_array(st[0].x, mesh)]
+
+        def run(k):
+            key = 1
+            for _ in range(k):
+                key, xs[0] = step(key, xs[0], None)
+
+        out = windows(run)
+        if not all(bool(torch.isfinite(x).all()) for x in xs[0]):
+            raise RuntimeError(f"sharded-256: the {n}-slot state is not finite")
+        busy = device_ms(torch, lambda: step(1, xs[0], None), 2)
+        med = statistics.median(out)
+        res[f"sharded-256 S={n} ms/step"] = out
+        res[f"sharded-256 S={n} device busy ms/step"] = [busy]
+        res[f"sharded-256 S={n} idle share"] = [max(0.0, 1.0 - busy / med)]
+        res[f"sharded-256 S={n} / unsharded"] = [t / base for t in out]
+    return res
 
 
 def device_ms(torch, fn, n=20):
@@ -612,6 +679,8 @@ def run_one(root, drives, repeats):
             res.update(time_mesh_chain(torch, root, drive, repeats))
         elif drive in ("matern-256", "ex7-256"):
             res.update(time_matern(torch, drive, repeats))
+        elif drive == "sharded-256":
+            res.update(time_sharded(torch, repeats))
         else:
             res.update(time_chain(torch, drive, repeats))
         torch.cuda.empty_cache()
