@@ -264,10 +264,38 @@ Phases, in order; any failure raises and exits non-zero:
               on 4 slots, one step in each halo mode: the frozen step's
               block interiors (two rows in from each block edge) equal the
               exact step's.
+30. the sharded wrench -- parallel.graph_sharded on 1, 2 and 4 slots
+              with phase 23's refine-3 posterior (float64), refine-3 prior
+              (float32) and refine-4 prior (float64): each partition's rows
+              a slot, colours, nbr_shifts and ghost rows received; the
+              deterministic sharded MGMC step against the unsharded
+              step_with_noise with zero noises (1e-10 relative in float64,
+              5e-5 in float32); "neighbor" and "allgather" ghosts agree at
+              4 slots (1e-12); 256 chains chain-major of the posterior on 4
+              slots through phase 24's gates (16 burn-in, 96 recorded
+              steps: QOI mean within 4 SE, variance / exact in (0.8, 1.25));
+              ms a step with 256 chains at S = 1, 2, 4 beside the unsharded
+              step (medians of three 32-step windows), device busy (the
+              profiler's kernel time) and the idle share; no port kernel.
+31. shard_sampler -- ex13's structured weak-scaling configuration at
+              --base 128: shifted_laplace_fd((128 S, 128, 128), 1), float32,
+              MGMC V(1,1), coarsest 128, grid_axes ("x", None, None), on S =
+              1, 2, 4 slots: step_with_noise against the unsharded one under
+              the same noises (1e-5), the keyed step bit for bit the
+              unsharded plain (lax_variant) keyed step, ms a step (median of
+              three windows of 8 steps) beside the unsharded plain step,
+              device busy (profiler) and idle share; one keyed step of the README quick
+              start at 256^3 (linear V(2,2)) on 4 slots against the
+              unsharded plain step (1e-5); no port kernel.
+32. the dry run -- parallel.dryrun.dryrun_multichip(4) on 4 slots of
+              cuda:0: shard_sampler on a (chain, x) mesh, the sharded chain
+              kernels (prior and posterior, 5e-5), the frozen-halo step
+              (1e-5), the row-partitioned mesh MGMC (prior and posterior,
+              5e-5); its kernel launches.
 
 Each phase prints its wall time.  The last lines are the kernels' JSON
 record (launches from the main paths that run each kernel: phases 6, 26,
-27 and 29 for the chain kernel, 6, 26 and 27 for the tail kernel, phases 8 and 22 for the FD sweep, phase 9 for the
+27, 29 and 32 for the chain kernel, 6, 26 and 27 for the tail kernel, phases 8 and 22 for the FD sweep, phase 9 for the
 streamed sweep, phase 12 for the patch sweeps, phase 14 for #4, phases 15
 and 29 for #3, phase 15 for #5, phase 18 for #9 and #8; bound_ms from this run's shapes
 at the card's published peaks), the card as nvidia-smi prints it, and
@@ -336,6 +364,12 @@ SHARDS_MAX = 4
 N_SHARD_TIME = 64
 N_SHARD_QOI = 512
 SHARD_VAR_GATE = 0.3  # var(QOI) in exact * (1 +- 0.3) at 512 draws, as phase 26
+# phases 30 and 31: the sharded wrench (windows of 32 steps) and
+# shard_sampler on ex13's weak-scaling grids (128 S, 128, 128)
+N_SHARD_GRAPH = 32
+SHARD_BASE = 128
+N_SHARD_SAMPLER = 8
+SHARD_WINDOWS = 3
 # the reference's relative sample-mean error bound is 0.02-0.10 (BASELINE.md):
 # the strict end; one posterior sample is ~0.41 |mu| away from the mean in
 # 2-norm (the exact law), so 256 x 96 samples expect ~0.003
@@ -418,6 +452,16 @@ def device_ms(torch, fn, n):
     """(device ms per call, {kernel name: device ms per call}) of fn over
     n calls after one warm-up: the profiler's summed device time of every
     kernel fn launched (host launch gaps excluded)."""
+    total, per = profiled_ms(torch, fn, n)
+    check(total > 0, "the profiler saw no device time")
+    return total, per
+
+
+def profiled_ms(torch, fn, n):
+    """:func:`device_ms`, (0.0, {}) where the profiler saw no device time.
+    Times steps of more launches than the launch queue holds, which
+    :func:`queued_ms` cannot: the host blocks behind the sleeping kernel
+    and its window times the host."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -431,9 +475,7 @@ def device_ms(torch, fn, n):
         if a.device_type == torch.autograd.DeviceType.CUDA and a.self_device_time_total > 0:
             name = a.key.replace("(anonymous namespace)::", "")[:72]
             per[name] = per.get(name, 0.0) + a.self_device_time_total / 1e3 / n
-    total = sum(per.values())
-    check(total > 0, "the profiler saw no device time")
-    return total, per
+    return sum(per.values()), per
 
 
 def phase_kernels(torch, dev, main_smp, v22_smp):
@@ -2109,7 +2151,7 @@ def phase_mesh_gates(torch, preset, post, prior32):
     q, dt, _ = chain_major(torch, patch, None, w2_int, C, N_PATCH_BURNIN, N_PATCH_GATE)
     qoi_gates(torch, "refine-2 prior (graph patch Gibbs)", q, 0.0, var2)
     print(f"  graph patch Gibbs, {C} chains: {dt / N_PATCH_GATE * 1e3:.4f} ms/sweep")
-    return w, var_q
+    return w, mu_q, var_q
 
 
 def ops_per_step(torch, fn, steps):
@@ -2494,12 +2536,12 @@ def slot_devices(torch, n):
     return ["cuda:0"] * n
 
 
-def zero_tree(torch, shapes, dev):
+def zero_tree(torch, shapes, dev, dtype=None):
     if isinstance(shapes, tuple):
-        return torch.zeros(shapes, device=dev)
+        return torch.zeros(shapes, device=dev, dtype=dtype)
     if isinstance(shapes, dict):
-        return {k: zero_tree(torch, v, dev) for k, v in shapes.items()}
-    return [zero_tree(torch, v, dev) for v in shapes]
+        return {k: zero_tree(torch, v, dev, dtype) for k, v in shapes.items()}
+    return [zero_tree(torch, v, dev, dtype) for v in shapes]
 
 
 def sharded_qoi_chain(torch, step, xs, b, n_burn, n):
@@ -2684,6 +2726,206 @@ def phase_sharded_path(torch, dev, smi):
     print(f"  phase 29 wall {time.perf_counter() - t_start:.1f} s")
     return counts
 
+def busy_text(busy, ms):
+    """The device busy time a step and the idle share, or "not measured"."""
+    if busy <= 0:
+        return "device busy not measured (the profiler saw no device time)"
+    return f"device busy {busy:.4f} ms, idle share ~{max(0.0, 1.0 - busy / ms):.3f}"
+
+
+def median_ms(torch, run, steps, windows=3):
+    """Median wall ms a step of ``run(steps)`` over ``windows`` windows."""
+    ts = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) / steps * 1e3)
+    return sorted(ts)[len(ts) // 2]
+
+
+def phase_graph_sharded(torch, dev, smi, post, prior32, prior4, w, mu_q, var_q):
+    """Phase 30: the row-partitioned wrench (parallel.graph_sharded) on 1, 2
+    and 4 slots: partitions, the deterministic step against the unsharded
+    one, the ghost modes, the 256-chain posterior gates, timings."""
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.parallel.graph_sharded import make_sharded_graph_mgmc_step
+    from parmgmc_tpu_torch.parallel.mesh import make_mesh, psum
+
+    t_start = time.perf_counter()
+    kernels.reset_launch_counts()
+    g = torch.Generator(device=dev).manual_seed(30)
+    cases = (("refine-3 posterior (float64)", post, 1e-10), ("refine-3 prior (float32)", prior32, 5e-5),
+             ("refine-4 prior (float64)", prior4, 1e-10))
+    for label, ms, tol in cases:
+        smp, dt = ms.sampler, ms.op.dtype
+        x = torch.randn(ms.n, generator=g, dtype=torch.float64, device=dev).to(dt)
+        ref = smp.step_with_noise(x, ms.b, zero_tree(torch, smp.noise_shapes(), dev, dt))
+        outs = {}
+        for S in SHARD_COUNTS:
+            mesh = make_mesh((S,), devices=slot_devices(torch, S))
+            modes = ("neighbor", "allgather") if S == SHARDS_MAX else ("neighbor",)
+            for mode in modes:
+                t0 = time.perf_counter()
+                step, spec, lay = make_sharded_graph_mgmc_step(smp, mesh, coords=ms.points, with_noise=False,
+                                                               ghost_mode=mode)
+                t_set = time.perf_counter() - t0
+                _, out = step(0, lay.shard(x), lay.shard(ms.b))
+                outs[(S, mode)] = lay.unshard(out, device=dev)
+                rel, _ = rel_err(outs[(S, mode)], ref)
+                print(f"  {label}, {S} slot(s), {mode}: L {spec.n_local} rows a slot, {spec.ncolors} colours, "
+                      f"nbr_shifts {spec.nbr_shifts}, ghost rows received {spec.ghost_rows_received}; "
+                      f"partition {t_set:.2f} s; noise off vs step_with_noise {rel:.2e} (gate {tol:g})")
+                check(rel < tol, f"{label} on {S} slots ({mode}): the sharded step is off the unsharded one")
+        agree, _ = rel_err(outs[(SHARDS_MAX, "allgather")], outs[(SHARDS_MAX, "neighbor")])
+        print(f"  {label}: neighbor vs allgather at {SHARDS_MAX} slots {agree:.2e}")
+        check(agree < 1e-12, f"{label}: the ghost modes disagree")
+
+    # the refine-3 posterior, 256 chains chain-major on 4 slots: phase 24's gates
+    smp, C, S = post.sampler, N_MESH_CHAINS, SHARDS_MAX
+    mesh = make_mesh((S,), devices=slot_devices(torch, S))
+    step, spec, lay = make_sharded_graph_mgmc_step(smp, mesh, coords=post.points, n_chains=C)
+    w_int = torch.as_tensor(w[post.op.perm.cpu().numpy()], device=dev)
+    w_loc, bs = lay.shard(w_int), lay.shard(post.b)
+    xs = [torch.zeros((spec.n_local, C), dtype=post.op.dtype, device=d) for d in spec.devices]
+    key = 5
+    for _ in range(N_MESH_BURNIN):
+        key, xs = step(key, xs, bs)
+    qs = []
+    for _ in range(N_MESH_GATE):
+        key, xs = step(key, xs, bs)
+        qs.append(psum([wl @ x for wl, x in zip(w_loc, xs)])[0])
+    qoi_gates(torch, f"refine-3 posterior on {S} slots, {C} chains", torch.stack(qs).T, mu_q, var_q)
+
+    # ms a step (medians of three windows of N_SHARD_GRAPH steps), busy, idle
+    x0 = torch.zeros((post.n, C), dtype=post.op.dtype, device=dev)
+    hold = [x0]
+
+    def plain(k):
+        key = 1
+        for _ in range(k):
+            key, hold[0] = smp.step(key, hold[0], post.b)
+
+    ms_plain = median_ms(torch, plain, N_SHARD_GRAPH)
+    busy, _ = profiled_ms(torch, lambda: smp.step(1, hold[0], post.b), 2)
+    print(f"  refine-3 posterior, {C} chains, unsharded step: {ms_plain:.4f} ms a step, "
+          f"{busy_text(busy, ms_plain)} ({smi})")
+    for S in SHARD_COUNTS:
+        mesh = make_mesh((S,), devices=slot_devices(torch, S))
+        step, spec, lay = make_sharded_graph_mgmc_step(smp, mesh, coords=post.points, n_chains=C)
+        carry = [lay.shard(x0), lay.shard(post.b)]
+
+        def run(k):
+            key = 1
+            for _ in range(k):
+                key, carry[0] = step(key, carry[0], carry[1])
+
+        ms = median_ms(torch, run, N_SHARD_GRAPH)
+        busy, _ = profiled_ms(torch, lambda: step(1, carry[0], carry[1]), 2)
+        check(all(bool(torch.isfinite(v).all()) for v in carry[0]), f"{S} slots: the chains are not finite")
+        print(f"  refine-3 posterior, {C} chains, {S} slot(s): {ms:.4f} ms a step ({ms / ms_plain:.3f} x the "
+              f"unsharded step), {busy_text(busy, ms)}")
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"the sharded wrench launched a port kernel: {counts}")
+    print(f"  phase 30 wall {time.perf_counter() - t_start:.1f} s")
+
+
+def phase_shard_sampler(torch, dev, smi):
+    """Phase 31: shard_sampler on ex13's structured weak-scaling
+    configuration at --base 128 on 1, 2 and 4 slots, and one step of the
+    README quick start at 256^3 on 4 slots."""
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
+    from parmgmc_tpu_torch.parallel.mesh import make_mesh, shard_sampler
+    from parmgmc_tpu_torch.samplers.gibbs import _draw
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+    from parmgmc_tpu_torch.samplers.registry import lax_variant
+
+    t_start = time.perf_counter()
+    kernels.reset_launch_counts()
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def parity(label, smp, S, windows):
+        mesh = make_mesh((S,), ("x",), devices=slot_devices(torch, S))
+        sh, lay = shard_sampler(smp, mesh, min_local=4, grid_axes=("x", None, None))
+        split = sum(bool(lv.split) for lv in sh.levels)
+        x = torch.randn(smp.grid_shape, generator=g, device=dev)
+        plain = lax_variant(smp)
+        if windows:
+            nz = _draw(3, smp.noise_shapes(), torch.float32, dev)
+            ref = smp.step_with_noise(x, None, nz)
+            rel, _ = rel_err(lay.unshard(sh.step_with_noise(lay.shard(x), None, nz), device=dev), ref)
+            check(rel < 1e-5, f"{label}: step_with_noise on {S} slots is off the unsharded one: {rel:.3e}")
+        k1, ref = plain.step(7, x, None)
+        k2, out = sh.step(7, lay.shard(x), None)
+        out = lay.unshard(out, device=dev)
+        same = k1 == k2 and torch.equal(out, ref)
+        krel, _ = rel_err(out, ref)
+        text = (f"  {label}, {S} slot(s): {split} of {smp.n_levels} levels split, keyed step vs unsharded "
+                f"{'bit for bit' if same else f'{krel:.2e}'}")
+        if windows:
+            text += f", step_with_noise vs unsharded {rel:.2e}"
+        print(text)
+        check(krel < 1e-5, f"{label}: the keyed step on {S} slots is off the unsharded one")
+        if not windows:
+            return same
+        check(same, f"{label}: the keyed step on {S} slots is not the unsharded one bit for bit")
+        hold = [x, lay.shard(x)]
+
+        def run_plain(k):
+            key = 1
+            for _ in range(k):
+                key, hold[0] = plain.step(key, hold[0], None)
+
+        def run(k):
+            key = 1
+            for _ in range(k):
+                key, hold[1] = sh.step(key, hold[1], None)
+
+        ms_plain = median_ms(torch, run_plain, N_SHARD_SAMPLER, windows)
+        ms = median_ms(torch, run, N_SHARD_SAMPLER, windows)
+        busy_plain, _ = profiled_ms(torch, lambda: plain.step(1, hold[0], None), 1)
+        busy, _ = profiled_ms(torch, lambda: sh.step(1, hold[1], None), 1)
+        print(f"    {ms:.4f} ms a step ({ms / ms_plain:.3f} x the unsharded plain step's {ms_plain:.4f}), "
+              f"{busy_text(busy, ms)}; unsharded {busy_text(busy_plain, ms_plain)}; {smi}")
+        return same
+
+    for S in SHARD_COUNTS:
+        t0 = time.perf_counter()
+        op = shifted_laplace_fd((SHARD_BASE * S, SHARD_BASE, SHARD_BASE), 1.0)
+        smp = MGMCSampler.create(op, n_pre=1, n_post=1, coarsest_size=128)
+        print(f"  ex13 --base {SHARD_BASE}, {S} slot(s): grid {op.grid_shape} ({op.n} DOFs), levels "
+              f"{[tuple(o.grid_shape) for o in smp.ops]} (set-up {time.perf_counter() - t0:.2f} s)")
+        parity(f"ex13 V(1,1) {op.grid_shape}", smp, S, windows=SHARD_WINDOWS)
+        del smp, op
+    torch.cuda.empty_cache()
+    smp = MGMCSampler.create(gmrf_3d(N_MAIN), n_pre=2, n_post=2)
+    parity(f"README quick start {N_MAIN}^3 V(2,2)", smp, SHARDS_MAX, windows=0)
+    del smp
+    torch.cuda.empty_cache()
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"shard_sampler launched a port kernel: {counts}")
+    print(f"  phase 31 wall {time.perf_counter() - t_start:.1f} s")
+
+
+def phase_dryrun(torch):
+    """Phase 32: dryrun_multichip on 4 slots of cuda:0; returns its kernel
+    launches."""
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_start = time.perf_counter()
+    kernels.reset_launch_counts()
+    dryrun_multichip(SHARDS_MAX, devices=["cuda:0"] * SHARDS_MAX)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"  launches {dict((k, v) for k, v in counts.items() if v)}; phase 32 wall "
+          f"{time.perf_counter() - t_start:.1f} s")
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     # the profiler (phases 3 on) leaves CUPTI's callbacks in place unless
@@ -2830,11 +3072,10 @@ def main():
     phase("23. unstructured mesh set-up")
     preset, post, prior32, prior4 = phase_mesh_setup(torch)
     phase("24. unstructured mesh gates")
-    w, _ = phase_mesh_gates(torch, preset, post, prior32)
+    w, mu_q, var_q = phase_mesh_gates(torch, preset, post, prior32)
     phase("25. unstructured mesh path")
     phase_mesh_path(torch, post, prior32, prior4, w)
-    del post, prior32, prior4
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # the three mesh samplers stay for phase 30
     phase(f"26. structured Matérn façade, {N_MAIN}^3")
     ms, c26 = phase_matern(torch)
     phase(f"27. ex7 flow, {N_MAIN}^3")
@@ -2849,6 +3090,16 @@ def main():
     c29 = phase_sharded_path(torch, dev, smi)
     for k in ("chain_down", "zero_restrict"):
         counts[k] += c29[k]
+    phase(f"30. the sharded wrench on {', '.join(map(str, SHARD_COUNTS))} slots")
+    phase_graph_sharded(torch, dev, smi, post, prior32, prior4, w, mu_q, var_q)
+    del post, prior32, prior4
+    torch.cuda.empty_cache()
+    phase(f"31. shard_sampler, ex13 --base {SHARD_BASE} on {', '.join(map(str, SHARD_COUNTS))} slots")
+    phase_shard_sampler(torch, dev, smi)
+    phase(f"32. the dry run on {SHARDS_MAX} slots")
+    c32 = phase_dryrun(torch)
+    for k in counts:
+        counts[k] += c32.get(k, 0)
     print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 

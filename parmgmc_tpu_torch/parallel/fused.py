@@ -202,6 +202,12 @@ def _to_device(obj, device):
     return obj
 
 
+def on_devices(obj, devices, home) -> dict:
+    """{device: obj on it} for each distinct device of ``devices``: obj
+    itself on ``home`` (its own device), a copy of its tensors elsewhere."""
+    return {d: obj if d == home else _to_device(obj, d) for d in dict.fromkeys(devices)}
+
+
 def _zeros(shapes, dtype, device):
     if isinstance(shapes, tuple):
         return torch.zeros(shapes, dtype=dtype, device=device)
@@ -255,9 +261,8 @@ def make_sharded_mgmc_step(sampler: MGMCSampler, mesh: Mesh, axis_name: str = "x
         smoothers=sampler.smoothers[n_sh:], coarse=sampler.coarse, n_pre=sampler.n_pre,
         n_post=sampler.n_post, n_levels=sampler.n_levels - n_sh, n_coarse=sampler.n_coarse,
     )
-    home = canonical(sampler.device)
     devices = list(dict.fromkeys(slots))
-    tails = {d: tail if d == home else _to_device(tail, d) for d in devices}
+    tails = on_devices(tail, devices, canonical(sampler.device))
     tail_shapes = _tail_shapes(sampler, n_sh)
     dtype = sampler.dtype
 

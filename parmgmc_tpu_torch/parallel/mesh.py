@@ -24,6 +24,8 @@ computes once a device, not once a slot.
 The level rule (:func:`level_specs`) is JAX's: a grid dimension is
 sharded over its mesh axis while it divides evenly with at least
 ``min_local`` points a shard, coarser levels are replicated.
+:func:`shard_sampler` runs any structured Gibbs or MGMC sampler on the
+blocks that rule gives (:mod:`.spmd`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ __all__ = [
     "psum",
     "all_gather",
     "canonical",
+    "shard_sampler",
 ]
 
 
@@ -200,3 +203,85 @@ def psum(parts) -> list:
 def all_gather(parts, dim: int = 0) -> list:
     """The blocks concatenated along ``dim``, on every slot."""
     return _per_device(parts, lambda ps: torch.cat(ps, dim=dim))
+
+
+def _collect_grid_shapes(sampler) -> list:
+    """The grid shape of every level of ``sampler`` (its own for a
+    one-level sampler)."""
+    ops = getattr(sampler, "ops", None)
+    if ops is not None:
+        return [tuple(o.grid_shape) for o in ops]
+    return [tuple(sampler.grid_shape)]
+
+
+def _force_lax_impl(sampler):
+    """The sampler with every kernel route turned to plain torch
+    (:func:`~parmgmc_tpu_torch.samplers.registry.lax_variant`): the
+    kernels take whole grids, the sharded step runs the plain sweeps on
+    halo-extended blocks."""
+    from parmgmc_tpu_torch.samplers.registry import lax_variant
+
+    return lax_variant(sampler)
+
+
+def _refuse(sampler):
+    """Raise for what the sharded step cannot split: patch samplers and
+    low-rank-corrected (posterior) operators."""
+    from parmgmc_tpu_torch.operators.lrc import LRCOperator
+    from parmgmc_tpu_torch.samplers.patch_gibbs import GraphPatchGibbsSampler, PatchGibbsSampler
+
+    parts = [sampler, *getattr(sampler, "smoothers", ())]
+    if any(isinstance(p, (PatchGibbsSampler, GraphPatchGibbsSampler)) for p in parts):
+        raise ValueError("shard_sampler does not split patch samplers (their sweeps are whole-grid)")
+    ops = getattr(sampler, "ops", None) or [getattr(sampler, "lrc", None) or getattr(sampler, "base", None)]
+    if any(isinstance(o, LRCOperator) for o in ops) or any(getattr(p, "is_lrc", False) for p in parts):
+        raise ValueError("shard_sampler does not split LRC (posterior) operators: shard a structured "
+                         "posterior with parallel.fused.make_sharded_mgmc_step and an unstructured one "
+                         "with parallel.graph_sharded.make_sharded_graph_mgmc_step")
+
+
+def shard_sampler(sampler, mesh: Mesh, min_local: int = 4, grid_axes=None):
+    """(sharded_sampler, state_layout): ``sampler`` run on blocks of the
+    mesh's slots (the JAX ``shard_sampler``).
+
+    The sampler takes its plain routes (``lax_variant``); grid dim i of a
+    level is split over mesh axis ``grid_axes[i]`` (default: the mesh
+    axes in order, but ``"chain"``) as :func:`level_specs` rules, coarser
+    levels are replicated, and a mesh axis named ``"chain"`` splits the
+    trailing chain axis of x.  The sharded sampler has the wrapped one's
+    ``step_with_noise(xs, bs, noises)``, ``step(key, xs, bs)`` and
+    ``noise_shapes()`` on lists of slot blocks (``state_layout.shard``,
+    ``state_layout.unshard``), and equals its unsharded plain steps bit
+    for bit (see :mod:`.spmd`).
+
+    Structured Gibbs and MGMC samplers (stencil operators, geometric or
+    aggregate transfers, a dense Cholesky coarsest level) are split on
+    their grids; a sampler of a graph operator splits its chains only
+    (its rows are :mod:`.graph_sharded`'s).  Patch samplers and LRC
+    operators raise."""
+    from parmgmc_tpu_torch.operators.graph import GraphOperator
+    from parmgmc_tpu_torch.parallel import spmd
+    from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
+    from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
+
+    _refuse(sampler)
+    if not isinstance(sampler, (GibbsSampler, MGMCSampler)):
+        raise ValueError(f"shard_sampler takes Gibbs and MGMC samplers, not {type(sampler).__name__}")
+    sampler = _force_lax_impl(sampler)
+    names = grid_axes
+    if names is None:
+        names = tuple(a for a in mesh.axis_names if a != spmd.CHAIN_AXIS)
+    used = [a for a in names if a is not None]
+    if spmd.CHAIN_AXIS in used or len(set(used)) != len(used) or not set(used) <= set(mesh.axis_names):
+        raise ValueError(f"grid_axes {tuple(names)} must name distinct mesh axes {mesh.axis_names} "
+                         f"other than {spmd.CHAIN_AXIS!r}")
+    shapes = _collect_grid_shapes(sampler)
+    ops = getattr(sampler, "ops", None) or [sampler.base]
+    graph = any(isinstance(getattr(o, "base", o), GraphOperator) for o in ops)
+    specs = level_specs(shapes, mesh, min_local, names)
+    if graph and specs:
+        raise ValueError("a graph (unstructured-mesh) sampler splits its chains only under shard_sampler "
+                         "(a 'chain' mesh axis and grid_axes=(None,)); row partitioning is "
+                         "parallel.graph_sharded")
+    sharded = spmd.build(sampler, mesh, specs, shapes)
+    return sharded, sharded.layout

@@ -31,6 +31,7 @@ __all__ = [
     "num_colors",
     "color_masks",
     "sor_sweep",
+    "sublattice_update",
     "natural_sweep",
     "NaturalGibbsSampler",
     "lexicographic_sweep",
@@ -68,29 +69,43 @@ def color_masks(grid_shape, ncolors: int, op: StencilOperator = None, device=Non
     return tuple(code == c for c in range(ncolors))
 
 
-def _sublattice_sweep(op: StencilOperator, b, x, omega: float, order):
-    """The dense colouring's sweep, colour ``c`` updating the sublattice
-    i_ax = p_ax mod (r + 1) (p the base-(r + 1) digits of c, axis 0 the
-    most significant, as :func:`color_masks` codes it) in place in a
-    zero-padded copy of x.  Each point sums its neighbours in the order
-    of ``op.offsets``, as ``offdiag_apply`` does."""
-    shape, d, r = op.grid_shape, op.ndim, op.radius
+def sublattice_update(xp, b, inv_diag, offsets, coeffs, shape, r: int, omega: float, c: int,
+                      origin=None) -> None:
+    """Colour ``c`` of the dense colouring, in place in ``xp``: the
+    sublattice i_ax = p_ax mod (r + 1) (p the base-(r + 1) digits of c,
+    axis 0 the most significant, as :func:`color_masks` codes it) of the
+    block of extents ``shape`` padded by r cells on every side in ``xp``
+    (zeros, or the neighbouring blocks' values).  ``origin`` is the
+    global index of the block's first point (the digits follow the global
+    index); ``b``, ``inv_diag`` and the coefficient fields are
+    block-shaped.  Each point sums its neighbours in the order of
+    ``offsets``, as ``offdiag_apply`` does."""
+    d = len(shape)
     base = r + 1
+    origin = (0,) * d if origin is None else origin
+    digits = [(c // base ** (d - 1 - ax)) % base for ax in range(d)]
+    first = [(p - o) % base for p, o in zip(digits, origin)]
+    counts = [len(range(f, n, base)) for f, n in zip(first, shape)]
+    if 0 in counts:
+        return
+    y = None
+    for off, coef in zip(offsets, coeffs):
+        nbr = lattice(xp, [r + f + o for f, o in zip(first, off)], counts, base)
+        t = (coef if coef.ndim == 0 else lattice(coef, first, counts, base)) * nbr
+        y = t if y is None else y + t
+    rr = lattice(b, first, counts, base) - y
+    here = lattice(xp, [r + f for f in first], counts, base)
+    here.copy_((1.0 - omega) * here + lattice(inv_diag, first, counts, base) * rr)
+
+
+def _sublattice_sweep(op: StencilOperator, b, x, omega: float, order):
+    """The dense colouring's sweep, colour by colour in place in a
+    zero-padded copy of x (:func:`sublattice_update`)."""
+    shape, d, r = op.grid_shape, op.ndim, op.radius
     xp = F.pad(x, [r, r] * d)
     inv_diag = omega / op.diag
     for c in order:
-        digits = [(c // base ** (d - 1 - ax)) % base for ax in range(d)]
-        counts = [len(range(p, n, base)) for p, n in zip(digits, shape)]
-        if 0 in counts:
-            continue
-        y = None
-        for off, coef in zip(op.offsets, op.coeffs):
-            nbr = lattice(xp, [r + p + o for p, o in zip(digits, off)], counts, base)
-            t = (coef if coef.ndim == 0 else lattice(coef, digits, counts, base)) * nbr
-            y = t if y is None else y + t
-        rr = lattice(b, digits, counts, base) - y
-        here = lattice(xp, [r + p for p in digits], counts, base)
-        here.copy_((1.0 - omega) * here + lattice(inv_diag, digits, counts, base) * rr)
+        sublattice_update(xp, b, inv_diag, op.offsets, op.coeffs, shape, r, omega, c)
     return xp[(Ellipsis, *(slice(r, r + n) for n in shape))].contiguous()
 
 

@@ -23,8 +23,9 @@ launches (fault F3: no chain kernel); the structured Matérn façade's
 launches (one #1 and one #2 a chain step) and ``chain.multi_chain`` bit
 for bit against separate chains; the kernels on halo-extended blocks with
 ``row_offset``/``n0_global`` (#7, #8, #9, #1, #4, #5, #3) against their
-twins and bit for bit the full-grid kernel's rows, and the sharded MGMC
-step's launches on two slots of one card.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
+twins and bit for bit the full-grid kernel's rows, the sharded MGMC
+step's launches on two slots of one card, and the row-partitioned mesh
+MGMC step against the unsharded one on 1, 2 and 4 slots of one card.  ``chip_smoke.py`` repeats the kernel checks at the 256^3
 main-path shapes.
 """
 
@@ -660,3 +661,40 @@ def test_sharded_step_launches_on_two_slots(dev):
         outs.append(unshard(xs))
     assert torch.equal(outs[0], outs[1])
     assert bool(torch.isfinite(outs[0]).all())
+
+
+def test_sharded_graph_step_matches_unsharded_on_slots(dev):
+    """Phase 30's parity at a small size: the deterministic row-partitioned
+    MGMC step (float64, the Matérn precision of unit_square_mesh(16)) on
+    1, 2 and 4 slots of one card equals the unsharded step_with_noise with
+    zero noises to 1e-10 relative, both ghost modes; the keyed step with 8
+    chains is finite."""
+    from parmgmc_tpu_torch.models.mesh import matern_precision_mesh, unit_square_mesh
+    from parmgmc_tpu_torch.operators.graph import from_csr
+    from parmgmc_tpu_torch.parallel.graph_sharded import make_sharded_graph_mgmc_step
+    from parmgmc_tpu_torch.parallel.mesh import make_mesh
+
+    pts, cells = unit_square_mesh(16)
+    op = from_csr(matern_precision_mesh(pts, cells, 5.0), device=dev)
+    smp = MGMCSampler.create(op, coarsest_size=16)
+    g = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn(op.n, generator=g, dtype=torch.float64, device=dev)
+    b = torch.randn(op.n, generator=g, dtype=torch.float64, device=dev)
+
+    def zeros(s):
+        if isinstance(s, tuple):
+            return torch.zeros(s, dtype=torch.float64, device=dev)
+        return {k: zeros(v) for k, v in s.items()} if isinstance(s, dict) else [zeros(v) for v in s]
+
+    ref = smp.step_with_noise(x, b, zeros(smp.noise_shapes()))
+    for n in (1, 2, 4):
+        mesh = make_mesh((n,), devices=["cuda:0"] * n)
+        for mode in ("neighbor", "allgather"):
+            step, spec, layout = make_sharded_graph_mgmc_step(smp, mesh, coords=pts, with_noise=False,
+                                                              ghost_mode=mode)
+            _, out = step(0, layout.shard(x), layout.shard(b))
+            got = layout.unshard(out)
+            assert float((got - ref).abs().max() / ref.abs().max()) < 1e-10, (n, mode)
+    step, spec, layout = make_sharded_graph_mgmc_step(smp, mesh, coords=pts, n_chains=8)
+    _, out = step(1, layout.shard(torch.zeros((op.n, 8), dtype=torch.float64, device=dev)), layout.shard(b))
+    assert all(o.shape == (spec.n_local, 8) and bool(torch.isfinite(o).all()) for o in out)

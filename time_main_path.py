@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 time_main_path.py --trees OLD NEW --pairs 4 \\
         [--drive 256-v10 256-post 256-v22 256-v22-linear 768-v10 768-v22 patch-256 patch-128 kernels
-                 wrench-post wrench-post-256 wrench4-prior matern-256 ex7-256 sharded-256]
+                 wrench-post wrench-post-256 wrench4-prior matern-256 ex7-256 sharded-256 graph-sharded]
         [--out FILE]
 
 Each run is its own process, so every checkout imports its own
@@ -70,6 +70,16 @@ linear drive; b = None but on the posterior drive):
   behind a sleeping kernel, the idle share, and ms a step over the
   unsharded step's (the machinery overhead of
   ``examples/probe_sharded_overhead.py``);
+* ``graph-sharded``: ``chip_smoke.py`` phase 30's timed drive,
+  ``parallel.graph_sharded.make_sharded_graph_mgmc_step`` on the wrench
+  refine-3 posterior (float64, MGMC V(1,1) on the algebraic hierarchy,
+  b = the posterior's right-hand side) with 256 chains chain-major on S =
+  1, 2 and 4 slots, beside the unsharded keyed step on the same chains:
+  8 warm-up steps, then windows of 32 steps; ms a step, the device busy
+  time a step (``torch.profiler`` over 2 steps: a step has more launches
+  than the launch queue holds, so a window queued behind a sleeping
+  kernel would time the host), the idle share, and ms a step over the
+  unsharded step's;
 * ``kernels``: device ms per call of the 256^3 main path's two kernels,
   queued behind a sleeping kernel (``device_ms``): #1 at 256^3 (b = None,
   z, both sums, noise; also at 128^3 and (16, 24, 96)) and #2 over the
@@ -117,7 +127,7 @@ import time
 
 DRIVES = ("256-v10", "256-post", "256-v22", "256-v22-linear", "768-v10", "768-v22", "patch-256", "patch-128",
           "wrench-post", "wrench-post-256", "wrench4-prior", "matern-256", "ex7-256", "kernels",
-          "chain-plans", "sweep-plans", "patch-kernels", "sharded-256")
+          "chain-plans", "sweep-plans", "patch-kernels", "sharded-256", "graph-sharded")
 DEV = "cuda"
 N_MAIN = 256
 N_BIG = 768
@@ -133,8 +143,9 @@ MESH_CHAINS = {"wrench-post": (3, True, 1, 8, 128), "wrench-post-256": (3, True,
 WRENCH_PRESET = "examples/benchmark/wrench.json"
 # the structured Matérn drives: warm-up steps, steps a window (matern-256)
 MATERN = (16, 512)
-# the sharded drive: slot counts, warm-up steps, steps a window
+# the sharded drives: slot counts, warm-up steps, steps a window
 SHARDED = ((1, 2, 4), 8, 64)
+GRAPH_SHARDED = ((1, 2, 4), 8, 32, 256)  # and the chains
 AGGREGATE_V10 = dict(n_pre=1, n_post=0, coarsest_size=128, coarsening="aggregate")
 
 
@@ -361,6 +372,72 @@ def time_sharded(torch, repeats):
         res[f"sharded-256 S={n} device busy ms/step"] = [busy]
         res[f"sharded-256 S={n} idle share"] = [max(0.0, 1.0 - busy / med)]
         res[f"sharded-256 S={n} / unsharded"] = [t / base for t in out]
+    return res
+
+
+def slot_list(torch, n):
+    """n slots: distinct cards where the machine has n, else n on cuda:0."""
+    return [f"cuda:{i}" for i in range(n)] if torch.cuda.device_count() >= n else ["cuda:0"] * n
+
+
+def time_graph_sharded(torch, root, repeats):
+    """{metric: [numbers]}: the row-partitioned wrench refine-3 posterior
+    step with 256 chains on 1, 2 and 4 slots beside the unsharded keyed
+    step (ms a step, device busy ms a step, idle share, ratio)."""
+    from parmgmc_tpu_torch.models.matern import MaternMeshSampler, observations_of
+    from parmgmc_tpu_torch.parallel.graph_sharded import make_sharded_graph_mgmc_step
+    from parmgmc_tpu_torch.parallel.mesh import make_mesh
+
+    counts, warm, steps, C = GRAPH_SHARDED
+    with open(os.path.join(root, WRENCH_PRESET)) as f:
+        preset = json.load(f)
+    ms = MaternMeshSampler(mesh_file="wrench", refinements=3, kappa=float(preset["kappa"]),
+                           observations=observations_of(preset), coarsest_size=128)
+    smp, b = ms.sampler, ms.b
+    x0 = torch.zeros((ms.n, C), dtype=ms.op.dtype, device=b.device)
+
+    def windows(run):
+        run(warm)
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            run(steps)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) / steps * 1e3)
+        return out
+
+    hold = [x0]
+
+    def plain(k):
+        key = 1
+        for _ in range(k):
+            key, hold[0] = smp.step(key, hold[0], b)
+
+    res = {"graph-sharded unsharded ms/step": windows(plain)}
+    base = statistics.median(res["graph-sharded unsharded ms/step"])
+    busy = sum(kernel_ms(torch, lambda: plain(2), 2).values())
+    res["graph-sharded unsharded device busy ms/step"] = [busy]
+    res["graph-sharded unsharded idle share"] = [max(0.0, 1.0 - busy / base)]
+    for n in counts:
+        mesh = make_mesh((n,), devices=slot_list(torch, n))
+        step, spec, lay = make_sharded_graph_mgmc_step(smp, mesh, coords=ms.points, n_chains=C)
+        carry = [lay.shard(x0), lay.shard(b)]
+
+        def run(k):
+            key = 1
+            for _ in range(k):
+                key, carry[0] = step(key, carry[0], carry[1])
+
+        out = windows(run)
+        if not all(bool(torch.isfinite(x).all()) for x in carry[0]):
+            raise RuntimeError(f"graph-sharded: the {n}-slot state is not finite")
+        busy = sum(kernel_ms(torch, lambda: run(2), 2).values())
+        med = statistics.median(out)
+        res[f"graph-sharded S={n} ms/step"] = out
+        res[f"graph-sharded S={n} device busy ms/step"] = [busy]
+        res[f"graph-sharded S={n} idle share"] = [max(0.0, 1.0 - busy / med)]
+        res[f"graph-sharded S={n} / unsharded"] = [t / base for t in out]
     return res
 
 
@@ -681,6 +758,8 @@ def run_one(root, drives, repeats):
             res.update(time_matern(torch, drive, repeats))
         elif drive == "sharded-256":
             res.update(time_sharded(torch, repeats))
+        elif drive == "graph-sharded":
+            res.update(time_graph_sharded(torch, root, repeats))
         else:
             res.update(time_chain(torch, drive, repeats))
         torch.cuda.empty_cache()
