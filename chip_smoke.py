@@ -292,6 +292,18 @@ Phases, in order; any failure raises and exits non-zero:
               kernels (prior and posterior, 5e-5), the frozen-halo step
               (1e-5), the row-partitioned mesh MGMC (prior and posterior,
               5e-5); its kernel launches.
+33. the examples -- each ported example's main (parmgmc_tpu_torch.examples)
+              called in this process on the card with its sample counts cut
+              (each cut printed beside the JAX default; EXAMPLE_RUNS), every
+              example's own acceptance assert: ex1 (cholesky, gibbs, gibbs
+              symmetric, mgmc), ex4 (woodbury, mgmc), ex9, ex7, ex2
+              with a VTK file, ex13_cholsampler at refine 2 with an MGMC
+              cross-check, ex13_weak_scaling on 1 and 2 slots in its three
+              modes, benchmark_matern on the wrench preset with 256 chains and
+              --anchor-ranks 4, baseline_cpu_reference at edge 128, and
+              make_meshes into a temporary directory, its files byte for byte
+              data/*.msh; the launch counters unchanged across the phase (the
+              JAX scripts reach no Pallas kernel).
 
 Each phase prints its wall time.  The last lines are the kernels' JSON
 record (launches from the main paths that run each kernel: phases 6, 26,
@@ -374,6 +386,46 @@ SHARD_WINDOWS = 3
 # the strict end; one posterior sample is ~0.41 |mu| away from the mean in
 # 2-norm (the exact law), so 256 x 96 samples expect ~0.003
 MESH_FIELD_GATE = 0.02
+# phase 33: (label, example module, argv, the cut beside the JAX default);
+# the whole phase ~35 s, the smoke run's 1200 s being nearly spent by
+# phases 1-32 (82 s before these cuts on an H100 80GB HBM3 at 700 W; ex4
+# gibbs is left out: 12000 samples took 10.4 s there for a relative error
+# of 0.039 against its 0.05 bound, which the CPU tests hold; ex9 at kappa
+# 1, where 100 samples erred 0.005 on the host against 0.025 at kappa 2)
+_PRESET_WRENCH = "examples/benchmark/wrench.json"
+EXAMPLE_RUNS = (
+    ("ex1 cholesky", "ex1_samplers", ["--sampler", "cholesky", "--samples", "3000", "--kappa", "3"],
+     "3000 samples at kappa 3 (JAX default 100000 at kappa 10)"),
+    ("ex1 gibbs", "ex1_samplers", ["--sampler", "gibbs", "--samples", "5000", "--kappa", "3"],
+     "5000 samples at kappa 3 (JAX default 100000 at kappa 10)"),
+    ("ex1 gibbs-symmetric", "ex1_samplers", ["--sampler", "gibbs-symmetric", "--samples", "3000", "--kappa", "3"],
+     "3000 samples at kappa 3 (JAX default 100000 at kappa 10)"),
+    ("ex1 mgmc", "ex1_samplers", ["--sampler", "mgmc", "--samples", "500", "--kappa", "1"],
+     "500 samples at kappa 1 (JAX default 100000 at kappa 10)"),
+    ("ex4 woodbury", "ex4_posterior", ["--sampler", "woodbury", "--samples", "2000"],
+     "2000 samples (JAX default 50000)"),
+    ("ex4 mgmc", "ex4_posterior", ["--sampler", "mgmc", "--samples", "1500"], "1500 samples (JAX default 50000)"),
+    ("ex9", "ex9_squared_prior", ["--samples", "50", "--kappa", "1"],
+     "50 samples at kappa 1 (JAX default 30000 at kappa 2)"),
+    ("ex7", "ex7_convergence", [], "the JAX defaults"),
+    ("ex2", "ex2_matern_iact", ["--samples", "500", "--vtk", "{tmp}/ex2.vtk"],
+     "500 samples and 200 moment steps (JAX defaults 20000 and 5000)"),
+    ("ex13_cholsampler", "ex13_cholsampler", ["--refine", "2", "--samples", "64", "--mgmc-samples", "300"],
+     "refine 2, 300 MGMC samples (JAX documented: refine 4; refine 3 with 2000)"),
+    ("ex13_weak_scaling", "ex13_weak_scaling", ["--devices", "1", "2", "--samples", "16"],
+     "slots 1 2, 16 samples (JAX defaults 1 2 4 8, 64)"),
+    ("ex13_weak_scaling chains", "ex13_weak_scaling", ["--devices", "1", "2", "--samples", "16", "--unstructured"],
+     "slots 1 2, 16 samples (JAX defaults 1 2 4 8, 64)"),
+    ("ex13_weak_scaling dd posterior", "ex13_weak_scaling",
+     ["--devices", "1", "2", "--samples", "16", "--unstructured", "--domain-decompose", "--posterior"],
+     "slots 1 2, 16 samples (JAX defaults 1 2 4 8, 64)"),
+    ("benchmark_matern", "benchmark_matern",
+     ["--preset", _PRESET_WRENCH, "--chains", "256", "--burnin", "50", "--samples", "250", "--anchor-ranks", "4"],
+     "50 + 250 steps of 256 chains (JAX defaults 1000 + 10000)"),
+    ("baseline_cpu_reference", "baseline_cpu_reference", ["128"], "edge 128, the JAX default"),
+    ("make_meshes", "make_meshes", ["--outdir", "{tmp}"], "into a temporary directory, not data/"),
+)
+N_EX2_MEAN_VAR = 200  # ex2's moments run (the JAX script's constant: 5000)
 RAGGED_BIG = (12, 770, 772)  # a large plane whose extents the strips do not divide
 # and one whose rows are not a multiple of 16 B: the marching kernels' cp.async producer
 RAGGED_ODD = (12, 770, 774)
@@ -2926,6 +2978,35 @@ def phase_dryrun(torch):
     return counts
 
 
+def phase_examples(torch):
+    """Phase 33: each ported example's main on the card at EXAMPLE_RUNS' cut
+    counts, its own assert kept; no port kernel launched."""
+    import tempfile
+
+    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch.examples import ex2_matern_iact
+
+    t_start = time.perf_counter()
+    before = kernels.launch_counts()
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(ex2_matern_iact, "N_MEAN_VAR", N_EX2_MEAN_VAR):
+        for label, name, argv, cut in EXAMPLE_RUNS:
+            argv = [a.replace("{tmp}", tmp) for a in argv]
+            print(f"  -- {label}: {cut}; python -m parmgmc_tpu_torch.examples.{name} {' '.join(argv)}")
+            mod = __import__(f"parmgmc_tpu_torch.examples.{name}", fromlist=["main"])
+            t0 = time.perf_counter()
+            out = mod.main(argv)
+            torch.cuda.synchronize()
+            if name == "make_meshes":
+                for geo, rec in out.items():
+                    with open(rec["path"], "rb") as a, open(os.path.join("data", f"{geo}.msh"), "rb") as b:
+                        check(a.read() == b.read(), f"make_meshes wrote {geo}.msh unlike data/{geo}.msh")
+                print("  make_meshes: all four files byte for byte data/*.msh")
+            print(f"  {label} passed its assert in {time.perf_counter() - t0:.2f} s")
+    after = kernels.launch_counts()
+    check(after == before, f"the examples launched port kernels: {before} -> {after}")
+    print(f"  launch counters unchanged across the phase; phase 33 wall {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     # the profiler (phases 3 on) leaves CUPTI's callbacks in place unless
@@ -3100,6 +3181,8 @@ def main():
     c32 = phase_dryrun(torch)
     for k in counts:
         counts[k] += c32.get(k, 0)
+    phase("33. the examples")
+    phase_examples(torch)
     print(f"  ({time.perf_counter() - clock[0]:.1f} s)")
     print(f"  whole run {time.perf_counter() - t_start:.1f} s")
 

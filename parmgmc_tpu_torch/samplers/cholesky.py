@@ -60,6 +60,10 @@ class CholeskySampler:
     def dtype(self):
         return self.L.dtype
 
+    @property
+    def device(self):
+        return self.L.device
+
     def noise_shapes(self):
         return [{"eta": (self.n,)}]
 

@@ -448,17 +448,6 @@ class MGMCSampler:
         return None
 
     # -- keyed cycle on the kernels -------------------------------------------
-    def _keyed_unsupported(self) -> "str | None":
-        """Why no keyed path can run this sampler, or None."""
-        if self.n_levels < 2:
-            return "a one-level MGMC sampler has no cycle; use CholeskySampler"
-        return None
-
-    def _require_keyed(self):
-        why = self._keyed_unsupported()
-        if why is not None:
-            raise NotImplementedError(why)
-
     def _block_level(self, l: int) -> bool:
         """Can a chain kernel serve level l?  Its smoother is a Gibbs
         sampler and the level coarsens by 2^d block sums: an
@@ -481,7 +470,7 @@ class MGMCSampler:
         (:meth:`_lrc_chain_eligible`)."""
         if self.n_pre != 1 or self.n_post != 0 or self.gamma != 1:
             return False
-        if self._keyed_unsupported() is not None or len(self.grid_shape) != 3:
+        if self.n_levels < 2 or len(self.grid_shape) != 3:
             return False
         if not self._block_level(0):
             return False
@@ -645,13 +634,11 @@ class MGMCSampler:
             if self.has_kernel:
                 gibbs.refuse_batch(self, batch)
             if not self._graph():
-                self._require_keyed()
                 key, sub = keys.split(key)
                 shapes = gibbs.with_batch(self.noise_shapes(), batch)
                 return key, self.step_with_noise(x, b, gibbs._draw(sub, shapes, x.dtype, x.device))
         key, sub = keys.split(key)
         if not self.deferred_eligible():
-            self._require_keyed()
             bz = torch.zeros_like(x) if b is None else bcast(b, x)
             return key, x + self._cycle_general(0, bz - self.fine_op.apply(x), sub)
         if self.smoothers[0].is_lrc:
@@ -760,7 +747,6 @@ class MGMCSampler:
         ``z`` is the pair of :meth:`deferred_init` on the probed
         posterior route, and so is ``z'``."""
         if not self.deferred_eligible():
-            self._require_keyed()
             raise NotImplementedError(
                 "the deferred chain runs the V(1,0) chain kernels only (one "
                 "forward/backward pre-sweep, no post-sweep, gamma = 1, FD float32 "
@@ -798,7 +784,6 @@ class MGMCSampler:
         """(key, x0): full-multigrid cold start -- an exact coarsest draw,
         prolonged and refined by ``n_cycles`` keyed cycles per level, so
         chains started from it need almost no burn-in."""
-        self._require_keyed()
         bs = [torch.zeros(self.grid_shape, dtype=self.dtype, device=self.device)
               if b is None else b]
         for l in range(self.n_levels - 1):

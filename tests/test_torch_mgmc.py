@@ -211,7 +211,7 @@ def test_keyed_2d_cycle_without_noise_is_the_explicit_cycle(monkeypatch):
     smp = convert.mgmc_sampler(ops, np.asarray(jsmp.coarse.L), np.asarray(jsmp.coarse.Li), device=DEV,
                                n_pre=2, n_post=2)
     assert [o.grid_shape for o in smp.ops] == [(64, 64), (32, 32), (16, 16)]
-    assert smp._keyed_unsupported() is None and not smp.deferred_eligible()
+    assert not smp.deferred_eligible()  # the general keyed cycle
     rs = np.random.RandomState(12)
     x, b = rs.randn(64, 64).astype(np.float32), rs.randn(64, 64).astype(np.float32)
     zero_noises = jax.tree_util.tree_map(
