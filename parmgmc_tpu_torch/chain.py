@@ -16,6 +16,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from parmgmc_tpu_torch import keys
+from parmgmc_tpu_torch.profiling import span
 
 __all__ = [
     "ChainState",
@@ -82,9 +83,10 @@ def sample_chain(
     key, x = state.key, state.x
     out = []
     for i in range(burnin + n_samples):
-        key, x = sampler.step(key, x, b, aux)
-        if i >= burnin:
-            out.append(extract(x))
+        with span("pmg.chain.step"):
+            key, x = sampler.step(key, x, b, aux)
+            if i >= burnin:
+                out.append(extract(x))
     stacked = torch.stack(out) if out else torch.zeros((0,), dtype=x.dtype, device=x.device)
     return ChainState(x=x, key=key), stacked
 
@@ -107,9 +109,10 @@ def sample_chain_deferred(sampler, state: ChainState, b, n_samples: int):
     sx_prev = torch.zeros((), dtype=state.x.dtype, device=state.x.device)
     q = []
     for _ in range(n_samples):
-        key, xpy, z, sx, zs_prev = sampler.step_deferred(key, xpy, z, b)
-        q.append((sx_prev + zs_prev) / npts)
-        sx_prev = sx
+        with span("pmg.chain.step"):
+            key, xpy, z, sx, zs_prev = sampler.step_deferred(key, xpy, z, b)
+            q.append((sx_prev + zs_prev) / npts)
+            sx_prev = sx
     q.append((sx_prev + sampler.deferred_final_sum(z)) / npts)
     return ChainState(x=sampler.materialize_deferred(xpy, z), key=key), torch.stack(q[1:])
 
@@ -122,11 +125,12 @@ def sample_moments(sampler, state: ChainState, b, n_samples: int, burnin: int = 
     mean = torch.zeros_like(x)
     m2 = torch.zeros_like(x)
     for i in range(burnin + n_samples):
-        key, x = sampler.step(key, x, b, aux)
-        if i >= burnin:
-            delta = x - mean
-            mean = mean + delta / (i - burnin + 1)
-            m2 = m2 + delta * (x - mean)
+        with span("pmg.chain.step"):
+            key, x = sampler.step(key, x, b, aux)
+            if i >= burnin:
+                delta = x - mean
+                mean = mean + delta / (i - burnin + 1)
+                m2 = m2 + delta * (x - mean)
     var = m2 / max(n_samples - 1, 1)
     return ChainState(x=x, key=key), mean, var
 

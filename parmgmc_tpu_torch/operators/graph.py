@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from parmgmc_tpu_torch import native, resolve_device
+from parmgmc_tpu_torch.profiling import span
 
 __all__ = ["GraphOperator", "greedy_coloring", "greedy_coloring_py", "ell_pack_py", "from_csr"]
 
@@ -159,11 +160,12 @@ class GraphOperator:
         if sweep == "symmetric":
             x = self.sor_sweep(b, x, omega, "forward")
             return self.sor_sweep(b, x, omega, "backward")
-        x = x.clone()
-        order = self.blocks if sweep == "forward" else reversed(self.blocks)
-        for s, e, vals, cols in order:
-            acc = bcast(b[s:e], x) - self._row_dot(vals, x[cols])
-            x[s:e] = (1.0 - omega) * x[s:e] + bcast(omega / self.diag[s:e], x) * acc
+        with span("pmg.graph.sor_sweep"):
+            x = x.clone()
+            order = self.blocks if sweep == "forward" else reversed(self.blocks)
+            for s, e, vals, cols in order:
+                acc = bcast(b[s:e], x) - self._row_dot(vals, x[cols])
+                x[s:e] = (1.0 - omega) * x[s:e] + bcast(omega / self.diag[s:e], x) * acc
         return x
 
     def to_csr(self):

@@ -56,6 +56,7 @@ from parmgmc_tpu_torch.operators.stencil import (
     StencilOperator,
     detect_fd_params,
 )
+from parmgmc_tpu_torch.profiling import span
 from parmgmc_tpu_torch.samplers.sor import sor_sweep
 
 __all__ = ["GibbsSampler", "build_lrc_correction"]
@@ -207,12 +208,14 @@ class GibbsSampler:
         eta = noise["eta"]
         btilde = bcast(b, eta) + bcast(ns, eta) * eta
         if self.is_lrc:
-            eta_lr = noise["eta_lr"]
-            btilde = btilde + self.lrc.B @ (bcast(self.sqrt_sigma_inv, eta_lr) * eta_lr)
+            with span("pmg.lrc"):
+                eta_lr = noise["eta_lr"]
+                btilde = btilde + self.lrc.B @ (bcast(self.sqrt_sigma_inv, eta_lr) * eta_lr)
         x = op_sweep(self.base, btilde, x, self.omega, direction)
         if self.is_lrc:
-            bty = torch.tensordot(x, self.lrc.B, dims=x.ndim) if x.ndim == self.base.ndim else self.lrc.bt_apply(x)
-            x = self._bb_apply_sub_(direction, x, bty)
+            with span("pmg.lrc"):
+                bty = torch.tensordot(x, self.lrc.B, dims=x.ndim) if x.ndim == self.base.ndim else self.lrc.bt_apply(x)
+                x = self._bb_apply_sub_(direction, x, bty)
         return x
 
     def step_with_noise(self, x, b, noises):
@@ -256,12 +259,16 @@ class GibbsSampler:
         if self.is_lrc:
             # per half-sweep the low-rank noise rides the kernel's b stream,
             # b_eff = b + B w, and the Woodbury correction follows the sweep
-            key, klr = keys.split(key)
-            w_all = _lowrank_draw(klr, self.sqrt_sigma_inv, len(dirs))
-            if b is None:  # the low-rank noise still needs a b stream
-                b = torch.zeros_like(x)
+            with span("pmg.lrc"):
+                key, klr = keys.split(key)
+                w_all = _lowrank_draw(klr, self.sqrt_sigma_inv, len(dirs))
+                if b is None:  # the low-rank noise still needs a b stream
+                    b = torch.zeros_like(x)
         for i, d in enumerate(dirs):
-            b_eff = self.lrc.b_apply_add(w_all[i], b) if self.is_lrc else b
+            b_eff = b
+            if self.is_lrc:
+                with span("pmg.lrc"):
+                    b_eff = self.lrc.b_apply_add(w_all[i], b)
             if self.fd_params is not None:
                 x = fused_rb_gibbs_sweep_fd(
                     x, b_eff, self.coeff6, self.fd_params[0], self.fd_params[1], self.omega,
@@ -273,7 +280,8 @@ class GibbsSampler:
                     sweep=d,
                 )
             if self.is_lrc:
-                x = self._bb_apply_sub_(d, x, self.lrc.bt_apply(x))
+                with span("pmg.lrc"):
+                    x = self._bb_apply_sub_(d, x, self.lrc.bt_apply(x))
         return key, x
 
     def step(self, key: int, x, b, aux=None):

@@ -98,6 +98,7 @@ from parmgmc_tpu_torch.operators.stencil import (
     galerkin_coarse_operator,
 )
 from parmgmc_tpu_torch.operators.transfer import AggregateTransfer, GeometricTransfer
+from parmgmc_tpu_torch.profiling import span
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
 from parmgmc_tpu_torch.samplers import gibbs
 from parmgmc_tpu_torch.samplers.gibbs import GibbsSampler
@@ -519,12 +520,13 @@ class MGMCSampler:
         else:
             fn = mg_sweep.fused_chain_down_2d
         s = self.smoothers[0]
-        key, k1, k2 = keys.split(key, 3)
-        out = fn(
-            x, b, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
-            keys.randint31(k1), keys.randint31(k2), sweep=s.sweep, z=z,
-            with_xsum=with_xsum, with_zsum=with_zsum,
-        )
+        with span("pmg.mgmc.down0"):
+            key, k1, k2 = keys.split(key, 3)
+            out = fn(
+                x, b, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
+                keys.randint31(k1), keys.randint31(k2), sweep=s.sweep, z=z,
+                with_xsum=with_xsum, with_zsum=with_zsum,
+            )
         return (out[0], out[1], key, *out[2:])
 
     def _fused_down(self, l: int, bl, key):
@@ -533,11 +535,12 @@ class MGMCSampler:
         from parmgmc_tpu_torch.kernels.mg_sweep import fused_zero_gibbs_restrict_fd
 
         s = self.smoothers[l]
-        key, k1, k2 = keys.split(key, 3)
-        y, rc = fused_zero_gibbs_restrict_fd(
-            bl, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
-            keys.randint31(k1), keys.randint31(k2), sweep=s.sweep,
-        )
+        with span("pmg.mgmc.tail"):
+            key, k1, k2 = keys.split(key, 3)
+            y, rc = fused_zero_gibbs_restrict_fd(
+                bl, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
+                keys.randint31(k1), keys.randint31(k2), sweep=s.sweep,
+            )
         return y, rc, key
 
     def _tail_fused_eligible(self, l: int) -> bool:
@@ -569,16 +572,19 @@ class MGMCSampler:
         for m in range(l, self.n_levels - 1):
             s = self.smoothers[m]
             params += [s.omega, s.fd_params[0], s.fd_params[1]]
-        key, k1, k2 = keys.split(key, 3)
         color0 = 0 if self.smoothers[l].sweep == "forward" else 1
-        ys, rhs = fused_tail_down(
-            bl, params, keys.randint31(k1), keys.randint31(k2), color0, shapes
-        )
-        x = torch.zeros_like(rhs)
-        for _ in range(self.n_coarse):
-            key, x = self.coarse.step(key, x, rhs)
-        for m in reversed(range(len(shapes) - 1)):
-            x = self.transfers[l + m].prolong_add(ys[m], x)
+        with span("pmg.mgmc.tail"):
+            key, k1, k2 = keys.split(key, 3)
+            ys, rhs = fused_tail_down(
+                bl, params, keys.randint31(k1), keys.randint31(k2), color0, shapes
+            )
+        with span("pmg.mgmc.coarse"):
+            x = torch.zeros_like(rhs)
+            for _ in range(self.n_coarse):
+                key, x = self.coarse.step(key, x, rhs)
+        with span("pmg.mgmc.up"):
+            for m in reversed(range(len(shapes) - 1)):
+                x = self.transfers[l + m].prolong_add(ys[m], x)
         return x
 
     def _cycle_general(self, l: int, bl, key):
@@ -588,19 +594,24 @@ class MGMCSampler:
             return self._cycle_keyed(l, bl, key)  # the coarse sample
         op = self.ops[l]
         smoother = self.smoothers[l]
-        x = torch.zeros_like(bl)
-        for _ in range(self.n_pre):
-            key, x = smoother.step(key, x, bl)
+        with span("pmg.mgmc.smooth"):
+            x = torch.zeros_like(bl)
+            for _ in range(self.n_pre):
+                key, x = smoother.step(key, x, bl)
         key, sub = keys.split(key)
-        r = self.transfers[l].restrict(bl - op.apply(x))
+        with span("pmg.mgmc.restrict"):
+            r = self.transfers[l].restrict(bl - op.apply(x))
         xc = self._cycle_general(l + 1, r, sub)
         for _ in range(1, self.gamma):  # W-cycle: iterate the coarse chain
             key, sub = keys.split(key)
-            rc = r - self.ops[l + 1].apply(xc)
+            with span("pmg.mgmc.restrict"):
+                rc = r - self.ops[l + 1].apply(xc)
             xc = xc + self._cycle_general(l + 1, rc, sub)
-        x = self.transfers[l].prolong_add(x, xc)
-        for _ in range(self.n_post):
-            key, x = smoother.step(key, x, bl)
+        with span("pmg.mgmc.up"):
+            x = self.transfers[l].prolong_add(x, xc)
+        with span("pmg.mgmc.smooth"):
+            for _ in range(self.n_post):
+                key, x = smoother.step(key, x, bl)
         return x
 
     def _cycle_keyed(self, l: int, bl, key):
@@ -608,9 +619,10 @@ class MGMCSampler:
         only where :meth:`deferred_eligible`).  LRC levels run the general
         keyed cycle: the from-zero kernels know only the base stencil."""
         if l == self.n_levels - 1:
-            x = torch.zeros_like(bl)
-            for _ in range(self.n_coarse):
-                key, x = self.coarse.step(key, x, bl)
+            with span("pmg.mgmc.coarse"):
+                x = torch.zeros_like(bl)
+                for _ in range(self.n_coarse):
+                    key, x = self.coarse.step(key, x, bl)
             return x
         if self.smoothers[l].is_lrc:
             return self._cycle_general(l, bl, key)
@@ -619,7 +631,9 @@ class MGMCSampler:
         # any other level from zero, level 0 too (fmg_init)
         y, rc, key = self._fused_down(l, bl, key)
         key, sub = keys.split(key)
-        return self.transfers[l].prolong_add(y, self._cycle_keyed(l + 1, rc, sub))
+        zc = self._cycle_keyed(l + 1, rc, sub)
+        with span("pmg.mgmc.up"):
+            return self.transfers[l].prolong_add(y, zc)
 
     def step(self, key: int, x, b, aux=None):
         """(key, x'): one keyed chain step.  ``b=None`` declares a zero RHS:
@@ -639,15 +653,20 @@ class MGMCSampler:
                 return key, self.step_with_noise(x, b, gibbs._draw(sub, shapes, x.dtype, x.device))
         key, sub = keys.split(key)
         if not self.deferred_eligible():
-            bz = torch.zeros_like(x) if b is None else bcast(b, x)
-            return key, x + self._cycle_general(0, bz - self.fine_op.apply(x), sub)
+            with span("pmg.mgmc.restrict"):
+                r = (torch.zeros_like(x) if b is None else bcast(b, x)) - self.fine_op.apply(x)
+            y = self._cycle_general(0, r, sub)
+            with span("pmg.mgmc.up"):
+                return key, x + y
         if self.smoothers[0].is_lrc:
-            xpy, rc, sub, *_ = self._lrc_down(sub, x, b)
+            with span("pmg.lrc"):
+                xpy, rc, sub, *_ = self._lrc_down(sub, x, b)
         else:
             xpy, rc, sub = self._fused_chain_down(x, b, sub)
         sub, sub2 = keys.split(sub)
         z1 = self._cycle_keyed(1, rc, sub2)
-        return key, self.transfers[0].prolong_add(xpy, z1)
+        with span("pmg.mgmc.up"):
+            return key, self.transfers[0].prolong_add(xpy, z1)
 
     def _lrc_down(self, sub: int, x, b, z=None, btx=None):
         """(x_out, rc, sub, btx_next, sx, zsum): level 0's down-phase on an
@@ -758,7 +777,8 @@ class MGMCSampler:
         z, btx = z if pair else (z, None)
         key, sub = keys.split(key)
         if self.smoothers[0].is_lrc:
-            xpy2, rc, sub, btx, sx, zsum = self._lrc_down(sub, xpy, b, z=z, btx=btx)
+            with span("pmg.lrc"):
+                xpy2, rc, sub, btx, sx, zsum = self._lrc_down(sub, xpy, b, z=z, btx=btx)
         else:
             xpy2, rc, sub, xsum, zsum = self._fused_chain_down(
                 xpy, b, sub, z=z, with_xsum=True, with_zsum=True

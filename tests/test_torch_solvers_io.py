@@ -13,7 +13,7 @@ package (CPU).
 * the two VTK writers byte for byte against JAX's on the same fields;
 * ``describe`` against JAX's text line for line on three
   configurations, the ``impl=`` token aside (it names the port's route);
-* ``profiling.trace`` writes a Chrome trace with the named scope in it.
+* ``profiling.trace`` writes a Chrome trace with a span in it.
 """
 
 import json
@@ -196,12 +196,19 @@ def test_describe_matches_jax():
 
 
 def test_profiling_trace_writes_a_file(tmp_path):
-    results = {}
-    with profiling.trace(str(tmp_path / "prof")):
-        with profiling.named_scope("port-scope"), profiling.section("s", results):
-            torch.ones(64).cumsum(0)
+    """``trace`` turns spans on for its block only, and its Chrome file
+    names the span."""
+    prev = profiling.enable(False)
+    try:
+        with profiling.trace(str(tmp_path / "prof")):
+            assert profiling.enabled()
+            with profiling.span("pmg.test.scope"):
+                torch.ones(64).cumsum(0)
+        assert not profiling.enabled()
+    finally:
+        profiling.enable(prev)
     path = tmp_path / "prof" / "trace.json"
-    assert path.exists() and results["s"] >= 0.0
+    assert path.exists()
     names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
-    assert "port-scope" in names
+    assert "pmg.test.scope" in names
     assert os.path.getsize(path) > 0
