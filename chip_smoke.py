@@ -30,12 +30,14 @@ Phases, in order; any failure raises and exits non-zero:
               kernel chain against the explicit-noise plain chain over 12000
               steps after 200 burn-in (max |z| < 10, mean |z| < 2.5, max
               relative variance gap < 0.2).
-5. deferred-- sample_chain_deferred bit-identical to sample_chain (8 steps).
+5. deferred-- sample_chain_deferred bit-identical to sample_chain (8 steps;
+              the deferred step captured in CUDA graphs on its first step
+              and replayed on the other seven).
 6. main    -- gmrf_3d(256), MGMC V(1,0), aggregate hierarchy, coarsest 512
               DOF, prior (b = None) through sample_chain_deferred: ms/cycle
               over 512 steps, tau and ESS/sec from a 4096-step mean-QOI
               chain, exactly one #1 and one #2 launch a step and no other
-              kernel,
+              kernel, every step a replay of the captured step,
               the exact law of the QOI: mean(x) ~ N(0, 1/(kappa^2 N)),
               the device time of a step by kernel, and the same keyed
               cycle with the twins in place of the kernels.
@@ -95,8 +97,9 @@ Phases, in order; any failure raises and exits non-zero:
 15. 768^3 main path -- gmrf_3d(768), MGMC V(1,0), coarsest 128 (6^3), prior
               through sample_chain_deferred: ms/cycle over 128 steps, tau and
               ESS/sec from 2048 steps, var(QOI) N in (0.8, 1.25), exactly one
-              #5 and six #3 launches a step and no other kernel, the device
-              time of a step by kernel and the idle share.
+              #5 and six #3 launches a step and no other kernel, every step
+              a replay of the captured step, the device time of a step by
+              kernel and the idle share.
 16. large-plane sweep kernels -- the marching sweep's two entries, #9 and
               #8 (FD, and streamed D: the FD diagonal times a smooth field in
               [1, 2]), against their twins at (32, 768, 768), (12, 770, 772),
@@ -144,10 +147,10 @@ Phases, in order; any failure raises and exits non-zero:
               ms/cycle over 512 steps, tau and ESS/sec from 4096 steps, the
               exact law of the QOI (mean and variance of mean(x) under the
               posterior, from the base's eigenvectors in float64), exactly
-              one #1 and four #7 launches a step and no other kernel, the
-              device time of a step by kernel and the idle share, a finite
-              state, and the same keyed steps on the twins over 8 steps
-              (state < 1e-4).
+              one #1 and four #7 launches a step and no other kernel, every
+              step a replay of the captured step, the device time of a step
+              by kernel and the idle share, a finite state, and the same
+              keyed steps, eager, on the twins over 8 steps (state < 1e-4).
 
 21. linear hierarchy -- build_hierarchy(gmrf_3d(n)) with every default
               (coarsening="linear": GeometricTransfer, the comb-probed
@@ -803,7 +806,7 @@ def phase_main(torch, dev, smp, n=N_MAIN, n_time=N_TIME, n_iact=N_IACT, want=Non
     of the chain and tail kernels > 0, or exactly want(steps) when given),
     the device time of a step by kernel and, with ``twin``, the same keyed
     cycle with the twins in place of the kernels."""
-    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch import kernels, replay
     from parmgmc_tpu_torch.chain import init_chain, sample_chain_deferred
     from parmgmc_tpu_torch.diagnostics.iact import iact
     from parmgmc_tpu_torch.kernels import mg_sweep, mg_tail
@@ -871,10 +874,12 @@ def phase_main(torch, dev, smp, n=N_MAIN, n_time=N_TIME, n_iact=N_IACT, want=Non
     if not twin:
         return counts
 
-    # the same keyed cycle with the plain twins in place of the kernels
+    # the same keyed cycle with the plain twins in place of the kernels (the
+    # eager step: a replayed graph holds the kernels)
     st = holder[0]
     with mock.patch.object(mg_sweep, "fused_chain_down_fd", mg_sweep.fused_chain_down_fd_reference), \
-            mock.patch.object(mg_tail, "fused_tail_down", mg_tail.tail_down_reference):
+            mock.patch.object(mg_tail, "fused_tail_down", mg_tail.tail_down_reference), \
+            mock.patch.object(replay, "graphs_for", lambda *a: None):
         st2, _ = sample_chain_deferred(smp, st, None, 2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1703,10 +1708,11 @@ def phase_posterior_path(torch, dev):
     """bench.py --posterior at 256^3 through sample_chain_deferred (b = f)."""
     import numpy as np
 
-    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch import kernels, keys, replay
     from parmgmc_tpu_torch.chain import init_chain, sample_chain_deferred
     from parmgmc_tpu_torch.diagnostics.iact import iact
     from parmgmc_tpu_torch.kernels import mg_sweep, rb_gibbs
+    from parmgmc_tpu_torch.kernels._noise import CHAIN_DOMAIN
     from parmgmc_tpu_torch.models.obs import make_posterior_operator
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.samplers import gibbs, mgmc
@@ -1745,7 +1751,10 @@ def phase_posterior_path(torch, dev):
     _, t_attach = timed(lambda: mgmc.attach_chain_b_response(bare))
     x0 = torch.zeros(op.grid_shape, device=dev)
     cols = [x0] + [op.B[..., j].contiguous() for j in range(k)]
-    _, t_probe = timed(lambda: [smp._fused_chain_down(x0, c, 0) for c in cols])
+    # the probe calls draw under key 0, as attach_chain_b_response's do
+    probe = keys.Words()
+    probe.launch(*keys.draw_pair(0)[1:], (CHAIN_DOMAIN,))
+    _, t_probe = timed(lambda: [smp._fused_chain_down(x0, c, probe.cursor()) for c in cols])
     print(f"  set-up: observations {t_obs:.2f} s; MGMCSampler.create {t_create:.2f} s; part by part: "
           f"hierarchy (B_c) {t_hier:.2f} s, Bb by level " + ", ".join(f"{t:.2f}" for t in t_bb)
           + f" s, coarse Cholesky {t_chol:.2f} s, rank-k matrices {t_aux:.2f} s, probe and packs "
@@ -1766,7 +1775,8 @@ def phase_posterior_path(torch, dev):
     counts = kernels.launch_counts()
     steps = N_TIME + N_IACT
     print(f"  launches during the posterior path ({steps} steps): {counts}")
-    expect = dict(dict.fromkeys(counts, 0), chain_down=steps, rb_gibbs_fd=(smp.n_levels - 2) * steps)
+    expect = dict(dict.fromkeys(counts, 0), chain_down=steps, rb_gibbs_fd=(smp.n_levels - 2) * steps,
+                  chain_step_graph=steps)
     check(counts == expect, f"the posterior path launched {counts}, expected {expect}")
     x = st.x
     check(tuple(x.shape) == op.grid_shape and bool(torch.isfinite(x).all()), "final posterior state not finite")
@@ -1815,11 +1825,13 @@ def phase_posterior_path(torch, dev):
           f"of {dt * 1e3:.4f} ms/cycle: idle share ~{idle:.3f} (profiler)")
     del carry
 
-    # the same keyed steps with the twins in place of the kernels
+    # the same keyed steps with the twins in place of the kernels (the eager
+    # step: a replayed graph holds the kernels)
     st = holder[0]
     sa, _ = sample_chain_deferred(smp, st, f, 8)
     with mock.patch.object(mg_sweep, "fused_chain_down_fd", mg_sweep.fused_chain_down_fd_reference), \
-            mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
+            mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference), \
+            mock.patch.object(replay, "graphs_for", lambda *a: None):
         sb, _ = sample_chain_deferred(smp, st, f, 8)
     rel, _ = rel_err(sa.x, sb.x)
     print(f"  8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
@@ -2308,10 +2320,12 @@ def phase_mesh_path(torch, post, prior32, prior4, w):
     print("  the mesh path launched no port kernel (no TPU kernel on this path)")
 
 
-def expect_v10(counts, steps):
+def expect_v10(counts, steps, replayed=0):
     """The launch counts of ``steps`` V(1,0) chain steps at 256^3: one #1
-    and one #2 a step, no other kernel."""
-    return dict(dict.fromkeys(counts, 0), chain_down=steps, tail_down=steps)
+    and one #2 a step, no other kernel; ``replayed`` of them replays of
+    the deferred chain's captured step."""
+    return dict(dict.fromkeys(counts, 0), chain_down=steps, tail_down=steps,
+                chain_step_graph=replayed)
 
 
 def phase_matern(torch):
@@ -3072,7 +3086,8 @@ def main():
 
     check(all(main_smp._tail_fused_eligible(l) for l in range(1, main_smp.n_levels - 1)),
           "the 256^3 hierarchy's levels below 0 do not all take the tail kernel")
-    counts = phase_main(torch, dev, main_smp, want=lambda steps: expect_v10(kernels.launch_counts(), steps))
+    counts = phase_main(torch, dev, main_smp,
+                        want=lambda steps: expect_v10(kernels.launch_counts(), steps, steps))
     phase("7. moments gates: V(2,2) and Gibbs")
     gates = phase_moments_general(torch, dev, b)
     phase("8. V(2,2) path")
@@ -3118,7 +3133,7 @@ def main():
 
     def want_big(steps):
         w = dict.fromkeys(kernels.launch_counts(), 0)
-        w.update(chain_2d_staged=steps, zero_restrict=n_smooth * steps)
+        w.update(chain_2d_staged=steps, zero_restrict=n_smooth * steps, chain_step_graph=steps)
         return w
 
     c = phase_main(torch, dev, big_smp, N_BIG, N_BIG_TIME, N_BIG_IACT, want=want_big, twin=False)

@@ -15,7 +15,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from parmgmc_tpu_torch import keys
+from parmgmc_tpu_torch import keys, replay
 from parmgmc_tpu_torch.profiling import span
 
 __all__ = [
@@ -98,10 +98,16 @@ def sample_chain_deferred(sampler, state: ChainState, b, n_samples: int):
     same keys; the recorded QOI (each sample's mean) comes from the chain
     kernel's partial sums, one step late for the carry's part: step t+1
     reports the P z part of sample t's sum while it streams z.  The
-    returned state is materialised."""
+    returned state is materialised.
+
+    On the card, a sampler's step is captured in CUDA graphs on its first
+    call and replayed from then on (:mod:`parmgmc_tpu_torch.replay`): the
+    same samples, without the host's dispatch of every op."""
     npts = math.prod(sampler.grid_shape)
     if n_samples == 0:
         return state, torch.zeros((0,), dtype=state.x.dtype, device=state.x.device)
+    graphs = replay.graphs_for(sampler, state.x, b)
+    step = sampler.step_deferred if graphs is None else graphs.stepper(sampler)
     key, xpy = state.key, state.x
     # the starting state seeds the carry (the probed posterior route
     # carries B^T x beside z, zero only for a zero start)
@@ -110,7 +116,7 @@ def sample_chain_deferred(sampler, state: ChainState, b, n_samples: int):
     q = []
     for _ in range(n_samples):
         with span("pmg.chain.step"):
-            key, xpy, z, sx, zs_prev = sampler.step_deferred(key, xpy, z, b)
+            key, xpy, z, sx, zs_prev = step(key, xpy, z, b)
             q.append((sx_prev + zs_prev) / npts)
             sx_prev = sx
     q.append((sx_prev + sampler.deferred_final_sum(z)) / npts)

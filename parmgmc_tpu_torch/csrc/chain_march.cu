@@ -180,7 +180,8 @@ __global__ void __launch_bounds__(NT, 3)
                        float* __restrict__ rc, float* __restrict__ xsum,
                        float* __restrict__ zsum, int n0, int n1, int n2, int t0, int use_tma,
                        Coeffs q, float kappa2, float hinv2, float omega, float nscale,
-                       uint32_t prefix, int color0, int row_offset, int n0g, int vlo, int vhi,
+                       uint32_t prefix_arg, const uint32_t* __restrict__ prefix_at,
+                       int color0, int row_offset, int n0g, int vlo, int vhi,
                        const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mb,
                        const __grid_constant__ CUtensorMap mz) {
@@ -198,6 +199,9 @@ __global__ void __launch_bounds__(NT, 3)
   float* zs = xs + NX * XSF * has_x;        // NZ planes of (Z1, Z2)
   float* bs = zs + NZ * ZSF * has_z;        // NB planes of (B1, B2)
   float* vs = bs + NB * BSF * has_b;        // NV planes of (R1, R2)
+  // the noise key: read from device memory when given (a replayed graph's
+  // step), else the launch argument
+  const uint32_t prefix = prefix_at ? __ldg(prefix_at) : prefix_arg;
   const int tid = threadIdx.x;
   if (tid < 7) {
     const float d = kappa2 + hinv2 * (float)tid;
@@ -534,12 +538,14 @@ __global__ void __launch_bounds__(NT, 3)
 }
 
 // t0 = planes a work item (even); use_tma: stream through TMA (else
-// cp.async); x == nullptr is the from-zero level (#3)
+// cp.async); x == nullptr is the from-zero level (#3); prefix_at, when not
+// nullptr, holds the noise key in device memory in place of prefix
 int launch(const float* x, const float* b, const float* z, float* xpy, float* rc,
            float* xsum, float* zsum, int n0, int n1, int n2, int t0, int use_tma,
            float c0lo, float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
            float kappa2, float hinv2, float omega, float nscale, unsigned int prefix,
-           int color0, int with_noise, int row_offset, int n0g, void* stream) {
+           const unsigned int* prefix_at, int color0, int with_noise, int row_offset, int n0g,
+           void* stream) {
   if (n0 <= 0 || n1 <= 0 || n2 <= 0 || (n0 | n1 | n2) & 1 || t0 <= 0 || (t0 & 1) ||
       (z && !x) || n0g <= 0 || ((row_offset | n0g) & 1))
     return (int)cudaErrorInvalidValue;
@@ -569,8 +575,8 @@ int launch(const float* x, const float* b, const float* z, float* xpy, float* rc
   const Coeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0,
                                                    use_tma, q, kappa2, hinv2, omega, nscale,
-                                                   (uint32_t)prefix, color0, row_offset, n0g,
-                                                   vlo, vhi, mx, mb, mz);
+                                                   (uint32_t)prefix, prefix_at, color0, row_offset,
+                                                   n0g, vlo, vhi, mx, mb, mz);
   return (int)cudaGetLastError();
 }
 
@@ -598,11 +604,11 @@ void pmg_chain_march_occupancy(int with_x, int with_b, int with_z, int* out) {
   const float *x, const float *b, const float *z, float *xpy, float *rc, float *xsum,      \
       float *zsum, int n0, int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,    \
       float c1lo, float c1hi, float c2lo, float c2hi, float kappa2, float hinv2,           \
-      float omega, float nscale, unsigned int prefix, int color0, int with_noise,           \
-      int row_offset, int n0g, void *stream
+      float omega, float nscale, unsigned int prefix, const unsigned int *prefix_at,       \
+      int color0, int with_noise, int row_offset, int n0g, void *stream
 #define PMG_CHAIN_PASS                                                                   \
   x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0, use_tma, c0lo, c0hi, c1lo, c1hi, c2lo, c2hi, \
-      kappa2, hinv2, omega, nscale, prefix, color0, with_noise, row_offset, n0g, stream
+      kappa2, hinv2, omega, nscale, prefix, prefix_at, color0, with_noise, row_offset, n0g, stream
 
 // #5, #4, #3
 int pmg_chain_march(PMG_CHAIN_ARGS) { return launch(PMG_CHAIN_PASS); }

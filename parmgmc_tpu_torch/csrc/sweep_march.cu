@@ -119,7 +119,8 @@ __global__ void __launch_bounds__(NT, 3)
                        const float* __restrict__ d, float* __restrict__ out,
                        int n0, int n1, int n2, int t0, int use_tma, pmg::StarCoeffs q,
                        float kappa2, float hinv2, float omega, float nscale,
-                       uint32_t prefix, int color0, int row_offset, int n0g, int vlo, int vhi,
+                       uint32_t prefix_arg, const uint32_t* __restrict__ prefix_at,
+                       int color0, int row_offset, int n0g, int vlo, int vhi,
                        const __grid_constant__ CUtensorMap mx,
                        const __grid_constant__ CUtensorMap mb,
                        const __grid_constant__ CUtensorMap md) {
@@ -136,6 +137,9 @@ __global__ void __launch_bounds__(NT, 3)
   float* xs = smem;
   float* bs = xs + NX * XSF;
   float* ys = bs + NB * nbox * BSF;
+  // the noise key: read from device memory when given (a replayed graph's
+  // step), else the launch argument
+  const uint32_t prefix = prefix_at ? __ldg(prefix_at) : prefix_arg;
   const int tid = threadIdx.x;
   const int g1 = blockIdx.y * T1, g2 = blockIdx.x * T2;
   const int o_lo = blockIdx.z * t0, o_hi = min(o_lo + t0, n0);
@@ -345,8 +349,9 @@ cudaError_t ready() {
 template <bool kStreamD>
 int launch_mode(const float* x, const float* b, const float* d, float* out, int n0, int n1,
                 int n2, int t0, int use_tma, const pmg::StarCoeffs& q, float kappa2,
-                float hinv2, float omega, float nscale, unsigned int prefix, int color0,
-                int with_noise, int row_offset, int n0g, void* stream) {
+                float hinv2, float omega, float nscale, unsigned int prefix,
+                const unsigned int* prefix_at, int color0, int with_noise, int row_offset, int n0g,
+                void* stream) {
   const int nbox = (b != nullptr) + (int)kStreamD;
   const int smem = smem_bytes(nbox);
   // the planes inside the global grid
@@ -371,21 +376,23 @@ int launch_mode(const float* x, const float* b, const float* d, float* out, int 
   const dim3 grid((n2 + T2 - 1) / T2, (n1 + T1 - 1) / T1, (n0 + t0 - 1) / t0);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(x, b, d, out, n0, n1, n2, t0, use_tma, q,
                                                    kappa2, hinv2, omega, nscale,
-                                                   (uint32_t)prefix, color0, row_offset, n0g,
-                                                   vlo, vhi, mx, mb, md);
+                                                   (uint32_t)prefix, prefix_at, color0, row_offset,
+                                                   n0g, vlo, vhi, mx, mb, md);
   return (int)cudaGetLastError();
 }
 
 int launch(const float* x, const float* b, const float* d, float* out, int n0, int n1,
            int n2, int t0, int use_tma, const pmg::StarCoeffs& q, float kappa2, float hinv2,
-           float omega, float nscale, unsigned int prefix, int color0, int with_noise,
-           int row_offset, int n0g, void* stream) {
+           float omega, float nscale, unsigned int prefix, const unsigned int* prefix_at,
+           int color0, int with_noise, int row_offset, int n0g, void* stream) {
   if (n0 <= 0 || n1 <= 0 || n2 <= 0 || t0 <= 0 || n0g <= 0) return (int)cudaErrorInvalidValue;
   if (d)
     return launch_mode<true>(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega,
-                             nscale, prefix, color0, with_noise, row_offset, n0g, stream);
+                             nscale, prefix, prefix_at, color0, with_noise, row_offset, n0g,
+                             stream);
   return launch_mode<false>(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega,
-                            nscale, prefix, color0, with_noise, row_offset, n0g, stream);
+                            nscale, prefix, prefix_at, color0, with_noise, row_offset, n0g,
+                            stream);
 }
 
 }  // namespace
@@ -414,11 +421,12 @@ int pmg_sweep_march_staged(const float* x, const float* b, const float* d, float
                            int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
                            float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
                            float hinv2, float omega, float nscale, unsigned int prefix,
-                           int color0, int with_noise, int row_offset, int n0g, void* stream) {
+                           const unsigned int* prefix_at, int color0, int with_noise,
+                           int row_offset, int n0g, void* stream) {
   if (d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, nullptr, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, row_offset, n0g, stream);
+                prefix, prefix_at, color0, with_noise, row_offset, n0g, stream);
 }
 
 // #8: d == nullptr: FD mode (D from kappa2, hinv2), else D is read from d
@@ -426,23 +434,24 @@ int pmg_sweep_march_windowed(const float* x, const float* b, const float* d, flo
                              int n0, int n1, int n2, int t0, int use_tma, float c0lo,
                              float c0hi, float c1lo, float c1hi, float c2lo, float c2hi,
                              float kappa2, float hinv2, float omega, float nscale,
-                             unsigned int prefix, int color0, int with_noise, int row_offset,
-                             int n0g, void* stream) {
+                             unsigned int prefix, const unsigned int* prefix_at, int color0,
+                             int with_noise, int row_offset, int n0g, void* stream) {
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, row_offset, n0g, stream);
+                prefix, prefix_at, color0, with_noise, row_offset, n0g, stream);
 }
 
 // #7: the full sweep below the plane limit, FD (d must be nullptr)
 int pmg_sweep_march_fd(const float* x, const float* b, const float* d, float* out, int n0,
                        int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
                        float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
-                       float hinv2, float omega, float nscale, unsigned int prefix, int color0,
-                       int with_noise, int row_offset, int n0g, void* stream) {
+                       float hinv2, float omega, float nscale, unsigned int prefix,
+                       const unsigned int* prefix_at, int color0, int with_noise, int row_offset,
+                       int n0g, void* stream) {
   if (d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, nullptr, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, row_offset, n0g, stream);
+                prefix, prefix_at, color0, with_noise, row_offset, n0g, stream);
 }
 
 // #6: the full sweep below the plane limit, D streamed (d is required)
@@ -450,11 +459,12 @@ int pmg_sweep_march_diag(const float* x, const float* b, const float* d, float* 
                          int n1, int n2, int t0, int use_tma, float c0lo, float c0hi,
                          float c1lo, float c1hi, float c2lo, float c2hi, float kappa2,
                          float hinv2, float omega, float nscale, unsigned int prefix,
-                         int color0, int with_noise, int row_offset, int n0g, void* stream) {
+                         const unsigned int* prefix_at, int color0, int with_noise,
+                         int row_offset, int n0g, void* stream) {
   if (!d) return (int)cudaErrorInvalidValue;
   const pmg::StarCoeffs q{c0lo, c0hi, c1lo, c1hi, c2lo, c2hi};
   return launch(x, b, d, out, n0, n1, n2, t0, use_tma, q, kappa2, hinv2, omega, nscale,
-                prefix, color0, with_noise, row_offset, n0g, stream);
+                prefix, prefix_at, color0, with_noise, row_offset, n0g, stream);
 }
 
 }  // extern "C"

@@ -80,6 +80,9 @@ struct Level {
 
 struct TailArgs {
   Level lv[MAX_LEVELS];
+  // each level's noise key in device memory (a replayed graph's step), in
+  // place of the levels' own prefix; nullptr: those
+  const uint32_t* prefix_at;
   int nlev, color0;
   int b_aligned;  // the first level's b (the caller's) is 8-B aligned
 };
@@ -119,9 +122,11 @@ __device__ __forceinline__ Slot slot(const Level& L, int w, int items, int chunk
   return Slot{i, row - i * L.n1, k0, k0 < L.n2};
 }
 
-// a level's tables, per link count: D, omega / D, nscale * sqrt(D)
+// a level's tables, per link count: D, omega / D, nscale * sqrt(D); and
+// its noise key
 struct Tables {
   float d[7], w[7], n[7];
+  uint32_t prefix;
 };
 
 // phase 1 at cell (i, j, k) of L (flat index id) with RHS value r
@@ -129,7 +134,7 @@ template <bool kNoise>
 __device__ __forceinline__ float noisy_colour0(const Level& L, const Tables& t, int color0,
                                                int i, int j, int k, size_t id, float r) {
   const int l = links_at(i, j, k, L.n0, L.n1, L.n2);
-  if (kNoise) r = r + t.n[l] * pmg::eta<true>(L.prefix, (uint32_t)id);
+  if (kNoise) r = r + t.n[l] * pmg::eta<true>(t.prefix, (uint32_t)id);
   return ((i + j + k) & 1) == color0 ? t.w[l] * r : r;
 }
 
@@ -280,6 +285,7 @@ __global__ void __launch_bounds__(NT, MAX_BLOCKS_PER_SM)
     tab[li].d[l] = d;
     tab[li].w[l] = L.omega / d;
     tab[li].n[l] = L.nscale * sqrtf(d);
+    if (l == 0) tab[li].prefix = a.prefix_at ? __ldg(a.prefix_at + li) : L.prefix;
   }
   __syncthreads();
   cg::grid_group grid = cg::this_grid();
@@ -333,15 +339,18 @@ void pmg_tail_grid_occupancy(int* out) {
 
 // nlev smoothed levels in one cooperative launch.  shapes: (nlev + 1) x 3
 // extents (each level halves the last; the smoothed ones even); params:
-// (omega, kappa2, hinv2, nscale) a level; prefixes: each level's noise key;
+// (omega, kappa2, hinv2, nscale) a level; prefixes: each level's noise key,
+// or, when prefix_at is not nullptr, the nlev keys in device memory there;
 // out holds, at float offsets off[3 li .. 3 li + 2] (each even), the
 // scratch v, y and rc of level li; level li + 1 reads rc of level li.
 // need: the blocks the largest phase has work for (mg_tail.tail_blocks)
 int pmg_tail_grid(const float* b, float* out, const int* shapes, const float* params,
-                  const unsigned int* prefixes, const long long* off, int nlev, int need,
-                  int color0, int with_noise, void* stream) {
+                  const unsigned int* prefixes, const unsigned int* prefix_at,
+                  const long long* off, int nlev, int need, int color0, int with_noise,
+                  void* stream) {
   if (nlev < 1 || nlev > MAX_LEVELS || need < 1) return (int)cudaErrorInvalidValue;
   TailArgs a;
+  a.prefix_at = prefix_at;
   a.nlev = nlev;
   a.color0 = color0;
   a.b_aligned = ((uintptr_t)b & 7) == 0;

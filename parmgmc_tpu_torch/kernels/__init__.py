@@ -31,8 +31,11 @@ __all__ = [
     "lib",
     "check_launch",
     "check_input",
+    "count_launches",
+    "given",
     "launch_counts",
     "occupancy",
+    "prefix_pointer",
     "reset_launch_counts",
 ]
 
@@ -58,12 +61,14 @@ _LIB = None
 # enqueues a launch per phase), the colourwise patch check (one C call, a
 # launch per colour; on no sampler path), fused_chain_down_2d_staged,
 # fused_chain_down_2d, fused_zero_gibbs_restrict_fd,
-# fused_rb_gibbs_sweep_2d_staged and fused_rb_gibbs_sweep_2d (either diagonal)
+# fused_rb_gibbs_sweep_2d_staged and fused_rb_gibbs_sweep_2d (either diagonal);
+# and chain_step_graph, the replays of a captured deferred chain step
+# (parmgmc_tpu_torch.replay), each of which also counts the kernels it holds
 _LAUNCHES = {
     "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
     "patch_sweep": 0, "patch_sweep_streamed": 0, "patch_sweep_colourwise": 0,
     "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
-    "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0,
+    "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0, "chain_step_graph": 0,
 }
 
 _P = ctypes.c_void_p
@@ -71,22 +76,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint32
 # the marching sweeps: (x, b, d, out, n0, n1, n2, t0, use_tma, six
-# coefficients, kappa2, hinv2, omega, nscale, prefix, color0, with_noise,
-# row_offset, n0_global, stream)
-_MARCH_SWEEP = ([_P] * 4 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _I, _I, _P], _I)
+# coefficients, kappa2, hinv2, omega, nscale, prefix, prefix_at (the prefix
+# in device memory, or NULL), color0, with_noise, row_offset, n0_global,
+# stream)
+_MARCH_SWEEP = ([_P] * 4 + [_I] * 5 + [_F] * 10 + [_U, _P, _I, _I, _I, _I, _P], _I)
 # the patch sweeps: (x, b, out, n0, n1, n2, kappa2, hinv2, prefixes,
 # with_noise, stream)
 _PATCH = ([_P] * 3 + [_I] * 3 + [_F] * 2 + [ctypes.POINTER(_U), _I, _P], _I)
 # the marching chain: (x, b, z, xpy, rc, xsum, zsum, n0, n1, n2, t0,
-# use_tma, six coefficients, kappa2, hinv2, omega, nscale, prefix, color0,
-# with_noise, row_offset, n0_global, stream)
-_MARCH_CHAIN = ([_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _I, _I, _I, _I, _P], _I)
+# use_tma, six coefficients, kappa2, hinv2, omega, nscale, prefix,
+# prefix_at, color0, with_noise, row_offset, n0_global, stream)
+_MARCH_CHAIN = ([_P] * 7 + [_I] * 5 + [_F] * 10 + [_U, _P, _I, _I, _I, _I, _P], _I)
 _SIGNATURES = {
     "pmg_chain_march": _MARCH_CHAIN,
     "pmg_chain_march_fd": _MARCH_CHAIN,
-    # (b, out, shapes, params, prefixes, offsets, nlev, need, color0,
-    # with_noise, stream)
-    "pmg_tail_grid": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    # (b, out, shapes, params, prefixes, prefix_at, offsets, nlev, need,
+    # color0, with_noise, stream)
+    "pmg_tail_grid": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "pmg_sweep_march_staged": _MARCH_SWEEP,
     "pmg_sweep_march_windowed": _MARCH_SWEEP,
     "pmg_sweep_march_fd": _MARCH_SWEEP,
@@ -196,11 +202,40 @@ def check_input(name: str, t, like) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def given(**kw) -> dict:
+    """The keyword arguments of ``kw`` that are not None: a replayed
+    step's ``prefix_at`` and ``out``, left out of an eager call, so that a
+    plain twin can stand in for the kernel there."""
+    return {k: v for k, v in kw.items() if v is not None}
+
+
+def prefix_pointer(prefix_at, n: int, like):
+    """The device address of a launch's hash prefixes in memory: None for
+    ``prefix_at`` None (the kernel takes the prefix by value), else the
+    address of ``prefix_at``, a contiguous int32 tensor of ``n`` words (the
+    uint32 prefixes' bits) on ``like``'s device."""
+    if prefix_at is None:
+        return None
+    if prefix_at.device != like.device or prefix_at.dtype != torch.int32:
+        raise ValueError(f"prefix_at must be int32 on {like.device}, got {prefix_at.dtype} "
+                         f"on {prefix_at.device}")
+    if prefix_at.numel() != n or not prefix_at.is_contiguous():
+        raise ValueError(f"prefix_at must hold {n} contiguous words, got {tuple(prefix_at.shape)}")
+    return prefix_at.data_ptr()
+
+
 def check_launch(err: int, name: str) -> None:
     """Count a launch of kernel ``name``; raise if it was refused."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
     _LAUNCHES[name] += 1
+
+
+def count_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel name -> launches, negative to take back) to
+    the counters: a replayed graph counts the launches it holds."""
+    for name, n in counts.items():
+        _LAUNCHES[name] += n
 
 
 def launch_counts() -> dict:

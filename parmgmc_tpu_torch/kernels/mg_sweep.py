@@ -32,6 +32,16 @@ required).  Each has its own twin; their xpy/y and rc agree bit for bit
 (the plan moves work, not arithmetic), and the partial sums are one per
 work item of the plan.
 
+The launches a step of the deferred chain holds (#1, #5, #3) take their
+noise key, the hash prefix of (seed, step), by value, or, with
+``prefix_at`` (an int32 CUDA tensor of one word), from device memory when
+the kernel runs: a captured step replayed from a CUDA graph
+(:mod:`parmgmc_tpu_torch.replay`) reads each step's key there.  The draws
+are the same either way; the twins take the prefix of seed and step.  #1
+and #5 also take ``out``, a tensor the xpy output is written to in place
+of a new one.  ``sample_chain``'s #4 (:func:`fused_chain_down_2d`) runs in
+no captured step and takes neither.
+
 Every wrapper takes ``row_offset`` and ``n0_global`` (as the JAX ones
 do): x and b are then the block of rows ``row_offset ..`` of a grid of
 ``n0_global`` rows (a halo-extended shard of
@@ -155,7 +165,7 @@ def fused_chain_down_fd_reference(
 def fused_chain_down_fd(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
-    row_offset=0, n0_global=None,
+    row_offset=0, n0_global=None, prefix_at=None, out=None,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase,
     partial sums per work item of :func:`chain_fd_plan`.
@@ -164,17 +174,17 @@ def fused_chain_down_fd(
     launch ``csrc/chain_march.cu``'s #1 entry (float32, contiguous) or
     raise."""
     if x.device.type == "cpu":
-        return fused_chain_down_fd_reference(
+        return _into(out, fused_chain_down_fd_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
             with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
             row_offset=row_offset, n0_global=n0_global,
-        )
+        ))
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
     rows = _twin.Rows(x.shape[0], row_offset, n0_global)
     _check_args(x, b, z, with_zsum, rows, with_xsum)
     return _launch_march("chain_down", x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-                         with_noise, z, with_xsum, with_zsum, rows)
+                         with_noise, z, with_xsum, with_zsum, rows, prefix_at, out)
 
 
 # -- large planes: the marching kernel (csrc/chain_march.cu) ------------------
@@ -257,19 +267,31 @@ def fused_zero_gibbs_restrict_fd_reference(
                        rows)
 
 
+def _into(out, res):
+    """``res`` with its first tensor (xpy) copied into ``out`` when given:
+    the twins' side of the wrappers' ``out``."""
+    if out is None:
+        return res
+    return (out.copy_(res[0]), *res[1:])
+
+
 def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-                  with_noise, z, with_xsum, with_zsum, rows):
+                  with_noise, z, with_xsum, with_zsum, rows, prefix_at=None, out=None):
     """Launch ``csrc/chain_march.cu`` on CUDA tensors, #1 (``counter``
     ``chain_down``) in the geometry of :func:`chain_fd_plan` through its own
     entry, the others in that of :func:`chain_plan`, on the rows ``rows``
-    (a :class:`._twin.Rows`) of the global grid; count it under
+    (a :class:`._twin.Rows`) of the global grid, the noise key from
+    ``prefix_at`` when given, xpy into ``out`` when given; count it under
     ``counter``."""
     like = b if x is None else x
     if sweep not in ("forward", "backward"):
         raise ValueError(f"chain kernel runs one forward/backward sweep, got {sweep!r}")
-    for name, t in (("x", x), ("b", b), ("z", z)):
+    for name, t in (("x", x), ("b", b), ("z", z), ("out", out)):
         if t is not None:
             kernels.check_input(name, t, like)
+    if out is not None and out.shape != like.shape:
+        raise ValueError(f"out shape {tuple(out.shape)} != x shape {tuple(like.shape)}")
+    at = kernels.prefix_pointer(prefix_at, 1, like)
     lib = kernels.lib()
     n0, n1, n2 = like.shape
     fd = counter == "chain_down"
@@ -279,7 +301,7 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
     tma = plan.tma and all((t.data_ptr() + (0 if t is z else skip)) % 16 == 0
                            for t in (x, b, z) if t is not None)
     nblk = plan.items
-    xpy = torch.empty_like(like)
+    xpy = torch.empty_like(like) if out is None else out
     rc = torch.empty((n0 // 2, n1 // 2, n2 // 2), dtype=like.dtype, device=like.device)
     xsum = torch.empty(nblk, dtype=like.dtype, device=like.device) if with_xsum else None
     zsum = torch.empty(nblk, dtype=like.dtype, device=like.device) if with_zsum else None
@@ -289,7 +311,7 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
             ptr(x), ptr(b), ptr(z), ptr(xpy), ptr(rc), ptr(xsum), ptr(zsum), n0, n1, n2,
             plan.seg, int(tma), *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _twin.noise_factor(omega),
-            _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN),
+            _noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN), at,
             0 if sweep == "forward" else 1, int(with_noise), rows.offset, rows.n0,
             torch.cuda.current_stream(like.device).cuda_stream,
         )
@@ -305,7 +327,7 @@ def _launch_march(counter, x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep
 def fused_chain_down_2d_staged(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
-    row_offset=0, n0_global=None,
+    row_offset=0, n0_global=None, prefix_at=None, out=None,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): the chain down-phase of
     :func:`fused_chain_down_fd` for large planes, by column strips marching
@@ -317,17 +339,17 @@ def fused_chain_down_2d_staged(
     tensors run the twin; CUDA tensors launch ``csrc/chain_march.cu``
     (float32, contiguous) or raise."""
     if x.device.type == "cpu":
-        return fused_chain_down_2d_staged_reference(
+        return _into(out, fused_chain_down_2d_staged_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
             with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
             row_offset=row_offset, n0_global=n0_global,
-        )
+        ))
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
     rows = _twin.Rows(x.shape[0], row_offset, n0_global)
     _check_args(x, b, z, with_zsum, rows, with_xsum)
     return _launch_march("chain_2d_staged", x, b, coeffs, kappa2, hinv2, omega, seed, step,
-                         sweep, with_noise, z, with_xsum, with_zsum, rows)
+                         sweep, with_noise, z, with_xsum, with_zsum, rows, prefix_at, out)
 
 
 def fused_chain_down_2d(
@@ -358,7 +380,7 @@ def fused_chain_down_2d(
 
 def fused_zero_gibbs_restrict_fd(
     b, coeffs, kappa2, hinv2, omega, seed, step, *, sweep="forward", with_noise=True,
-    row_offset=0, n0_global=None,
+    row_offset=0, n0_global=None, prefix_at=None,
 ):
     """(y, rc): one level's down-phase from zero -- y the red/black sweep
     from zero of b~ = b + noise, rc = R(b - A y) -- the chain down-phase
@@ -378,4 +400,4 @@ def fused_zero_gibbs_restrict_fd(
     rows = _twin.Rows(b.shape[0], row_offset, n0_global)
     _check_args(b, b, None, False, rows)
     return _launch_march("zero_restrict", None, b, coeffs, kappa2, hinv2, omega, seed, step,
-                         sweep, with_noise, None, False, False, rows)
+                         sweep, with_noise, None, False, False, rows, prefix_at)

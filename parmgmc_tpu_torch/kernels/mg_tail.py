@@ -13,7 +13,10 @@ the duplicated (n0, S1, 128) layout existed for Mosaic's lane tiling.
 On the GPU one call is ONE cooperative launch of ``csrc/tail_grid.cu``
 for every level, as the TPU kernel is one launch: the whole grid works on
 one level at a time, a grid barrier between levels (the source note says
-why, and what bounds it).  The outputs are views of one buffer.
+why, and what bounds it).  The outputs are views of one buffer.  The
+launch takes each level's hash prefix by value, or, with ``prefix_at`` (an
+int32 CUDA tensor of one word a level), from device memory when it runs
+(a step replayed from a CUDA graph, :mod:`parmgmc_tpu_torch.replay`).
 :func:`tail_down_reference` is the twin, and matches the JAX
 ``tail_down_reference`` with the noise on, up to transcendental rounding.
 """
@@ -123,7 +126,8 @@ def _layout(shapes) -> _Layout:
     return _Layout(shapes)
 
 
-def fused_tail_down(bl, level_params, seed, step, color0, shapes, with_noise=True):
+def fused_tail_down(bl, level_params, seed, step, color0, shapes, with_noise=True,
+                    prefix_at=None):
     """([y_0 .. y_{L-1}], coarse_rhs): the whole MGMC tail down-phase.
 
     ``shapes`` are the L smoothed true grid shapes and the coarse one;
@@ -144,6 +148,7 @@ def fused_tail_down(bl, level_params, seed, step, color0, shapes, with_noise=Tru
     if L > MAX_LEVELS:
         raise ValueError(f"the tail kernel takes at most {MAX_LEVELS} smoothed levels, got {L}")
     lay = _layout(shapes)
+    at = kernels.prefix_pointer(prefix_at, L, bl)
     buf = torch.empty(lay.total, dtype=bl.dtype, device=bl.device)
     params = (ctypes.c_float * (4 * L))()
     prefixes = (ctypes.c_uint32 * L)()
@@ -153,7 +158,7 @@ def fused_tail_down(bl, level_params, seed, step, color0, shapes, with_noise=Tru
         prefixes[li] = _noise.hash_prefix(seed, step, _noise.TAIL_DOMAIN + li)
     with torch.cuda.device(bl.device):
         err = kernels.lib().pmg_tail_grid(
-            bl.data_ptr(), buf.data_ptr(), lay.shapes, params, prefixes, lay.off, L,
+            bl.data_ptr(), buf.data_ptr(), lay.shapes, params, prefixes, at, lay.off, L,
             lay.blocks, int(color0), int(with_noise),
             torch.cuda.current_stream(bl.device).cuda_stream,
         )

@@ -31,7 +31,10 @@ in the launch geometry of :func:`sweep_plan`; the others run #7 (FD) or
 segments fill the card on the smaller grids.  The plan moves work, not
 arithmetic: every route computes the same function with the same draws,
 bit for bit.  The Mosaic tile gates are not copied: the CUDA kernels take
-any 3D shape.
+any 3D shape.  Each CUDA launch takes the hash prefix of (seed, step) by
+value, or, with ``prefix_at`` (an int32 CUDA tensor of one word), from
+device memory when it runs (a step replayed from a CUDA graph,
+:mod:`parmgmc_tpu_torch.replay`); the draws are the same either way.
 """
 
 from __future__ import annotations
@@ -156,12 +159,12 @@ def _full_sweep_plan(shape) -> _march.MarchPlan:
 
 
 def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sweep,
-            with_noise, counter, entry, plan, rows=None):
+            with_noise, counter, entry, plan, rows=None, prefix_at=None):
     """Launch the C function ``entry`` (an entry point of
     ``csrc/sweep_march.cu``) on CUDA tensors in the geometry of ``plan``
     (a :class:`_march.MarchPlan`), on the rows ``rows`` (a
-    :class:`._twin.Rows`; the whole grid when None) of the global grid;
-    count it under ``counter``."""
+    :class:`._twin.Rows`; the whole grid when None) of the global grid, the
+    noise key from ``prefix_at`` when given; count it under ``counter``."""
     if x.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {x.device}")
     color0 = _color0(sweep)
@@ -170,6 +173,7 @@ def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sw
     for name, t in (("x", x), ("b", b), ("diag", diag)):
         if t is not None:
             kernels.check_input(name, t, x)
+    at = kernels.prefix_pointer(prefix_at, 1, x)
     lib = kernels.lib()
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -182,7 +186,7 @@ def _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult, sw
             ptr(x), ptr(b), ptr(diag), ptr(out), *x.shape, *geometry,
             *(_twin.f32(v) for v in coeffs), kappa2, hinv2, omega,
             _nscale(omega, noise_mult),
-            _noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN),
+            _noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN), at,
             color0, int(with_noise), rows.offset, rows.n0,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -196,7 +200,7 @@ def _large_plane(x) -> bool:
 
 def fused_rb_gibbs_sweep_fd(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True, row_offset=0, n0_global=None,
+    sweep="forward", with_noise=True, row_offset=0, n0_global=None, prefix_at=None,
 ):
     """x': one stochastic red/black sweep of the link-count FD operator
     (kappa2, hinv2) with off-diagonals ``coeffs``; x holds rows
@@ -212,7 +216,7 @@ def fused_rb_gibbs_sweep_fd(
         return fused_rb_gibbs_sweep_2d(
             x, b, None, coeffs, omega, seed, step, noise_mult, sweep=sweep,
             with_noise=with_noise, fd_params=(kappa2, hinv2), row_offset=row_offset,
-            n0_global=n0_global,
+            n0_global=n0_global, prefix_at=prefix_at,
         )
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_fd_reference(
@@ -221,12 +225,13 @@ def fused_rb_gibbs_sweep_fd(
         )
     return _launch(x, b, None, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs_fd", "pmg_sweep_march_fd",
-                   full_sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global))
+                   full_sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global),
+                   prefix_at)
 
 
 def fused_rb_gibbs_sweep(
     x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
-    sweep="forward", with_noise=True,
+    sweep="forward", with_noise=True, prefix_at=None,
 ):
     """x': one stochastic red/black sweep of the star stencil with the
     diagonal field ``diag`` and off-diagonals ``coeffs``.
@@ -239,7 +244,7 @@ def fused_rb_gibbs_sweep(
     if _large_plane(x):
         return fused_rb_gibbs_sweep_2d(
             x, b, diag, coeffs, omega, seed, step, noise_mult, sweep=sweep,
-            with_noise=with_noise,
+            with_noise=with_noise, prefix_at=prefix_at,
         )
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_reference(
@@ -250,7 +255,7 @@ def fused_rb_gibbs_sweep(
         raise ValueError("fused_rb_gibbs_sweep streams the diagonal: diag is required")
     return _launch(x, b, diag, coeffs, 0.0, 0.0, omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs", "pmg_sweep_march_diag",
-                   full_sweep_plan(x.shape))
+                   full_sweep_plan(x.shape), prefix_at=prefix_at)
 
 
 # -- large planes: the marching sweep kernel (csrc/sweep_march.cu) ------------
@@ -297,7 +302,7 @@ def fused_rb_gibbs_sweep_2d_staged_reference(
 def fused_rb_gibbs_sweep_2d(
     x, b, diag, coeffs, omega, seed, step, noise_mult=1.0, *,
     sweep="forward", with_noise=True, fd_params=None, staged=True, row_offset=0,
-    n0_global=None,
+    n0_global=None, prefix_at=None,
 ):
     """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` (``fd_params`` =
     (kappa2, hinv2), ``diag`` None) or of :func:`fused_rb_gibbs_sweep`
@@ -319,7 +324,7 @@ def fused_rb_gibbs_sweep_2d(
         return fused_rb_gibbs_sweep_2d_staged(
             x, b, coeffs, omega, seed, step, noise_mult, sweep=sweep,
             with_noise=with_noise, fd_params=fd_params, row_offset=row_offset,
-            n0_global=n0_global,
+            n0_global=n0_global, prefix_at=prefix_at,
         )
     if x.device.type == "cpu":
         return fused_rb_gibbs_sweep_2d_reference(
@@ -330,12 +335,14 @@ def fused_rb_gibbs_sweep_2d(
     kappa2, hinv2 = (0.0, 0.0) if fd_params is None else _fd_pair(fd_params)
     return _launch(x, b, diag, coeffs, kappa2, hinv2, omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs_2d", "pmg_sweep_march_windowed",
-                   sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global))
+                   sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global),
+                   prefix_at)
 
 
 def fused_rb_gibbs_sweep_2d_staged(
     x, b, coeffs, omega, seed, step, noise_mult=1.0, *,
     sweep="forward", with_noise=True, fd_params=None, row_offset=0, n0_global=None,
+    prefix_at=None,
 ):
     """x': the sweep of :func:`fused_rb_gibbs_sweep_fd` with ``fd_params`` =
     (kappa2, hinv2) for large planes, by column strips marching down
@@ -357,4 +364,5 @@ def fused_rb_gibbs_sweep_2d_staged(
         )
     return _launch(x, b, None, coeffs, *_fd_pair(fd_params), omega, seed, step, noise_mult,
                    sweep, with_noise, "rb_gibbs_2d_staged", "pmg_sweep_march_staged",
-                   sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global))
+                   sweep_plan(x.shape), _twin.Rows(x.shape[0], row_offset, n0_global),
+                   prefix_at)

@@ -214,7 +214,9 @@ class FDStencilOperator(StencilOperator):
 
     @property
     def coeffs(self) -> tuple:
-        c = torch.tensor(-self.hinv2, dtype=self._dtype, device=self._device)
+        # made on the device (no copy from the host, which a captured step
+        # could not hold)
+        c = torch.full((), -self.hinv2, dtype=self._dtype, device=self._device)
         return tuple(c for _ in self.offsets)
 
     def fd_params(self) -> tuple:

@@ -2,8 +2,9 @@
 and ``SparseTransfer`` in ``parmgmc_tpu.operators.transfer``).
 
 Both implement ``prolong(xc) -> xf``, ``restrict(xf) -> xc`` with
-restrict = prolong^T and ``prolong_add(y, xc) = y + prolong(xc)``, the
-grid in the leading ``len(fine_shape)`` dims.
+restrict = prolong^T and ``prolong_add(y, xc, out=None) = y + prolong(xc)``
+(written into ``out`` when given), the grid in the leading
+``len(fine_shape)`` dims.
 
 :class:`GeometricTransfer` is the linear interpolation and full weighting
 of :mod:`parmgmc_tpu_torch.operators.stencil` (``coarsening="linear"``,
@@ -47,8 +48,8 @@ class GeometricTransfer:
     def restrict(self, xf: torch.Tensor) -> torch.Tensor:
         return _st.restrict(xf, len(self.fine_shape))
 
-    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
-        return y + self.prolong(xc)
+    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor, out=None) -> torch.Tensor:
+        return torch.add(y, self.prolong(xc), out=out)
 
 
 def _agg_up_1d(c: torch.Tensor, axis: int, nf: int) -> torch.Tensor:
@@ -99,14 +100,16 @@ class AggregateTransfer:
             y = _agg_down_1d(y, axis)
         return y
 
-    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
+    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor, out=None) -> torch.Tensor:
         """y + P xc in one broadcast pass on even grids (the same single
-        add per element as ``y + prolong(xc)``, so the same bits)."""
+        add per element as ``y + prolong(xc)``, so the same bits), into
+        ``out`` (contiguous) when given."""
         if not self._even() or y.ndim != len(self.fine_shape):
-            return y + self.prolong(xc)
-        split = itertools.chain.from_iterable((s // 2, 2) for s in self.fine_shape)
+            return torch.add(y, self.prolong(xc), out=out)
+        split = tuple(itertools.chain.from_iterable((s // 2, 2) for s in self.fine_shape))
         cview = itertools.chain.from_iterable((s, 1) for s in xc.shape)
-        return (y.reshape(*split) + xc.reshape(*cview)).reshape(self.fine_shape)
+        dst = None if out is None else out.view(split)
+        return torch.add(y.reshape(split), xc.reshape(*cview), out=dst).reshape(self.fine_shape)
 
 
 def _ell_apply(vals, cols, x):
@@ -132,8 +135,8 @@ class SparseTransfer:
     def restrict(self, xf: torch.Tensor) -> torch.Tensor:
         return _ell_apply(self.pt_vals, self.pt_cols, xf)
 
-    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor) -> torch.Tensor:
-        return y + self.prolong(xc)
+    def prolong_add(self, y: torch.Tensor, xc: torch.Tensor, out=None) -> torch.Tensor:
+        return torch.add(y, self.prolong(xc), out=out)
 
 
 def _ell_from_csr(M):

@@ -293,7 +293,7 @@ def make_sharded_mgmc_step(sampler: MGMCSampler, mesh: Mesh, axis_name: str = "x
         if is_lrc:
             # the rank-k terms: block-local contractions, one psum each
             k = op0.k
-            w = (_lowrank_draw(kw, sqrt_sig, 1)[0] if with_noise
+            w = (_lowrank_draw(keys.generator(kw, sqrt_sig.device), sqrt_sig, 1)[0] if with_noise
                  else torch.zeros(k, dtype=dtype, device=slots[0]))
             ws = [w.to(d, non_blocking=True) for d in slots]
             btx = psum([torch.tensordot(B, x, dims=ax3) for B, x in zip(B_l, xs)])

@@ -94,12 +94,26 @@ class CholeskySampler:
             y = self.Li.T @ w
         return y.reshape(tuple(self.grid_shape) + tuple(w.shape[1:]))
 
-    def step(self, key: int, x, b, aux=None):
+    def step_words(self, key: int, words) -> int:
+        """Append the keyed step's one generator seed under ``key`` to
+        ``words`` (a :class:`~parmgmc_tpu_torch.keys.Words`); return the
+        next key."""
         key, sub = keys.split(key)
-        g = keys.generator(sub, self.L.device)
+        words.seed(sub)
+        return key
+
+    def step_from(self, cur, x, b, aux=None):
+        """The keyed step on the words of :meth:`step_words`, read through
+        the cursor ``cur``."""
         shape = (self.n,) + self._batch(x)
-        eta = torch.randn(shape, generator=g, dtype=self.dtype, device=self.L.device)
-        return key, self.step_with_noise(x, b, [{"eta": eta}], aux)
+        eta = torch.randn(shape, generator=cur.generator(self.L.device), dtype=self.dtype,
+                          device=self.L.device)
+        return self.step_with_noise(x, b, [{"eta": eta}], aux)
+
+    def step(self, key: int, x, b, aux=None):
+        words = keys.Words()
+        key = self.step_words(key, words)
+        return key, self.step_from(words.cursor(), x, b, aux)
 
 
 class SparseCholeskySampler:

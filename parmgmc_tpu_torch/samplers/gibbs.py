@@ -15,6 +15,10 @@ from the sweep's own iteration operator M (:func:`build_lrc_correction`).
 The keyed step feeds b + B w to the sweep kernel's b stream and applies
 the rank-k correction in plain torch, on the device; the k draws of w
 come from one generator seeded by the step's key (:func:`_lowrank_draw`).
+The keyed step derives its integers (each launch's seed and step, each
+generator's seed) in :meth:`GibbsSampler.step_words` and runs on them in
+:meth:`GibbsSampler.step_from`, the form an MGMC step replayed from a
+CUDA graph shares.
 
 ``step_with_noise(x, b, noises)`` is the deterministic affine map given
 explicit standard-normal draws -- the oracle side of the tests and the
@@ -46,7 +50,8 @@ from dataclasses import dataclass
 
 import torch
 
-from parmgmc_tpu_torch import keys
+from parmgmc_tpu_torch import kernels, keys
+from parmgmc_tpu_torch.kernels._noise import SWEEP_DOMAIN
 from parmgmc_tpu_torch.kernels._twin import f32, noise_factor
 from parmgmc_tpu_torch.kernels.rb_gibbs import fused_rb_gibbs_sweep, fused_rb_gibbs_sweep_fd
 from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
@@ -87,11 +92,10 @@ def build_lrc_correction(base, B, sigma_inv, omega: float, sweep: str):
     return C @ Sb
 
 
-def _lowrank_draw(key: int, scale, n: int):
-    """(n, k) draws of w = sqrt(Sigma^{-1}) eta, eta ~ N(0, I), from one
-    generator seeded by ``key`` on ``scale``'s device (``scale`` is
-    sqrt(Sigma^{-1}), (k,)); nothing is read back to the host."""
-    g = keys.generator(key, scale.device)
+def _lowrank_draw(g, scale, n: int):
+    """(n, k) draws of w = sqrt(Sigma^{-1}) eta, eta ~ N(0, I), from the
+    generator ``g`` on ``scale``'s device (``scale`` is sqrt(Sigma^{-1}),
+    (k,)); nothing is read back to the host."""
     eta = torch.randn((n, scale.shape[0]), generator=g, dtype=scale.dtype, device=scale.device)
     return scale * eta
 
@@ -251,20 +255,51 @@ class GibbsSampler:
             return "torch"
         return "fused_rb_gibbs_sweep_fd" if self.fd_params is not None else "fused_rb_gibbs_sweep"
 
-    def _fused_step(self, key: int, x, b):
-        key, k1, k2 = keys.split(key, 3)
-        # 62 bits of per-step keying; the kernel hashes (seed, step, index)
-        seed, extra = keys.randint31(k1), keys.randint31(k2)
-        dirs = ("forward", "backward") if self.sweep == "symmetric" else (self.sweep,)
+    def _dirs(self) -> tuple:
+        return ("forward", "backward") if self.sweep == "symmetric" else (self.sweep,)
+
+    def step_words(self, key: int, words) -> int:
+        """Append to ``words`` (a :class:`~parmgmc_tpu_torch.keys.Words`) the
+        integers the keyed step under ``key`` hands the device, and return
+        the next key: on the kernel route the low-rank draw's seed (LRC)
+        and each half-sweep's launch, 62 bits of per-step keying (the kernel
+        hashes (seed, step, index)); the plain route draws from its key on
+        the host (``Words.defer``)."""
+        if not self.has_kernel:
+            words.defer(key)
+            return keys.split(key)[0]
+        key, seed, extra = keys.draw_pair(key)
+        if self.is_lrc:
+            key, klr = keys.split(key)
+            words.seed(klr)
+        for i in range(len(self._dirs())):
+            words.launch(seed, extra * 2 + i, (SWEEP_DOMAIN,))
+        return key
+
+    def step_from(self, cur, x, b):
+        """x': the keyed step on the words of :meth:`step_words`, read
+        through the cursor ``cur``."""
+        if self.has_kernel:
+            return self._fused_step(cur, x, b)
+        return self._plain_step(cur.key(), x, b)[1]
+
+    def _plain_step(self, key: int, x, b):
+        key, sub = keys.split(key)
+        shapes = with_batch(self.noise_shapes(), x.shape[len(self.grid_shape):])
+        return key, self.step_with_noise(x, b, _draw(sub, shapes, x.dtype, x.device))
+
+    def _fused_step(self, cur, x, b):
+        dirs = self._dirs()
         if self.is_lrc:
             # per half-sweep the low-rank noise rides the kernel's b stream,
             # b_eff = b + B w, and the Woodbury correction follows the sweep
             with span("pmg.lrc"):
-                key, klr = keys.split(key)
-                w_all = _lowrank_draw(klr, self.sqrt_sigma_inv, len(dirs))
+                scale = self.sqrt_sigma_inv
+                w_all = _lowrank_draw(cur.generator(scale.device), scale, len(dirs))
                 if b is None:  # the low-rank noise still needs a b stream
                     b = torch.zeros_like(x)
         for i, d in enumerate(dirs):
+            seed, step, at = cur.launch()
             b_eff = b
             if self.is_lrc:
                 with span("pmg.lrc"):
@@ -272,28 +307,29 @@ class GibbsSampler:
             if self.fd_params is not None:
                 x = fused_rb_gibbs_sweep_fd(
                     x, b_eff, self.coeff6, self.fd_params[0], self.fd_params[1], self.omega,
-                    seed, extra * 2 + i, sweep=d,
+                    seed, step, sweep=d, **kernels.given(prefix_at=at),
                 )
             else:
                 x = fused_rb_gibbs_sweep(
-                    x, b_eff, self.base.diag, self.coeff6, self.omega, seed, extra * 2 + i,
-                    sweep=d,
+                    x, b_eff, self.base.diag, self.coeff6, self.omega, seed, step,
+                    sweep=d, **kernels.given(prefix_at=at),
                 )
             if self.is_lrc:
                 with span("pmg.lrc"):
                     x = self._bb_apply_sub_(d, x, self.lrc.bt_apply(x))
-        return key, x
+        return x
 
     def step(self, key: int, x, b, aux=None):
-        """(key, x'): one keyed Gibbs iteration.  ``b=None`` declares a
-        zero RHS (the kernels then read no b).  ``x`` may carry trailing
-        chain dims on the plain route; a kernel sampler refuses them."""
-        batch = x.shape[len(self.grid_shape):]
-        if self.has_kernel:
-            refuse_batch(self, batch)
-            return self._fused_step(key, x, b)
-        key, sub = keys.split(key)
-        return key, self.step_with_noise(x, b, _draw(sub, with_batch(self.noise_shapes(), batch), x.dtype, x.device))
+        """(key, x'): one keyed Gibbs iteration (:meth:`step_words`, then
+        :meth:`step_from`).  ``b=None`` declares a zero RHS (the kernels
+        then read no b).  ``x`` may carry trailing chain dims on the plain
+        route; a kernel sampler refuses them."""
+        if not self.has_kernel:
+            return self._plain_step(key, x, b)
+        refuse_batch(self, x.shape[len(self.grid_shape):])
+        words = keys.Words()
+        key = self.step_words(key, words)
+        return key, self._fused_step(words.cursor(), x, b)
 
 
 def refuse_batch(sampler, batch) -> None:

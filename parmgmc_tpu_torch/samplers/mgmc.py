@@ -32,6 +32,14 @@ Three routes through the same sampler:
   plain torch), residuals, transfers and the coarse sample in plain torch,
   gamma coarse iterations per level.
 
+The kernel route's keyed step derives every integer it hands the device
+(each launch's seed and step, each generator's seed) from its key in
+:meth:`MGMCSampler.keyed_words`, before any device work, and runs on them
+through a cursor (:class:`~parmgmc_tpu_torch.keys.Cursor`): ``step``,
+``step_deferred`` and a deferred step replayed from a captured CUDA graph
+(:mod:`parmgmc_tpu_torch.replay`) take their draws from that one
+derivation.
+
 On an LRC (posterior) operator A + B Sigma^{-1} B^T every level is LRC
 (B_c = P^T B).  The V(1,0) chain keeps level 0 on the unchanged chain
 kernel with rank-k corrections around it (:meth:`MGMCSampler._lrc_down`),
@@ -76,7 +84,8 @@ from dataclasses import dataclass
 
 import torch
 
-from parmgmc_tpu_torch import keys
+from parmgmc_tpu_torch import kernels, keys
+from parmgmc_tpu_torch.kernels._noise import CHAIN_DOMAIN, TAIL_DOMAIN
 from parmgmc_tpu_torch.operators.aggregation import aggregation_hierarchy
 from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
 from parmgmc_tpu_torch.operators.lrc import (
@@ -263,7 +272,10 @@ def attach_chain_b_response(smp, max_fill: float = 0.5):
     gshape = tuple(smp.grid_shape)
     d = len(gshape)
     x0 = torch.zeros(gshape, dtype=op0.dtype, device=op0.device)
-    xpy0, rc0, _ = smp._fused_chain_down(x0, x0, 0)
+    # every probe call draws under one key (0)
+    probe = keys.Words()
+    probe.launch(*keys.draw_pair(0)[1:], (CHAIN_DOMAIN,))
+    xpy0, rc0 = smp._fused_chain_down(x0, x0, probe.cursor())
     cshape = tuple(rc0.shape)
     fine, coarse, btmb, colsum = [], [], [], []
     for j in range(op0.k):
@@ -272,7 +284,7 @@ def attach_chain_b_response(smp, max_fill: float = 0.5):
         if peak == 0.0:
             raise ValueError(f"column {j} of B is zero everywhere: it observes nothing")
         s_j = 1e6 / peak
-        xpyj, rcj, _ = smp._fused_chain_down(x0, (col * s_j).contiguous(), 0)
+        xpyj, rcj = smp._fused_chain_down(x0, (col * s_j).contiguous(), probe.cursor())
         dm, dr = (xpyj - xpy0) / s_j, (rcj - rc0) / s_j
         bm, br = nonzero_bounds(dm), nonzero_bounds(dr)
         if bm is None or br is None:
@@ -503,14 +515,15 @@ class MGMCSampler:
         gs = self.grid_shape
         return chain_down_2d_supported(gs) and gs[1] * gs[2] > _PLANE_LIMIT
 
-    def _fused_chain_down(self, x, b, key, z=None, with_xsum=False, with_zsum=False):
-        """(xpy, rc, key, *partials): the level-0 chain kernel -- #1 up to
+    def _fused_chain_down(self, x, b, cur, z=None, with_xsum=False, with_zsum=False, out=None):
+        """(xpy, rc, *partials): the level-0 chain kernel -- #1 up to
         ``_PLANE_LIMIT`` points a plane; above it the staged kernel when
         the deferred carry ``z`` is given (step_deferred), the windowed
-        one when not (step).  This is the ONLY place its seed and step are
-        derived from the key -- step and step_deferred both come through
-        here, which keeps their sample sequences bit-identical (the three
-        kernels compute the same function with the same draws)."""
+        one when not (step) -- on the next launch of the cursor ``cur``
+        (xpy into ``out`` when given).  step and step_deferred both come
+        through here on the words of :meth:`keyed_words`, which keeps their
+        sample sequences bit-identical (the three kernels compute the same
+        function with the same draws)."""
         from parmgmc_tpu_torch.kernels import mg_sweep
 
         if not self._chain_level0_2d():
@@ -521,27 +534,26 @@ class MGMCSampler:
             fn = mg_sweep.fused_chain_down_2d
         s = self.smoothers[0]
         with span("pmg.mgmc.down0"):
-            key, k1, k2 = keys.split(key, 3)
-            out = fn(
-                x, b, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
-                keys.randint31(k1), keys.randint31(k2), sweep=s.sweep, z=z,
-                with_xsum=with_xsum, with_zsum=with_zsum,
+            seed, step, at = cur.launch()
+            return fn(
+                x, b, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega, seed, step,
+                sweep=s.sweep, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
+                **kernels.given(prefix_at=at, out=out),
             )
-        return (out[0], out[1], key, *out[2:])
 
-    def _fused_down(self, l: int, bl, key):
-        """(y, rc, key): level l's down-phase from zero in one
-        ``fused_zero_gibbs_restrict_fd`` launch."""
+    def _fused_down(self, l: int, bl, cur):
+        """(y, rc): level l's down-phase from zero in one
+        ``fused_zero_gibbs_restrict_fd`` launch, on the next launch of
+        ``cur``."""
         from parmgmc_tpu_torch.kernels.mg_sweep import fused_zero_gibbs_restrict_fd
 
         s = self.smoothers[l]
         with span("pmg.mgmc.tail"):
-            key, k1, k2 = keys.split(key, 3)
-            y, rc = fused_zero_gibbs_restrict_fd(
-                bl, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega,
-                keys.randint31(k1), keys.randint31(k2), sweep=s.sweep,
+            seed, step, at = cur.launch()
+            return fused_zero_gibbs_restrict_fd(
+                bl, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega, seed, step,
+                sweep=s.sweep, **kernels.given(prefix_at=at),
             )
-        return y, rc, key
 
     def _tail_fused_eligible(self, l: int) -> bool:
         """Do levels l .. L-2 run on the tail kernel?  The JAX
@@ -561,10 +573,11 @@ class MGMCSampler:
         n0, n1, n2 = self.ops[l].grid_shape
         return n2 <= 128 and 128 % n2 == 0 and n0 * n1 * 128 <= 128**3
 
-    def _fused_tail_cycle(self, l: int, bl, key):
-        """One keyed cycle over levels l .. coarsest: the smoothed levels'
-        down-phases in the tail kernel, the coarse sample and the up-phase
-        adds z_m = y_m + P z_{m+1} in plain torch."""
+    def _fused_tail_cycle(self, l: int, bl, cur, out=None):
+        """One keyed cycle over levels l .. coarsest on the cursor ``cur``:
+        the smoothed levels' down-phases in the tail kernel, the coarse
+        sample and the up-phase adds z_m = y_m + P z_{m+1} in plain torch
+        (z_l into ``out`` when given)."""
         from parmgmc_tpu_torch.kernels.mg_tail import fused_tail_down
 
         shapes = tuple(tuple(self.ops[m].grid_shape) for m in range(l, self.n_levels))
@@ -574,24 +587,39 @@ class MGMCSampler:
             params += [s.omega, s.fd_params[0], s.fd_params[1]]
         color0 = 0 if self.smoothers[l].sweep == "forward" else 1
         with span("pmg.mgmc.tail"):
-            key, k1, k2 = keys.split(key, 3)
-            ys, rhs = fused_tail_down(
-                bl, params, keys.randint31(k1), keys.randint31(k2), color0, shapes
-            )
-        with span("pmg.mgmc.coarse"):
-            x = torch.zeros_like(rhs)
-            for _ in range(self.n_coarse):
-                key, x = self.coarse.step(key, x, rhs)
+            seed, step, at = cur.launch()
+            ys, rhs = fused_tail_down(bl, params, seed, step, color0, shapes,
+                                      **kernels.given(prefix_at=at))
+        x = self._coarse_sample(rhs, cur)
         with span("pmg.mgmc.up"):
             for m in reversed(range(len(shapes) - 1)):
-                x = self.transfers[l + m].prolong_add(ys[m], x)
+                x = self.transfers[l + m].prolong_add(ys[m], x, out=out if m == 0 else None)
         return x
+
+    def _coarse_sample(self, bl, cur):
+        """The coarsest level's sample from zero, n_coarse steps of the
+        coarse sampler on the cursor ``cur``: a Cholesky sampler's on its
+        words, any other's keyed from the key there."""
+        with span("pmg.mgmc.coarse"):
+            x = torch.zeros_like(bl)
+            if not isinstance(self.coarse, CholeskySampler):
+                key = cur.key()
+                for _ in range(self.n_coarse):
+                    key, x = self.coarse.step(key, x, bl)
+                return x
+            for _ in range(self.n_coarse):
+                x = self.coarse.step_from(cur, x, bl)
+            return x
 
     def _cycle_general(self, l: int, bl, key):
         """Keyed cycle from zero at level l through the smoothers' keyed
         steps (``parmgmc_tpu`` ``_cycle_keyed``, general branch)."""
-        if l == self.n_levels - 1:
-            return self._cycle_keyed(l, bl, key)  # the coarse sample
+        if l == self.n_levels - 1:  # the coarse sample
+            with span("pmg.mgmc.coarse"):
+                x = torch.zeros_like(bl)
+                for _ in range(self.n_coarse):
+                    key, x = self.coarse.step(key, x, bl)
+            return x
         op = self.ops[l]
         smoother = self.smoothers[l]
         with span("pmg.mgmc.smooth"):
@@ -614,26 +642,106 @@ class MGMCSampler:
                 key, x = smoother.step(key, x, bl)
         return x
 
-    def _cycle_keyed(self, l: int, bl, key):
+    def _cycle_keyed(self, l: int, bl, cur, out=None):
         """Keyed V(1,0) cycle from zero at level l (kernels throughout;
-        only where :meth:`deferred_eligible`).  LRC levels run the general
-        keyed cycle: the from-zero kernels know only the base stencil."""
+        only where :meth:`deferred_eligible`) on the cursor ``cur`` (the
+        words of :meth:`_cycle_words`), into ``out`` when given.  LRC levels
+        run the general keyed cycle (:meth:`_cycle_lrc`): the from-zero
+        kernels know only the base stencil."""
         if l == self.n_levels - 1:
-            with span("pmg.mgmc.coarse"):
-                x = torch.zeros_like(bl)
-                for _ in range(self.n_coarse):
-                    key, x = self.coarse.step(key, x, bl)
-            return x
+            x = self._coarse_sample(bl, cur)
+            return x if out is None else out.copy_(x)
         if self.smoothers[l].is_lrc:
-            return self._cycle_general(l, bl, key)
+            return self._cycle_lrc(l, bl, cur, out)
         if self._tail_fused_eligible(l):
-            return self._fused_tail_cycle(l, bl, key)
+            return self._fused_tail_cycle(l, bl, cur, out)
         # any other level from zero, level 0 too (fmg_init)
-        y, rc, key = self._fused_down(l, bl, key)
-        key, sub = keys.split(key)
-        zc = self._cycle_keyed(l + 1, rc, sub)
+        y, rc = self._fused_down(l, bl, cur)
+        zc = self._cycle_keyed(l + 1, rc, cur)
         with span("pmg.mgmc.up"):
-            return self.transfers[l].prolong_add(y, zc)
+            return self.transfers[l].prolong_add(y, zc, out=out)
+
+    def _cycle_lrc(self, l: int, bl, cur, out=None):
+        """:meth:`_cycle_general` at an LRC level of the V(1,0) chain (gamma
+        1, no post-sweep) on the cursor ``cur``: a Gibbs smoother's steps on
+        their words, any other level's cycle keyed from the key there."""
+        if l == self.n_levels - 1:
+            return self._cycle_keyed(l, bl, cur, out)
+        smoother = self.smoothers[l]
+        if not isinstance(smoother, GibbsSampler):
+            x = self._cycle_general(l, bl, cur.key())
+            return x if out is None else out.copy_(x)
+        with span("pmg.mgmc.smooth"):
+            x = torch.zeros_like(bl)
+            for _ in range(self.n_pre):
+                x = smoother.step_from(cur, x, bl)
+        with span("pmg.mgmc.restrict"):
+            r = self.transfers[l].restrict(bl - self.ops[l].apply(x))
+        xc = self._cycle_lrc(l + 1, r, cur)
+        with span("pmg.mgmc.up"):
+            x = self.transfers[l].prolong_add(x, xc, out=out)
+        with span("pmg.mgmc.smooth"):  # the post-sweeps: none on the chain route
+            for _ in range(self.n_post):
+                x = smoother.step_from(cur, x, bl)
+        return x
+
+    # -- the integers the kernel route's keyed step hands the device ---------
+    def keyed_words(self, key: int) -> keys.Words:
+        """The integers the kernel route's keyed step (:meth:`step`,
+        :meth:`step_deferred`; only where :meth:`deferred_eligible`) derives
+        from ``key`` for the device, in the order it uses them: the level-0
+        low-rank draw's seed (LRC), #1's launch, then the cycle below
+        (:meth:`_cycle_words`); ``.key`` is the chain's next key.  The one
+        derivation of a step's draws: the eager step reads it through a
+        cursor, a replayed capture (:mod:`parmgmc_tpu_torch.replay`) writes
+        its prefixes and seeds to the graph's inputs."""
+        words = keys.Words()
+        key, sub = keys.split(key)
+        if self.smoothers[0].is_lrc:
+            sub, klr = keys.split(sub)
+            words.seed(klr)
+        sub, seed, step = keys.draw_pair(sub)
+        words.launch(seed, step, (CHAIN_DOMAIN,))
+        sub, sub2 = keys.split(sub)
+        self._cycle_words(1, sub2, words)
+        words.key = key
+        return words
+
+    def _cycle_words(self, l: int, key: int, words) -> None:
+        """Append the words of :meth:`_cycle_keyed` at level l under
+        ``key``: each kernel's launch (#2: one prefix a level), the coarse
+        Cholesky draws' seeds; a coarse sampler of another kind keeps its
+        key (:meth:`_coarse_sample`)."""
+        if l == self.n_levels - 1:
+            if not isinstance(self.coarse, CholeskySampler):
+                return words.defer(key)
+            for _ in range(self.n_coarse):
+                key = self.coarse.step_words(key, words)
+            return None
+        if self.smoothers[l].is_lrc:
+            return self._lrc_words(l, key, words)
+        key, seed, step = keys.draw_pair(key)
+        if self._tail_fused_eligible(l):
+            words.launch(seed, step, [TAIL_DOMAIN + li for li in range(self.n_levels - 1 - l)])
+            return self._cycle_words(self.n_levels - 1, key, words)
+        words.launch(seed, step, (CHAIN_DOMAIN,))
+        key, sub = keys.split(key)
+        return self._cycle_words(l + 1, sub, words)
+
+    def _lrc_words(self, l: int, key: int, words) -> None:
+        """The words of :meth:`_cycle_lrc` at level l under ``key``."""
+        if l == self.n_levels - 1:
+            return self._cycle_words(l, key, words)
+        smoother = self.smoothers[l]
+        if not isinstance(smoother, GibbsSampler):
+            return words.defer(key)
+        for _ in range(self.n_pre):
+            key = smoother.step_words(key, words)
+        key, sub = keys.split(key)
+        self._lrc_words(l + 1, sub, words)
+        for _ in range(self.n_post):
+            key = smoother.step_words(key, words)
+        return None
 
     def step(self, key: int, x, b, aux=None):
         """(key, x'): one keyed chain step.  ``b=None`` declares a zero RHS:
@@ -651,27 +759,30 @@ class MGMCSampler:
                 key, sub = keys.split(key)
                 shapes = gibbs.with_batch(self.noise_shapes(), batch)
                 return key, self.step_with_noise(x, b, gibbs._draw(sub, shapes, x.dtype, x.device))
-        key, sub = keys.split(key)
         if not self.deferred_eligible():
+            key, sub = keys.split(key)
             with span("pmg.mgmc.restrict"):
                 r = (torch.zeros_like(x) if b is None else bcast(b, x)) - self.fine_op.apply(x)
             y = self._cycle_general(0, r, sub)
             with span("pmg.mgmc.up"):
                 return key, x + y
+        words = self.keyed_words(key)
+        cur = words.cursor()
         if self.smoothers[0].is_lrc:
             with span("pmg.lrc"):
-                xpy, rc, sub, *_ = self._lrc_down(sub, x, b)
+                xpy, rc, *_ = self._lrc_down(cur, x, b)
         else:
-            xpy, rc, sub = self._fused_chain_down(x, b, sub)
-        sub, sub2 = keys.split(sub)
-        z1 = self._cycle_keyed(1, rc, sub2)
+            xpy, rc = self._fused_chain_down(x, b, cur)
+        z1 = self._cycle_keyed(1, rc, cur)
+        cur.close()
         with span("pmg.mgmc.up"):
-            return key, self.transfers[0].prolong_add(xpy, z1)
+            return words.key, self.transfers[0].prolong_add(xpy, z1)
 
-    def _lrc_down(self, sub: int, x, b, z=None, btx=None):
-        """(x_out, rc, sub, btx_next, sx, zsum): level 0's down-phase on an
-        LRC fine operator -- the unchanged chain kernel with rank-k
-        corrections around it, in plain torch on the device.
+    def _lrc_down(self, cur, x, b, z=None, btx=None, out=None, btx_out=None):
+        """(x_out, rc, btx_next, sx, zsum): level 0's down-phase on an LRC
+        fine operator -- the unchanged chain kernel with rank-k corrections
+        around it, in plain torch on the device -- on the cursor ``cur``
+        (the low-rank draw's generator, then #1's launch).
 
         With w = sqrt(Sigma^{-1}) eta_lr (k draws) and wv = w - Sigma^{-1}
         B^T x, the kernel run on b_eff = b + B wv performs the smoother's
@@ -690,11 +801,12 @@ class MGMCSampler:
         ``z`` (the deferred carry, x = xpy + P z) and ``btx`` (B^T of the
         kernel's x when known) come from :meth:`step_deferred`, which also
         takes ``btx_next`` (B^T x_out on the probed route, else None), the
-        sum of x_out ``sx`` and the kernel's ``zsum`` partials."""
+        sum of x_out ``sx`` and the kernel's ``zsum`` partials.  ``out`` and
+        ``btx_out`` receive x_out and btx_next when given."""
         s = self.smoothers[0]
         op0, aux = self.fine_op, self.lrc_aux
-        sub, klr = keys.split(sub)
-        w = gibbs._lowrank_draw(klr, s.sqrt_sigma_inv, 1)[0]
+        scale = s.sqrt_sigma_inv
+        w = gibbs._lowrank_draw(cur.generator(scale.device), scale, 1)[0]
         if btx is None:
             btx = op0.bt_apply(x)
         if z is not None:
@@ -704,8 +816,8 @@ class MGMCSampler:
         sums = z is not None
         probed = "Mb_pv" in aux
         b_eff = b if probed else (op0.b_apply(wv) if b is None else op0.b_apply_add(wv, b))
-        xpy, rc, sub, *partials = self._fused_chain_down(
-            x, b_eff, sub, z=z, with_xsum=sums, with_zsum=sums
+        xpy, rc, *partials = self._fused_chain_down(
+            x, b_eff, cur, z=z, with_xsum=sums, with_zsum=sums, out=out
         )
         u = op0.bt_apply(xpy)
         c = u - btx
@@ -726,13 +838,13 @@ class MGMCSampler:
             s._bb_apply_sub_(s.sweep, xpy, c)
         btx_next = sx = zsum = None
         if probed:  # B^T(xpy + Mb wv - Bb c), by identity
-            btx_next = u + aux["BtMb"] @ wv - H @ c
+            btx_next = torch.sub(u + aux["BtMb"] @ wv, H @ c, out=btx_out)
         if sums:
             xsum, zsum = partials
             sx = xsum.sum() - aux["Bb_colsum"] @ c
             if probed:
                 sx = sx + aux["Mb_colsum"] @ wv
-        return xpy, rc, sub, btx_next, sx, zsum
+        return xpy, rc, btx_next, sx, zsum
 
     # -- deferred-prolong chain (lazy fine state) ------------------------------
     def _bt_carry(self, z):
@@ -764,7 +876,16 @@ class MGMCSampler:
         xpy' (from the kernel's partial sums); ``zprev_sum`` = sum(P0 z) of
         the carry it consumed, i.e. the rest of the PREVIOUS sample's sum.
         ``z`` is the pair of :meth:`deferred_init` on the probed
-        posterior route, and so is ``z'``."""
+        posterior route, and so is ``z'``.  The step runs on the words of
+        :meth:`keyed_words` (:meth:`step_deferred_from`)."""
+        self._require_deferred()
+        words = self.keyed_words(key)
+        cur = words.cursor()
+        out = self.step_deferred_from(cur, xpy, z, b)
+        cur.close()
+        return (words.key, *out)
+
+    def _require_deferred(self) -> None:
         if not self.deferred_eligible():
             raise NotImplementedError(
                 "the deferred chain runs the V(1,0) chain kernels only (one "
@@ -772,21 +893,29 @@ class MGMCSampler:
                 "levels under aggregation with even extents), as the JAX "
                 "deferred_eligible; use sample_chain"
             )
+
+    def step_deferred_from(self, cur, xpy, z, b, out=None):
+        """(xpy', z', sum_xpy', zprev_sum): :meth:`step_deferred` on the
+        words of :meth:`keyed_words`, read through the cursor ``cur``.  With
+        ``out`` = (xpy_out, z_out), z_out shaped as ``z``, the new lazy
+        state is written there: the static buffers of a captured step."""
+        self._require_deferred()
         gibbs.refuse_batch(self, xpy.shape[len(self.grid_shape):])
         pair = isinstance(z, tuple)
         z, btx = z if pair else (z, None)
-        key, sub = keys.split(key)
+        x_out, z_out = (None, None) if out is None else out
+        z_out, btx_out = z_out if pair and z_out is not None else (z_out, None)
         if self.smoothers[0].is_lrc:
             with span("pmg.lrc"):
-                xpy2, rc, sub, btx, sx, zsum = self._lrc_down(sub, xpy, b, z=z, btx=btx)
+                xpy2, rc, btx, sx, zsum = self._lrc_down(cur, xpy, b, z=z, btx=btx, out=x_out,
+                                                         btx_out=btx_out)
         else:
-            xpy2, rc, sub, xsum, zsum = self._fused_chain_down(
-                xpy, b, sub, z=z, with_xsum=True, with_zsum=True
+            xpy2, rc, xsum, zsum = self._fused_chain_down(
+                xpy, b, cur, z=z, with_xsum=True, with_zsum=True, out=x_out
             )
             sx = xsum.sum()
-        sub, sub2 = keys.split(sub)
-        zn = self._cycle_keyed(1, rc, sub2)
-        return key, xpy2, ((zn, btx) if pair else zn), sx, 8.0 * zsum.sum()
+        zn = self._cycle_keyed(1, rc, cur, out=z_out)
+        return xpy2, ((zn, btx) if pair else zn), sx, 8.0 * zsum.sum()
 
     def deferred_final_sum(self, z):
         """sum(P0 z) for a compact carry: each coarse cell covers 8 fine."""
@@ -811,11 +940,17 @@ class MGMCSampler:
         x = torch.zeros_like(bs[-1])
         for _ in range(max(self.n_coarse, 1)):
             key, x = self.coarse.step(key, x, bs[-1])
-        cycle = self._cycle_keyed if self.deferred_eligible() else self._cycle_general
         for l in reversed(range(self.n_levels - 1)):
             x = self.transfers[l].prolong(x)
             for _ in range(n_cycles):
                 key, sub = keys.split(key)
                 r = bs[l] - self.ops[l].apply(x)
-                x = x + cycle(l, r, sub)
+                if not self.deferred_eligible():
+                    x = x + self._cycle_general(l, r, sub)
+                    continue
+                words = keys.Words()
+                self._cycle_words(l, sub, words)
+                cur = words.cursor()
+                x = x + self._cycle_keyed(l, r, cur)
+                cur.close()
         return key, x

@@ -82,19 +82,17 @@ def lrc_chain_oracle(smp, key: int, x, b):
     on the grid, the Woodbury correction applied to the smoothed state
     and the coarse right-hand side restricted from the full LRC residual.
     What differs from the step is its rank-k algebra alone."""
-    from parmgmc_tpu_torch import keys
     from parmgmc_tpu_torch.samplers import gibbs
 
     s, op = smp.smoothers[0], smp.fine_op
-    _, sub = keys.split(key)
-    sub, klr = keys.split(sub)
-    w = gibbs._lowrank_draw(klr, s.sqrt_sigma_inv, 1)[0]
+    cur = smp.keyed_words(key).cursor()
+    scale = s.sqrt_sigma_inv
+    w = gibbs._lowrank_draw(cur.generator(scale.device), scale, 1)[0]
     b_eff = op.b_apply(w - op.sigma_inv * op.bt_apply(x))
     if b is not None:
         b_eff = b_eff + b
-    xpy, _, sub = smp._fused_chain_down(x, b_eff, sub)
+    xpy, _ = smp._fused_chain_down(x, b_eff, cur)
     Bb = s.Bb_fw if s.sweep == "forward" else s.Bb_bw
     x_sm = xpy - Bb @ op.bt_apply(xpy - x)
     r = (0.0 if b is None else b) - op.apply(x_sm)
-    sub, sub2 = keys.split(sub)
-    return x_sm + smp.transfers[0].prolong(smp._cycle_keyed(1, smp.transfers[0].restrict(r), sub2))
+    return x_sm + smp.transfers[0].prolong(smp._cycle_keyed(1, smp.transfers[0].restrict(r), cur))

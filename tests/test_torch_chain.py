@@ -96,3 +96,83 @@ def test_package_imports_no_jax():
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _words_sampler(posterior):
+    """A 16^3 aggregate V(1,0) sampler down to 2^3 (#1, then #2 over levels
+    1 and 2 on the prior; #1 and #7 with their low-rank draws on the
+    posterior) and its right-hand side."""
+    from parmgmc_tpu_torch.models.obs import make_posterior_operator
+
+    op, b = shifted_laplace_fd((16, 16, 16), 1.0, device=DEV), None
+    if posterior:
+        op, b = make_posterior_operator(op, 0.1, np.array([[0.3, 0.4, 0.5], [0.6, 0.3, 0.7]]),
+                                        np.full(2, 0.25), np.ones(2))
+    smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=8, coarsening="aggregate")
+    assert smp.deferred_eligible() and smp.n_levels == 4
+    return smp, b
+
+
+@pytest.mark.parametrize("posterior", [False, True])
+def test_keyed_words_are_the_eager_steps_draws(monkeypatch, posterior):
+    """MGMCSampler.keyed_words, the one derivation of a step's noise that
+    the eager step and a replayed graph share, gives the hash prefixes and
+    generator seeds the eager deferred step and the keyed step hand their
+    kernel wrappers and generators, value for value and in order; on the
+    prior they are also the derivation from the key written out."""
+    from parmgmc_tpu_torch import replay
+    from parmgmc_tpu_torch.kernels import _noise, mg_sweep, mg_tail
+    from parmgmc_tpu_torch.samplers import gibbs
+
+    smp, b = _words_sampler(posterior)
+    prefixes, seeds = [], []
+    chain, tail, sweep, seeded = (mg_sweep.fused_chain_down_fd, mg_tail.fused_tail_down,
+                                  gibbs.fused_rb_gibbs_sweep_fd, keys.seeded)
+
+    def rec_chain(x, b, coeffs, kappa2, hinv2, omega, seed, step, **kw):
+        prefixes.append(_noise.hash_prefix(seed, step, _noise.CHAIN_DOMAIN))
+        return chain(x, b, coeffs, kappa2, hinv2, omega, seed, step, **kw)
+
+    def rec_tail(bl, params, seed, step, color0, shapes, **kw):
+        prefixes.extend(_noise.hash_prefix(seed, step, _noise.TAIL_DOMAIN + li)
+                        for li in range(len(shapes) - 1))
+        return tail(bl, params, seed, step, color0, shapes, **kw)
+
+    def rec_sweep(x, b, coeffs, kappa2, hinv2, omega, seed, step, *a, **kw):
+        prefixes.append(_noise.hash_prefix(seed, step, _noise.SWEEP_DOMAIN))
+        return sweep(x, b, coeffs, kappa2, hinv2, omega, seed, step, *a, **kw)
+
+    def rec_seeded(seed, device):
+        seeds.append(seed)
+        return seeded(seed, device)
+
+    monkeypatch.setattr(mg_sweep, "fused_chain_down_fd", rec_chain)
+    monkeypatch.setattr(mg_tail, "fused_tail_down", rec_tail)
+    monkeypatch.setattr(gibbs, "fused_rb_gibbs_sweep_fd", rec_sweep)
+    monkeypatch.setattr(keys, "seeded", rec_seeded)
+    key = 2**40 + 12345
+    x = torch.randn(smp.grid_shape, generator=torch.Generator().manual_seed(1))
+    words = smp.keyed_words(key)
+    assert replay.graphs_for(smp, x, b) is None  # the host's chain stays eager
+    next_key, *_ = smp.step_deferred(key, x, smp.deferred_init(torch.float32, x), b)
+    assert next_key == words.key == keys.split(key)[0]
+    n_launch = 1 + (smp.n_levels - 2 if posterior else 1)
+    assert len(prefixes) == smp.n_levels - 1 and len(words.entries) == n_launch + len(seeds)
+    assert list(words.prefixes) == prefixes and list(words.seeds) == seeds
+    assert len(seeds) == (smp.n_levels if posterior else 1)
+    deferred = (prefixes[:], seeds[:])
+    prefixes.clear()
+    seeds.clear()
+    assert smp.step(key, x, b)[0] == words.key
+    assert (prefixes, seeds) == deferred
+    if not posterior:
+        # #1 under split(key)[1], #2 and the coarse draw under what follows
+        _, sub = keys.split(key)
+        sub, k1, k2 = keys.split(sub, 3)
+        want = [_noise.hash_prefix(keys.randint31(k1), keys.randint31(k2), _noise.CHAIN_DOMAIN)]
+        _, sub = keys.split(sub)
+        sub, k1, k2 = keys.split(sub, 3)
+        want += [_noise.hash_prefix(keys.randint31(k1), keys.randint31(k2), _noise.TAIL_DOMAIN + li)
+                 for li in range(2)]
+        _, kc = keys.split(sub)
+        assert prefixes == want and seeds == [keys._splitmix64(kc) >> 1]

@@ -26,7 +26,7 @@ from parmgmc_tpu.kernels.mg_sweep import fused_chain_down_2d_staged as jax_chain
 from parmgmc_tpu.kernels.mg_sweep import fused_zero_gibbs_restrict_fd as jax_zero_restrict
 from parmgmc_tpu.operators.stencil import shifted_laplace_fd as jax_shifted_laplace_fd
 from parmgmc_tpu.samplers.mgmc import MGMCSampler as JaxMGMCSampler
-from parmgmc_tpu_torch import convert, keys
+from parmgmc_tpu_torch import convert
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred
 from parmgmc_tpu_torch.kernels import mg_sweep, mg_tail, rb_gibbs
 from parmgmc_tpu_torch.operators.stencil import fd_stencil
@@ -270,12 +270,12 @@ def test_small_planes_keep_the_whole_plane_kernel(monkeypatch):
 def test_keyed_cycle_without_noise_is_the_jax_explicit_cycle(large_planes, monkeypatch, shape, with_b):
     calls = large_planes(with_noise=False)
 
-    def zero_coarse_step(self, key, x, b, aux=None):
-        key, _ = keys.split(key)
+    def zero_coarse_step(self, cur, x, b, aux=None):
+        cur.generator(self.L.device)  # the draw's word, unused
         eta = torch.zeros(self.n, dtype=self.dtype, device=self.L.device)
-        return key, self.step_with_noise(x, b, [{"eta": eta}], aux)
+        return self.step_with_noise(x, b, [{"eta": eta}], aux)
 
-    monkeypatch.setattr(CholeskySampler, "step", zero_coarse_step)
+    monkeypatch.setattr(CholeskySampler, "step_from", zero_coarse_step)
     jsmp = JaxMGMCSampler.create(
         jax_shifted_laplace_fd(shape, 1.3, dtype=jnp.float32), n_pre=1, n_post=0, coarsest_size=16,
         coarsening="aggregate", impl="lax",

@@ -17,7 +17,10 @@ tail mode (#2, one launch a call), the marching sweep's two modes
 bit against each other and the whole-plane sweeps (#7, #6), the
 wrappers' refusals, and the posterior chain step (#1 and #7 with rank-k
 corrections) against its materialised form and its deferred form against
-the plain chain (1e-3, relative max-norm), with its launches; the linear
+the plain chain (1e-3, relative max-norm), with its launches; the
+deferred chain replayed from captured CUDA graphs against the eager
+deferred chain bit for bit and against ``sample_chain``, with its
+launches and the states it returned left alone; the linear
 hierarchy's Galerkin levels against R A P (1e-5), and its keyed cycles'
 launches (fault F3: no chain kernel); the structured Matérn façade's
 launches (one #1 and one #2 a chain step) and ``chain.multi_chain`` bit
@@ -414,6 +417,91 @@ def test_keyed_chain_deferred_is_bitwise(dev):
     assert torch.equal(sa.x, sb.x)
     counts = kernels.launch_counts()
     assert counts["chain_down"] == 12 and counts["tail_down"] == 12
+
+
+def _replay_problem(dev, n, posterior):
+    """The aggregate V(1,0) sampler of gmrf_3d(n) and its b: the prior, or
+    a posterior on five balls (the benchmark's balls5 mix: sigma^2 0.01,
+    radius 0.12, centres 0.15 + 0.7 U and values N(0, 1) from
+    default_rng(n))."""
+    import numpy as np
+
+    from parmgmc_tpu_torch.models.obs import make_posterior_operator
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+
+    op, b = gmrf_3d(n, 1.0, device=dev), None
+    if posterior:
+        rng = np.random.default_rng(n)
+        op, b = make_posterior_operator(op, 0.01, 0.15 + 0.7 * rng.random((5, 3)), np.full(5, 0.12),
+                                        obsvals=rng.standard_normal(5))
+    smp = MGMCSampler.create(op, **V10)
+    assert smp.deferred_eligible() and smp.n_levels >= 3
+    return smp, b
+
+
+@pytest.mark.parametrize("posterior", [False, True])
+@pytest.mark.parametrize("n", [32, 64])
+def test_replayed_deferred_chain_is_the_eager_chain(dev, n, posterior):
+    """sample_chain_deferred replayed from its captured CUDA graphs, over
+    three calls of 20 steps: bit for bit the eager deferred chain (states,
+    keys and QOI) and sample_chain (bit for bit on the prior; 1e-3 on the
+    posterior, whose rank-k terms sum in another order); each returned
+    state unchanged by the later calls; one chain_step_graph a replayed
+    step (every step but the first, which runs eagerly and is captured
+    after it) and one #1 a step."""
+    from parmgmc_tpu_torch import replay
+
+    smp, b = _replay_problem(dev, n, posterior)
+    st = init_chain(smp, 2**33 + 7)
+    kernels.reset_launch_counts()
+    runs = []
+    for _ in range(3):
+        st, q = sample_chain_deferred(smp, st, b, 20)
+        runs.append((st, q, st.x.clone()))
+    counts = kernels.launch_counts()
+    per = dict(rb_gibbs_fd=smp.n_levels - 2) if posterior else dict(tail_down=1)
+    want = dict(dict.fromkeys(counts, 0), chain_down=60, chain_step_graph=59,
+                **{k: 60 * v for k, v in per.items()})
+    assert counts == want, counts
+    for st_g, _, copy in runs:
+        assert torch.equal(st_g.x, copy)
+    st_e = st_p = init_chain(smp, 2**33 + 7)
+    with mock.patch.object(replay, "graphs_for", lambda *a: None):
+        for st_g, q_g, _ in runs:
+            st_e, q_e = sample_chain_deferred(smp, st_e, b, 20)
+            st_p, _ = sample_chain(smp, st_p, b, 20)
+            assert st_g.key == st_e.key == st_p.key
+            assert torch.equal(st_g.x, st_e.x) and torch.equal(q_g, q_e)
+            if posterior:
+                assert _rel(st_p.x, st_g.x) < 1e-3
+            else:
+                assert torch.equal(st_p.x, st_g.x)
+
+
+def test_capture_outlives_a_dead_samplers_graphs(dev):
+    """Graphs of a sampler that died in a reference cycle are collected
+    before the next capture, not inside it, where destroying a graph would
+    invalidate the capture: with a collection at every allocation the next
+    sampler's chain is still replayed, with no warning."""
+    import gc
+    import warnings
+
+    old, _ = _replay_problem(dev, 32, False)
+    sample_chain_deferred(old, init_chain(old, 1), None, 3)
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle
+    smp, _ = _replay_problem(dev, 32, False)
+    kernels.reset_launch_counts()
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            sample_chain_deferred(smp, init_chain(smp, 2), None, 3)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert kernels.launch_counts()["chain_step_graph"] == 2
 
 
 def test_wrappers_refuse_bad_cuda_input(dev):

@@ -35,7 +35,7 @@ import torch
 
 from parmgmc_tpu.samplers.mgmc import MGMCSampler as JaxMGMCSampler
 from parmgmc_tpu.samplers.mgmc import build_hierarchy as jax_build_hierarchy
-from parmgmc_tpu_torch import convert, keys
+from parmgmc_tpu_torch import convert
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred, sample_moments
 from parmgmc_tpu_torch.kernels import mg_sweep, rb_gibbs
 from parmgmc_tpu_torch.models.obs import make_posterior_operator
@@ -203,12 +203,12 @@ def draws_off(monkeypatch):
                         functools.partial(rb_gibbs.fused_rb_gibbs_sweep_fd, with_noise=False))
     monkeypatch.setattr(gibbs, "_lowrank_draw", lambda key, scale, n: scale.new_zeros((n, scale.shape[0])))
 
-    def zero_coarse_step(self, key, x, b, aux=None):
-        key, _ = keys.split(key)
+    def zero_coarse_step(self, cur, x, b, aux=None):
+        cur.generator(self.L.device)  # the draw's word, unused
         eta = torch.zeros(self.n, dtype=self.dtype, device=self.L.device)
-        return key, self.step_with_noise(x, b, [{"eta": eta}], aux)
+        return self.step_with_noise(x, b, [{"eta": eta}], aux)
 
-    monkeypatch.setattr(CholeskySampler, "step", zero_coarse_step)
+    monkeypatch.setattr(CholeskySampler, "step_from", zero_coarse_step)
 
 
 def _zeros(shapes):
