@@ -167,20 +167,22 @@ Phases, in order; any failure raises and exits non-zero:
               (129 -> 65 -> 33 -> 17 -> 9), eight keyed steps against the
               same steps on the twins (< 1e-4), exactly four #7 a step, a
               finite state; gmrf_3d(33) V(2,2) aggregate (the probed 17^3 and
-              9^3 levels have coefficient fields, no kernel): exactly four #7
-              a step and no other kernel.  Fault F3: a two-level linear V(1,0)
+              9^3 levels have coefficient fields, swept by the 27-point
+              kernel): exactly four #7 and twelve 27-point sweeps a step and
+              no other kernel, one chain_step_graph a replayed step.  Fault F3: a two-level linear V(1,0)
               sampler is not deferred-eligible, its keyed step launches one
               #7 and no #1, #2 or #3, and step_deferred refuses it.
 22. 256^3 default V(2,2) path -- MGMCSampler.create(gmrf_3d(256), n_pre=2,
               n_post=2) with no device and every other argument at its
               default (the linear hierarchy 256^3 ... 8^3; levels 128^3 ...
-              16^3 are 27-point stencils on the plain-torch 8-colour sweep)
-              through sample_chain with the mean as QOI: ms/cycle over 64
-              steps after a warm-up, tau and ESS/sec and var(QOI) N in
-              (0.8, 1.25) from N_LINEAR_IACT steps, exactly four #7 launches
-              a step and no other kernel, the device time of a step by
-              kernel and the idle share, and eight keyed steps on the twins
-              (state < 1e-4).
+              16^3 are 27-point stencils on the 27-point colour-sweep kernel)
+              through sample_chain with the mean as QOI, its step replayed
+              from a captured CUDA graph: ms/cycle over 64 steps after a
+              warm-up, tau and ESS/sec and var(QOI) N in (0.8, 1.25) from
+              N_LINEAR_IACT steps, exactly four #7 launches and sixteen
+              27-point sweeps a step and no other kernel, the device time of
+              a step by kernel and the idle share, and eight keyed steps on
+              the twins (state < 1e-4).
 23. unstructured mesh set-up -- MaternMeshSampler on the wrench
               (examples/benchmark/wrench.json: kappa 5) at refine 3 (38,132
               DOFs): the preset's posterior (three balls, sigma^2 = 1e-6) in
@@ -929,15 +931,21 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
     and no other kernel (``plain_levels`` smoothed levels sweep in plain
     torch), the device time of a step by kernel over a profiled window of
     ``n_win`` steps, and, with ``twin``, the cycle with the FD sweep's
-    twin in place of the kernels.  Returns (counts, final chain state)."""
-    from parmgmc_tpu_torch import kernels
+    twin in place of the kernels (eager: a replayed graph holds the
+    kernels).  Every timed step is a replay of the step the warm-up
+    captured, where no level sweeps in plain torch.  Returns (counts,
+    final chain state)."""
+    from parmgmc_tpu_torch import kernels, replay
     from parmgmc_tpu_torch.chain import init_chain, sample_chain
     from parmgmc_tpu_torch.diagnostics.iact import iact
     from parmgmc_tpu_torch.kernels import rb_gibbs
+    from parmgmc_tpu_torch.kernels.galerkin_sweep import LAUNCHES
     from parmgmc_tpu_torch.samplers import gibbs
 
     sweeps = (smp.n_pre + smp.n_post) * (smp.n_levels - 1 - plain_levels)
-    check(sum(per_step.values()) == sweeps and not smp.deferred_eligible(),
+    per_sweep = {"galerkin_sweep": LAUNCHES}  # launches a sweep where not one
+    check(sum(v // per_sweep.get(k, 1) for k, v in per_step.items()) == sweeps
+          and not smp.deferred_eligible(),
           f"V(2,2) over {smp.n_levels} levels does not run {per_step} sweeps a step")
     shape = tuple(smp.grid_shape)
     st = init_chain(smp, 0)
@@ -957,6 +965,8 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
     print(f"  launches during the V(2,2) path: {counts} over {steps} steps")
     expect = dict.fromkeys(counts, 0)
     expect.update({k: v * steps for k, v in per_step.items()})
+    # every timed step is a replay of the step the warm-up captured
+    expect["chain_step_graph"] = steps if plain_levels == 0 else 0
     check(counts == expect, f"expected exactly {per_step} sweep launches a step and no other kernel: {counts}")
 
     x = st.x
@@ -990,7 +1000,8 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
         return counts, holder[0]
 
     st = holder[0]
-    with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
+    with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference), \
+            mock.patch.object(replay, "graphs_for", lambda *a: None):
         st2, _ = sample_chain(smp, st, None, 1, extract=torch.mean)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1528,7 +1539,7 @@ def phase_sweep2d_moments(torch, dev, b, gates):
     kernel chain (#7, #6).  Then the (32, 768, 768) keyed V(2,2) chain on
     its natural route (#9 at level 0) bit for bit the chain with level 0
     forced to #7, over 8 steps."""
-    from parmgmc_tpu_torch import kernels
+    from parmgmc_tpu_torch import kernels, replay
     from parmgmc_tpu_torch.chain import init_chain, sample_chain
     from parmgmc_tpu_torch.kernels import rb_gibbs as rg
     from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
@@ -1567,7 +1578,7 @@ def phase_sweep2d_moments(torch, dev, b, gates):
     sa, qa = sample_chain(smp, st, bb, 8, extract=torch.mean)
     ca = kernels.launch_counts()
     kernels.reset_launch_counts()
-    with mock.patch.object(rg, "_PLANE_LIMIT", 2**62):
+    with mock.patch.object(rg, "_PLANE_LIMIT", 2**62), mock.patch.object(replay, "graphs_for", lambda *a: None):
         sb, qb = sample_chain(smp, st, bb, 8, extract=torch.mean)
     cb = kernels.launch_counts()
     smoothed = len(levels) - 1
@@ -1884,13 +1895,19 @@ def timed_hierarchy(torch, op, **kw):
 
 def twin_steps(torch, smp, st, b, n=8):
     """Relative max-norm gap between n keyed steps of smp from st on the
-    kernels and the same steps with the FD sweep's twin in their place."""
+    kernels and the same steps, eager, with the FD sweep's and the 27-point
+    sweep's twins in their place."""
+    from parmgmc_tpu_torch import replay
     from parmgmc_tpu_torch.chain import sample_chain
-    from parmgmc_tpu_torch.kernels import rb_gibbs
+    from parmgmc_tpu_torch.kernels import galerkin_sweep, rb_gibbs
     from parmgmc_tpu_torch.samplers import gibbs
 
     sa, _ = sample_chain(smp, st, b, n)
-    with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference):
+    with mock.patch.object(gibbs, "fused_rb_gibbs_sweep_fd", rb_gibbs.fused_rb_gibbs_sweep_fd_reference), \
+            mock.patch.object(gibbs, "fused_galerkin_sweep",
+                              lambda *a, prefix_at=None, packed=None, **k:
+                              galerkin_sweep.fused_galerkin_sweep_reference(*a, **k)), \
+            mock.patch.object(replay, "graphs_for", lambda *a: None):
         sb, _ = sample_chain(smp, st, b, n)
     check(bool(torch.isfinite(sa.x).all()), "the keyed chain's state is not finite")
     return rel_err(sa.x, sb.x)[0]
@@ -1899,7 +1916,9 @@ def twin_steps(torch, smp, st, b, n=8):
 def counted_steps(torch, label, smp, n, per_step):
     """n keyed steps of smp (b = None) from a fixed start, checking that
     they launched exactly per_step[counter] kernels a step of each counter
-    and no other; the final chain state."""
+    and no other, and, where its words allow a capture, that every step
+    after the first (a new sampler's, run eagerly and then captured) was a
+    replay; the final chain state."""
     from parmgmc_tpu_torch import kernels
     from parmgmc_tpu_torch.chain import init_chain, sample_chain
 
@@ -1909,6 +1928,7 @@ def counted_steps(torch, label, smp, n, per_step):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     expect = dict(dict.fromkeys(counts, 0), **{k: v * n for k, v in per_step.items()})
+    expect["chain_step_graph"] = n - 1 if smp.keyed_words(0).replayable else 0
     check(counts == expect, f"{label}: launched {counts}, expected {per_step} a step")
     check(bool(torch.isfinite(st.x).all()), f"{label}: the state is not finite")
     print(f"  {label}: {n} keyed steps launched {per_step} a step and no other kernel")
@@ -1917,6 +1937,7 @@ def counted_steps(torch, label, smp, n, per_step):
 
 def phase_linear(torch, dev):
     from parmgmc_tpu_torch.chain import ExplicitNoise
+    from parmgmc_tpu_torch.kernels.galerkin_sweep import LAUNCHES
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.operators.transfer import GeometricTransfer
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
@@ -1940,11 +1961,13 @@ def phase_linear(torch, dev):
     plain = counted_moments(torch, "linear V(2,2) plain chain", ExplicitNoise(smp), b, N_POST_MOMENTS, 200, {})
     moments_check(torch, "linear V(2,2)", kern, plain, 0.2)
 
-    # odd extents: level 0 on #7 ("any 3D shape"), the Galerkin levels plain
+    # odd extents: level 0 on #7 ("any 3D shape"), the Galerkin levels on
+    # the 27-point kernel (colours of unequal sizes)
     odd = MGMCSampler.create(gmrf_3d(129, kappa=1.0), n_pre=2, n_post=2)
     levels = [o.grid_shape for o in odd.ops]
     check(levels == [(m,) * 3 for m in (129, 65, 33, 17, 9)], f"gmrf_3d(129) levels {levels}")
-    st = counted_steps(torch, "129^3 linear V(2,2)", odd, 8, {"rb_gibbs_fd": 4})
+    st = counted_steps(torch, "129^3 linear V(2,2)", odd, 8,
+                       {"rb_gibbs_fd": 4, "galerkin_sweep": 12 * LAUNCHES})
     rel = twin_steps(torch, odd, st, None)
     print(f"  129^3 linear V(2,2): 8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
     check(rel < 1e-4, "the odd-extent linear cycle on the kernels disagrees with its twins")
@@ -1971,6 +1994,7 @@ def phase_linear(torch, dev):
 def phase_linear_path(torch, dev):
     """MGMCSampler.create(gmrf_3d(256), n_pre=2, n_post=2): the JAX
     package's default V(2,2) at 256^3."""
+    from parmgmc_tpu_torch.kernels.galerkin_sweep import LAUNCHES
     from parmgmc_tpu_torch.models.problems import gmrf_3d
     from parmgmc_tpu_torch.operators.transfer import GeometricTransfer
     from parmgmc_tpu_torch.samplers.mgmc import MGMCSampler
@@ -1983,11 +2007,12 @@ def phase_linear_path(torch, dev):
     check(smp.device.type == "cuda" and all(isinstance(t, GeometricTransfer) for t in smp.transfers)
           and levels == [(m,) * 3 for m in (256, 128, 64, 32, 16, 8)],
           f"the default 256^3 sampler: {smp.device}, levels {levels}")
-    check(smp.smoothers[0].has_kernel and not any(s.has_kernel for s in smp.smoothers[1:]),
-          "level 0 alone should take the sweep kernel")
+    check(smp.smoothers[0].route == "fused_rb_gibbs_sweep_fd"
+          and all(s.route == "fused_galerkin_sweep" for s in smp.smoothers[1:]),
+          "level 0 should take #7 and the 27-point levels the 27-point sweep kernel")
     print(f"  levels {levels}, create {time.perf_counter() - t0:.2f} s; chain of {N_LINEAR_IACT} steps for tau")
-    counts, st = phase_v22(torch, smp, {"rb_gibbs_fd": 4}, n_time=N_LINEAR_TIME, n_iact=N_LINEAR_IACT, n_warm=4,
-                           twin=False, plain_levels=smp.n_levels - 2, n_win=2)
+    counts, st = phase_v22(torch, smp, {"rb_gibbs_fd": 4, "galerkin_sweep": 16 * LAUNCHES},
+                           n_time=N_LINEAR_TIME, n_iact=N_LINEAR_IACT, n_warm=4, twin=False, n_win=2)
     rel = twin_steps(torch, smp, st, None)
     print(f"  8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
     check(rel < 1e-4, "the default V(2,2) path on the kernels disagrees with its twins")
@@ -2322,8 +2347,8 @@ def phase_mesh_path(torch, post, prior32, prior4, w):
 
 def expect_v10(counts, steps, replayed=0):
     """The launch counts of ``steps`` V(1,0) chain steps at 256^3: one #1
-    and one #2 a step, no other kernel; ``replayed`` of them replays of
-    the deferred chain's captured step."""
+    and one #2 a step, no other kernel; ``replayed`` of them replays of a
+    captured step (a new capture's first step runs eagerly)."""
     return dict(dict.fromkeys(counts, 0), chain_down=steps, tail_down=steps,
                 chain_step_graph=replayed)
 
@@ -2359,7 +2384,8 @@ def phase_matern(torch):
     wall = time.perf_counter() - t0
     steps = N_MATERN + N_MATERN_BURNIN
     counts = kernels.launch_counts()
-    check(counts == expect_v10(counts, steps), f"the façade's sample run launched {counts} in {steps} steps")
+    check(counts == expect_v10(counts, steps, steps - 1),
+          f"the façade's sample run launched {counts} in {steps} steps")
     q = q.double().cpu()
     tau, valid = iact(q)
     var_n = float(q.var()) * N
@@ -2448,7 +2474,7 @@ def phase_ex7(torch, ms):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    check(counts == expect_v10(counts, N_EX7_CHAINS * steps),
+    check(counts == expect_v10(counts, N_EX7_CHAINS * steps, N_EX7_CHAINS * steps - 1),
           f"the ex7 flow launched {counts} in {N_EX7_CHAINS} x {steps} steps")
     check(rhat < 1.05 and trace.shape == (N_EX7_CHAINS, steps) and np.isfinite(trace).all(),
           f"sample_until_converged: rhat {rhat} after {steps} steps, trace {trace.shape}")
@@ -2472,7 +2498,7 @@ def phase_ex7(torch, ms):
     wall = time.perf_counter() - t0
     c2 = kernels.launch_counts()
     n_steps = N_FACADE_CHAINS * (N_FACADE_STEPS + N_MATERN_BURNIN)
-    check(c2 == expect_v10(c2, n_steps), f"sample_chains launched {c2} in {n_steps} steps")
+    check(c2 == expect_v10(c2, n_steps, n_steps - 1), f"sample_chains launched {c2} in {n_steps} steps")
     check(tuple(q.shape) == (N_FACADE_CHAINS, N_FACADE_STEPS) and bool(torch.isfinite(q).all()),
           f"sample_chains gave {tuple(q.shape)}")
     var_n = (q.double().var(dim=1) * N).cpu()

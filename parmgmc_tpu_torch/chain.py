@@ -77,16 +77,27 @@ def sample_chain(
 ):
     """(state, stacked extracts of the n_samples recorded samples).
 
-    ``extract`` maps a sample to what is recorded (default: the sample)."""
+    ``extract`` maps a sample to what is recorded (default: the sample).
+
+    On the card, an MGMC sampler's keyed step is captured in CUDA graphs on
+    its first call and replayed from then on wherever its words allow
+    (:mod:`parmgmc_tpu_torch.replay`): the same samples, without the host's
+    dispatch of every op.  A recorded value that lies in the graphs'
+    buffers is copied, and so is the returned state."""
     aux = sampler.prepare(b)
     extract = extract or (lambda x: x)
+    graphs = replay.graphs_for(sampler, state.x, b, False)
+    step = sampler.step if graphs is None else graphs.stepper(sampler)
     key, x = state.key, state.x
     out = []
     for i in range(burnin + n_samples):
         with span("pmg.chain.step"):
-            key, x = sampler.step(key, x, b, aux)
+            key, x = step(key, x, b, aux)
             if i >= burnin:
-                out.append(extract(x))
+                v = extract(x)
+                out.append(v.clone() if graphs is not None and graphs.owns(v) else v)
+    if graphs is not None and graphs.owns(x):
+        x = x.clone()
     stacked = torch.stack(out) if out else torch.zeros((0,), dtype=x.dtype, device=x.device)
     return ChainState(x=x, key=key), stacked
 

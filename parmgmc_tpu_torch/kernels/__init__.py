@@ -62,13 +62,14 @@ _LIB = None
 # launch per colour; on no sampler path), fused_chain_down_2d_staged,
 # fused_chain_down_2d, fused_zero_gibbs_restrict_fd,
 # fused_rb_gibbs_sweep_2d_staged and fused_rb_gibbs_sweep_2d (either diagonal);
-# and chain_step_graph, the replays of a captured deferred chain step
+# galerkin_sweep, the launches of fused_galerkin_sweep (kernels.galerkin_sweep);
+# and chain_step_graph, the replays of a captured chain step
 # (parmgmc_tpu_torch.replay), each of which also counts the kernels it holds
 _LAUNCHES = {
     "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
     "patch_sweep": 0, "patch_sweep_streamed": 0, "patch_sweep_colourwise": 0,
     "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
-    "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0, "chain_step_graph": 0,
+    "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0, "galerkin_sweep": 0, "chain_step_graph": 0,
 }
 
 _P = ctypes.c_void_p
@@ -97,6 +98,9 @@ _SIGNATURES = {
     "pmg_sweep_march_windowed": _MARCH_SWEEP,
     "pmg_sweep_march_fd": _MARCH_SWEEP,
     "pmg_sweep_march_diag": _MARCH_SWEEP,
+    # (x, out, b, fields, diag, n0, n1, n2, noff, offsets, slots, scalars,
+    # omega, 1 - omega, nfac, prefix, prefix_at, backward, with_noise, stream)
+    "pmg_galerkin_sweep": ([_P] * 5 + [_I] * 4 + [_P] * 3 + [_F] * 3 + [_U, _P, _I, _I, _P], _I),
     "pmg_patch_sweep": _PATCH,
     "pmg_patch_sweep_streamed": _PATCH,
     "pmg_patch_sweep_colourwise": _PATCH,
@@ -224,11 +228,12 @@ def prefix_pointer(prefix_at, n: int, like):
     return prefix_at.data_ptr()
 
 
-def check_launch(err: int, name: str) -> None:
-    """Count a launch of kernel ``name``; raise if it was refused."""
+def check_launch(err: int, name: str, n: int = 1) -> None:
+    """Count ``n`` launches of kernel ``name`` (one C call's); raise if
+    they were refused."""
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
-    _LAUNCHES[name] += 1
+    _LAUNCHES[name] += n
 
 
 def count_launches(counts: dict) -> None:

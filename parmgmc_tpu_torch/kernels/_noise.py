@@ -12,8 +12,10 @@ same draw, and the kernel and its twin draw the same numbers.  The tail
 levels use the domain ``0xA511E9B3 + li`` of ``_eta_hash`` (so the twin
 matches the JAX tail reference with the noise on); the level-0 chain
 kernel uses :data:`CHAIN_DOMAIN`, the full red/black sweep kernels
-:data:`SWEEP_DOMAIN`, and the patch sweep kernels (``kernels.patch_sweep``)
-:data:`PATCH_DOMAIN` + j for member j of the patch centred at the index.
+:data:`SWEEP_DOMAIN`, the colour sweep of the 27-point Galerkin levels
+(``kernels.galerkin_sweep``) :data:`GALERKIN_DOMAIN`, and the patch sweep
+kernels (``kernels.patch_sweep``) :data:`PATCH_DOMAIN` + j for member j of
+the patch centred at the index.
 
 torch has no ``>>`` for ``uint32`` on the CPU, so the integer arithmetic
 runs in ``int64`` with every product and sum reduced mod 2^32.  A 32x32
@@ -32,6 +34,7 @@ __all__ = [
     "CHAIN_DOMAIN",
     "TAIL_DOMAIN",
     "SWEEP_DOMAIN",
+    "GALERKIN_DOMAIN",
     "PATCH_DOMAIN",
     "mix",
     "hash_prefix",
@@ -46,6 +49,9 @@ CHAIN_DOMAIN = 0x5851F42D
 TAIL_DOMAIN = 0xA511E9B3
 # the full sweeps (kernels.rb_gibbs); keyed by (seed, half-sweep step)
 SWEEP_DOMAIN = 0x2545F491
+# the 8-colour sweeps of 27-point stencils (kernels.galerkin_sweep); keyed
+# like SWEEP_DOMAIN
+GALERKIN_DOMAIN = 0x3C6EF372
 # the patch sweeps; member j of a vertex-star patch draws under PATCH_DOMAIN + j
 PATCH_DOMAIN = 0x7F4A7C15
 _H2_SALT = 0x63D83595

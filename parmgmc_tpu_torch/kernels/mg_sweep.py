@@ -355,27 +355,29 @@ def fused_chain_down_2d_staged(
 def fused_chain_down_2d(
     x, b, coeffs, kappa2, hinv2, omega, seed, step, *,
     sweep="forward", with_noise=True, z=None, with_xsum=False, with_zsum=False,
-    row_offset=0, n0_global=None,
+    row_offset=0, n0_global=None, prefix_at=None, out=None,
 ):
     """(xpy, rc[, xsum_partials][, zsum_partials]): as
     :func:`fused_chain_down_2d_staged`, in the same launch geometry, on its
-    own entry and counter; bit for bit the staged outputs.
+    own entry and counter; bit for bit the staged outputs.  ``prefix_at``
+    and ``out`` serve ``sample_chain``'s captured step
+    (:mod:`parmgmc_tpu_torch.replay`), as for the staged kernel.
 
     Port of ``parmgmc_tpu/kernels/mg_sweep.py::fused_chain_down_2d``.  CPU
     tensors run the twin; CUDA tensors launch ``csrc/chain_march.cu`` or
     raise."""
     if x.device.type == "cpu":
-        return fused_chain_down_2d_reference(
+        return _into(out, fused_chain_down_2d_reference(
             x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep=sweep,
             with_noise=with_noise, z=z, with_xsum=with_xsum, with_zsum=with_zsum,
             row_offset=row_offset, n0_global=n0_global,
-        )
+        ))
     if x.device.type != "cuda":
         raise ValueError(f"no chain kernel for device {x.device}")
     rows = _twin.Rows(x.shape[0], row_offset, n0_global)
     _check_args(x, b, z, with_zsum, rows, with_xsum)
     return _launch_march("chain_2d", x, b, coeffs, kappa2, hinv2, omega, seed, step, sweep,
-                         with_noise, z, with_xsum, with_zsum, rows)
+                         with_noise, z, with_xsum, with_zsum, rows, prefix_at, out)
 
 
 def fused_zero_gibbs_restrict_fd(

@@ -31,6 +31,9 @@ number of spans a chain step, at call boundaries only:
     restrictions;
 ``pmg.lrc``
     the rank-k windows and Woodbury corrections of an LRC operator;
+``pmg.galerkin.sweep``
+    one half-sweep's launches of the 27-point colour-sweep kernel
+    (``GibbsSampler`` on a Galerkin level);
 ``pmg.graph.sor_sweep``
     one direction of a graph operator's colour sweep.
 """

@@ -23,17 +23,23 @@ CUDA graph shares.
 ``step_with_noise(x, b, noises)`` is the deterministic affine map given
 explicit standard-normal draws -- the oracle side of the tests and the
 body of the explicit-noise chains.  The keyed ``step(key, x, b)`` runs
-one full-sweep kernel launch per half-sweep for 3D radius-1 star stencils
-with scalar off-diagonals in float32 (the JAX ``impl="fused_fd"`` /
-``"fused"`` routes): :func:`~parmgmc_tpu_torch.kernels.rb_gibbs.
-fused_rb_gibbs_sweep_fd` for link-count FD operators,
+one full-sweep kernel call per half-sweep in float32 on 3D radius-1
+stencils: for stars with scalar off-diagonals (the JAX
+``impl="fused_fd"`` / ``"fused"`` routes)
+:func:`~parmgmc_tpu_torch.kernels.rb_gibbs.fused_rb_gibbs_sweep_fd` for
+link-count FD operators,
 :func:`~parmgmc_tpu_torch.kernels.rb_gibbs.fused_rb_gibbs_sweep` with the
-diagonal streamed otherwise.  Every other operator (2D, wider stencils,
-coefficient fields, float64) takes the explicit-noise step with a
-``torch.Generator`` draw, as the JAX ``impl="lax"`` route does.  A
-sampler records at create time what the kernels need: ``omega``, the
-sweep direction, the FD parameters (kappa2, hinv2) and the scalar
-off-diagonals, so a step never reads the device.
+diagonal streamed otherwise; for 27-point stencils with scalar or field
+coefficients (the linear-Galerkin levels)
+:func:`~parmgmc_tpu_torch.kernels.galerkin_sweep.fused_galerkin_sweep`,
+8 colours a call, its noise hashed on the device where the JAX package's
+``lax`` route draws it.  Every other operator (2D, star stencils with
+coefficient fields, wider stencils, float64) takes the explicit-noise
+step with a ``torch.Generator`` draw, as the JAX ``impl="lax"`` route
+does.  A sampler records at create time what the kernels need: ``omega``,
+the sweep direction, the FD parameters (kappa2, hinv2), the scalar
+off-diagonals and the 27-point kernel's colour-major fields, so a step
+never reads the device.
 
 On a :class:`~parmgmc_tpu_torch.operators.graph.GraphOperator` (an
 unstructured mesh) the sweep is the operator's own colour-blocked
@@ -51,8 +57,10 @@ from dataclasses import dataclass
 import torch
 
 from parmgmc_tpu_torch import kernels, keys
-from parmgmc_tpu_torch.kernels._noise import SWEEP_DOMAIN
+from parmgmc_tpu_torch.kernels import galerkin_sweep
+from parmgmc_tpu_torch.kernels._noise import GALERKIN_DOMAIN, SWEEP_DOMAIN
 from parmgmc_tpu_torch.kernels._twin import f32, noise_factor
+from parmgmc_tpu_torch.kernels.galerkin_sweep import fused_galerkin_sweep
 from parmgmc_tpu_torch.kernels.rb_gibbs import fused_rb_gibbs_sweep, fused_rb_gibbs_sweep_fd
 from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
 from parmgmc_tpu_torch.operators.lrc import LRCOperator, column_patches, patch_apply_add_
@@ -128,6 +136,10 @@ class GibbsSampler:
     # "kernel": the keyed step runs the sweep kernels where they apply;
     # "torch": always the explicit-noise step (registry.lax_variant)
     impl: str = "kernel"
+    # a 27-point stencil (kernels.galerkin_sweep), and the kernel's view of
+    # it (made on the card only: the twin reads the operator)
+    galerkin: bool = False
+    galerkin_pack: "galerkin_sweep.Pack | None" = None
 
     @staticmethod
     def create(op, omega: float = 1.0, sweep: str = "forward") -> "GibbsSampler":
@@ -147,6 +159,11 @@ class GibbsSampler:
             if set(base.offsets) == set(_STAR3) and all(c.ndim == 0 for c in base.coeffs):
                 m = dict(zip(base.offsets, base.coeffs))
                 coeff6 = tuple(float(m[o].to(torch.float32)) for o in _STAR3)
+        gk = {}
+        if galerkin_sweep.supported(base) and base.dtype == torch.float32:
+            gk["galerkin"] = True
+            if base.device.type == "cuda":
+                gk["galerkin_pack"] = galerkin_sweep.pack(base)
         # omega at the operator's precision, as the JAX sampler stores it
         om = float(torch.tensor(float(omega), dtype=base.dtype))
         if isinstance(base, FDStencilOperator):
@@ -165,7 +182,7 @@ class GibbsSampler:
                         lr[f"Bb_{name}_patches"] = column_patches(Bb)
         return GibbsSampler(
             base=base, omega=om, sweep=sweep, noise_scale=noise_scale,
-            fd_params=fd_params, coeff6=coeff6, **lr,
+            fd_params=fd_params, coeff6=coeff6, **lr, **gk,
         )
 
     @property
@@ -246,13 +263,16 @@ class GibbsSampler:
     @property
     def has_kernel(self) -> bool:
         """Does the keyed step run the sweep kernels?"""
-        return self.impl == "kernel" and self.coeff6 is not None and self.dtype == torch.float32
+        return (self.impl == "kernel" and (self.coeff6 is not None or self.galerkin)
+                and self.dtype == torch.float32)
 
     @property
     def route(self) -> str:
         """The keyed step's route: the sweep kernel's wrapper, or torch."""
         if not self.has_kernel:
             return "torch"
+        if self.galerkin:
+            return "fused_galerkin_sweep"
         return "fused_rb_gibbs_sweep_fd" if self.fd_params is not None else "fused_rb_gibbs_sweep"
 
     def _dirs(self) -> tuple:
@@ -272,8 +292,9 @@ class GibbsSampler:
         if self.is_lrc:
             key, klr = keys.split(key)
             words.seed(klr)
+        domain = GALERKIN_DOMAIN if self.galerkin else SWEEP_DOMAIN
         for i in range(len(self._dirs())):
-            words.launch(seed, extra * 2 + i, (SWEEP_DOMAIN,))
+            words.launch(seed, extra * 2 + i, (domain,))
         return key
 
     def step_from(self, cur, x, b):
@@ -304,7 +325,13 @@ class GibbsSampler:
             if self.is_lrc:
                 with span("pmg.lrc"):
                     b_eff = self.lrc.b_apply_add(w_all[i], b)
-            if self.fd_params is not None:
+            if self.galerkin:
+                with span("pmg.galerkin.sweep"):
+                    x = fused_galerkin_sweep(
+                        x, b_eff, self.base, self.omega, seed, step, sweep=d,
+                        **kernels.given(prefix_at=at, packed=self.galerkin_pack),
+                    )
+            elif self.fd_params is not None:
                 x = fused_rb_gibbs_sweep_fd(
                     x, b_eff, self.coeff6, self.fd_params[0], self.fd_params[1], self.omega,
                     seed, step, sweep=d, **kernels.given(prefix_at=at),

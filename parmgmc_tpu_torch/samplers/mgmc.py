@@ -23,22 +23,23 @@ Three routes through the same sampler:
   ``fused_zero_gibbs_restrict_fd`` launch for each level above it; the
   coarse Cholesky sample and the up-phase adds in plain torch.
 * ``step(key, x, b)`` on every other cycle -- the general keyed cycle:
-  each pre- and post-sweep is the level smoother's keyed ``step`` (one
-  full-sweep kernel launch per half-sweep on 3D star levels with scalar
-  off-diagonals, see
+  each pre- and post-sweep is the level smoother's keyed step (one
+  full-sweep kernel call per half-sweep on 3D star levels with scalar
+  off-diagonals and on the 27-point Galerkin levels, see
   :class:`~parmgmc_tpu_torch.samplers.gibbs.GibbsSampler`; levels whose
   planes pass ``_PLANE_LIMIT`` take the large-plane sweep kernels; other
-  levels, such as the 27-point Galerkin ones, an explicit-noise sweep in
-  plain torch), residuals, transfers and the coarse sample in plain torch,
-  gamma coarse iterations per level.
+  levels an explicit-noise sweep in plain torch), residuals, transfers and
+  the coarse sample in plain torch, gamma coarse iterations per level.
 
-The kernel route's keyed step derives every integer it hands the device
-(each launch's seed and step, each generator's seed) from its key in
+The keyed step derives every integer it hands the device (each launch's
+seed and step, each generator's seed) from its key in
 :meth:`MGMCSampler.keyed_words`, before any device work, and runs on them
 through a cursor (:class:`~parmgmc_tpu_torch.keys.Cursor`): ``step``,
-``step_deferred`` and a deferred step replayed from a captured CUDA graph
+``step_deferred`` and a step replayed from a captured CUDA graph
 (:mod:`parmgmc_tpu_torch.replay`) take their draws from that one
-derivation.
+derivation.  A step whose words hold a key for the host (a smoother or
+coarse sampler outside this scheme, the plain route's draws) runs
+eagerly.
 
 On an LRC (posterior) operator A + B Sigma^{-1} B^T every level is LRC
 (B_c = P^T B).  The V(1,0) chain keeps level 0 on the unchanged chain
@@ -61,10 +62,12 @@ default, ``coarsening="linear"``, takes :class:`GeometricTransfer` and
 the exact Galerkin product P^T A P read off comb probes
 (:func:`~parmgmc_tpu_torch.operators.stencil.galerkin_coarse_operator`,
 then ``compress_stencil``): in 3D every level below the finest is a
-27-point stencil with coefficient fields, swept by the plain-torch
-8-colour SOR.  ``coarsening="aggregate"`` keeps link-count FD in closed
-form on even extents (kappa2' = 2^d kappa2, hinv2' = 2^(d-1) hinv2) and
-probes P^T A P under aggregation for odd extents and non-FD stencils.
+27-point stencil with coefficient fields, swept 8 colours a call by
+:func:`~parmgmc_tpu_torch.kernels.galerkin_sweep.fused_galerkin_sweep` in
+float32 (the plain-torch 8-colour SOR otherwise).
+``coarsening="aggregate"`` keeps link-count FD in closed form on even
+extents (kappa2' = 2^d kappa2, hinv2' = 2^(d-1) hinv2) and probes P^T A P
+under aggregation for odd extents and non-FD stencils.
 
 A graph operator (an unstructured mesh) takes the smoothed-aggregation
 hierarchy (:func:`~parmgmc_tpu_torch.operators.aggregation.
@@ -646,13 +649,13 @@ class MGMCSampler:
         """Keyed V(1,0) cycle from zero at level l (kernels throughout;
         only where :meth:`deferred_eligible`) on the cursor ``cur`` (the
         words of :meth:`_cycle_words`), into ``out`` when given.  LRC levels
-        run the general keyed cycle (:meth:`_cycle_lrc`): the from-zero
+        run the general keyed cycle (:meth:`_cycle_general_from`): the from-zero
         kernels know only the base stencil."""
         if l == self.n_levels - 1:
             x = self._coarse_sample(bl, cur)
             return x if out is None else out.copy_(x)
         if self.smoothers[l].is_lrc:
-            return self._cycle_lrc(l, bl, cur, out)
+            return self._cycle_general_from(l, bl, cur, out)
         if self._tail_fused_eligible(l):
             return self._fused_tail_cycle(l, bl, cur, out)
         # any other level from zero, level 0 too (fmg_init)
@@ -661,12 +664,15 @@ class MGMCSampler:
         with span("pmg.mgmc.up"):
             return self.transfers[l].prolong_add(y, zc, out=out)
 
-    def _cycle_lrc(self, l: int, bl, cur, out=None):
-        """:meth:`_cycle_general` at an LRC level of the V(1,0) chain (gamma
-        1, no post-sweep) on the cursor ``cur``: a Gibbs smoother's steps on
-        their words, any other level's cycle keyed from the key there."""
+    def _cycle_general_from(self, l: int, bl, cur, out=None):
+        """:meth:`_cycle_general` on the cursor ``cur`` (the words of
+        :meth:`_general_words`), into ``out`` when given: a Gibbs
+        smoother's steps and a Cholesky coarse sample on their words, any
+        other level's cycle keyed from the key there.  The general keyed
+        step runs it from level 0, the V(1,0) chain at its LRC levels."""
         if l == self.n_levels - 1:
-            return self._cycle_keyed(l, bl, cur, out)
+            x = self._coarse_sample(bl, cur)
+            return x if out is None else out.copy_(x)
         smoother = self.smoothers[l]
         if not isinstance(smoother, GibbsSampler):
             x = self._cycle_general(l, bl, cur.key())
@@ -677,26 +683,36 @@ class MGMCSampler:
                 x = smoother.step_from(cur, x, bl)
         with span("pmg.mgmc.restrict"):
             r = self.transfers[l].restrict(bl - self.ops[l].apply(x))
-        xc = self._cycle_lrc(l + 1, r, cur)
+        xc = self._cycle_general_from(l + 1, r, cur)
+        for _ in range(1, self.gamma):  # W-cycle: iterate the coarse chain
+            with span("pmg.mgmc.restrict"):
+                rc = r - self.ops[l + 1].apply(xc)
+            xc = xc + self._cycle_general_from(l + 1, rc, cur)
         with span("pmg.mgmc.up"):
-            x = self.transfers[l].prolong_add(x, xc, out=out)
-        with span("pmg.mgmc.smooth"):  # the post-sweeps: none on the chain route
+            x = self.transfers[l].prolong_add(x, xc, out=out if self.n_post == 0 else None)
+        with span("pmg.mgmc.smooth"):
             for _ in range(self.n_post):
                 x = smoother.step_from(cur, x, bl)
-        return x
+        return x if out is None or self.n_post == 0 else out.copy_(x)
 
     # -- the integers the kernel route's keyed step hands the device ---------
     def keyed_words(self, key: int) -> keys.Words:
-        """The integers the kernel route's keyed step (:meth:`step`,
-        :meth:`step_deferred`; only where :meth:`deferred_eligible`) derives
-        from ``key`` for the device, in the order it uses them: the level-0
-        low-rank draw's seed (LRC), #1's launch, then the cycle below
-        (:meth:`_cycle_words`); ``.key`` is the chain's next key.  The one
-        derivation of a step's draws: the eager step reads it through a
-        cursor, a replayed capture (:mod:`parmgmc_tpu_torch.replay`) writes
-        its prefixes and seeds to the graph's inputs."""
+        """The integers the keyed step (:meth:`step`, and
+        :meth:`step_deferred` where :meth:`deferred_eligible`) derives from
+        ``key`` for the device, in the order it uses them; ``.key`` is the
+        chain's next key.  On the V(1,0) kernel route: the level-0 low-rank
+        draw's seed (LRC), #1's launch, then the cycle below
+        (:meth:`_cycle_words`); on every other cycle the general cycle's
+        (:meth:`_general_words`).  The one derivation of a step's draws:
+        the eager step reads it through a cursor, a replayed capture
+        (:mod:`parmgmc_tpu_torch.replay`) writes its prefixes and seeds to
+        the graph's inputs."""
         words = keys.Words()
         key, sub = keys.split(key)
+        if not self.deferred_eligible():
+            self._general_words(0, sub, words)
+            words.key = key
+            return words
         if self.smoothers[0].is_lrc:
             sub, klr = keys.split(sub)
             words.seed(klr)
@@ -719,7 +735,7 @@ class MGMCSampler:
                 key = self.coarse.step_words(key, words)
             return None
         if self.smoothers[l].is_lrc:
-            return self._lrc_words(l, key, words)
+            return self._general_words(l, key, words)
         key, seed, step = keys.draw_pair(key)
         if self._tail_fused_eligible(l):
             words.launch(seed, step, [TAIL_DOMAIN + li for li in range(self.n_levels - 1 - l)])
@@ -728,8 +744,12 @@ class MGMCSampler:
         key, sub = keys.split(key)
         return self._cycle_words(l + 1, sub, words)
 
-    def _lrc_words(self, l: int, key: int, words) -> None:
-        """The words of :meth:`_cycle_lrc` at level l under ``key``."""
+    def _general_words(self, l: int, key: int, words) -> None:
+        """Append the words of :meth:`_cycle_general_from` at level l under
+        ``key``, in :meth:`_cycle_general`'s order of splits: each Gibbs
+        smoother's steps (:meth:`GibbsSampler.step_words`), the coarse
+        sample's (:meth:`_cycle_words`); a level of another smoother keeps
+        its key (``Words.defer``)."""
         if l == self.n_levels - 1:
             return self._cycle_words(l, key, words)
         smoother = self.smoothers[l]
@@ -738,7 +758,10 @@ class MGMCSampler:
         for _ in range(self.n_pre):
             key = smoother.step_words(key, words)
         key, sub = keys.split(key)
-        self._lrc_words(l + 1, sub, words)
+        self._general_words(l + 1, sub, words)
+        for _ in range(1, self.gamma):
+            key, sub = keys.split(key)
+            self._general_words(l + 1, sub, words)
         for _ in range(self.n_post):
             key = smoother.step_words(key, words)
         return None
@@ -759,24 +782,32 @@ class MGMCSampler:
                 key, sub = keys.split(key)
                 shapes = gibbs.with_batch(self.noise_shapes(), batch)
                 return key, self.step_with_noise(x, b, gibbs._draw(sub, shapes, x.dtype, x.device))
-        if not self.deferred_eligible():
-            key, sub = keys.split(key)
-            with span("pmg.mgmc.restrict"):
-                r = (torch.zeros_like(x) if b is None else bcast(b, x)) - self.fine_op.apply(x)
-            y = self._cycle_general(0, r, sub)
-            with span("pmg.mgmc.up"):
-                return key, x + y
         words = self.keyed_words(key)
         cur = words.cursor()
+        x = self.step_from(cur, x, b)
+        cur.close()
+        return words.key, x
+
+    def step_from(self, cur, x, b, out=None):
+        """x': :meth:`step` on the words of :meth:`keyed_words`, read through
+        the cursor ``cur``, into ``out`` when given (the static buffer of a
+        captured step): the V(1,0) kernel route where
+        :meth:`deferred_eligible`, else the general keyed cycle,
+        x + M_mg(b - A x)."""
+        if not self.deferred_eligible():
+            with span("pmg.mgmc.restrict"):
+                r = (torch.zeros_like(x) if b is None else bcast(b, x)) - self.fine_op.apply(x)
+            y = self._cycle_general_from(0, r, cur)
+            with span("pmg.mgmc.up"):
+                return torch.add(x, y, out=out)
         if self.smoothers[0].is_lrc:
             with span("pmg.lrc"):
                 xpy, rc, *_ = self._lrc_down(cur, x, b)
         else:
             xpy, rc = self._fused_chain_down(x, b, cur)
         z1 = self._cycle_keyed(1, rc, cur)
-        cur.close()
         with span("pmg.mgmc.up"):
-            return words.key, self.transfers[0].prolong_add(xpy, z1)
+            return self.transfers[0].prolong_add(xpy, z1, out=out)
 
     def _lrc_down(self, cur, x, b, z=None, btx=None, out=None, btx_out=None):
         """(x_out, rc, btx_next, sx, zsum): level 0's down-phase on an LRC

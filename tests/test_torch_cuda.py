@@ -20,9 +20,12 @@ corrections) against its materialised form and its deferred form against
 the plain chain (1e-3, relative max-norm), with its launches; the
 deferred chain replayed from captured CUDA graphs against the eager
 deferred chain bit for bit and against ``sample_chain``, with its
-launches and the states it returned left alone; the linear
-hierarchy's Galerkin levels against R A P (1e-5), and its keyed cycles'
-launches (fault F3: no chain kernel); the structured Matérn façade's
+launches and the states it returned left alone; ``sample_chain``'s keyed
+V(2,2) step (linear and aggregate) replayed against the eager chain bit
+for bit, and the graph hierarchy left eager; the 27-point colour sweep
+against its twin bit for bit at the 256^3 hierarchy's 27-point levels;
+the linear hierarchy's Galerkin levels against R A P (1e-5), and its
+keyed cycles' launches (fault F3: no chain kernel); the structured Matérn façade's
 launches (one #1 and one #2 a chain step) and ``chain.multi_chain`` bit
 for bit against separate chains; the kernels on halo-extended blocks with
 ``row_offset``/``n0_global`` (#7, #8, #9, #1, #4, #5, #3) against their
@@ -478,6 +481,109 @@ def test_replayed_deferred_chain_is_the_eager_chain(dev, n, posterior):
                 assert torch.equal(st_p.x, st_g.x)
 
 
+def _galerkin_levels(dev, n):
+    """The 27-point levels of the linear hierarchy of gmrf_3d(n)."""
+    from parmgmc_tpu_torch.models.problems import gmrf_3d
+    from parmgmc_tpu_torch.samplers.mgmc import build_hierarchy
+
+    ops, _ = build_hierarchy(gmrf_3d(n, 1.0, device=dev))
+    return ops[1:-1]
+
+
+def test_galerkin_sweep_kernel_matches_twin_bitwise(dev):
+    """The 27-point colour sweep (csrc/galerkin_sweep.cu) against its twin on
+    the card, bit for bit, at every 27-point level of the 256^3 linear
+    hierarchy (128^3 ... 16^3) and on an odd extent (17^3): forward and
+    backward, noise on and off, b given and None, eight launches a call;
+    prefix_at gives the by-value draws."""
+    from parmgmc_tpu_torch.kernels import galerkin_sweep as gs
+
+    ops = _galerkin_levels(dev, 256) + _galerkin_levels(dev, 33)[:1]
+    assert [o.grid_shape[0] for o in ops] == [128, 64, 32, 16, 17]
+    g = torch.Generator(device=dev).manual_seed(11)
+    for op in ops:
+        pk = gs.pack(op)
+        x, b = (torch.randn(op.grid_shape, generator=g, device=dev) for _ in range(2))
+        for sweep in ("forward", "backward"):
+            for noise in (True, False):
+                for bb in (b, None):
+                    want = gs.fused_galerkin_sweep_reference(x, bb, op, 1.0, 3, 8, sweep=sweep,
+                                                             with_noise=noise)
+                    kernels.reset_launch_counts()
+                    got = gs.fused_galerkin_sweep(x, bb, op, 1.0, 3, 8, sweep=sweep, with_noise=noise,
+                                                  packed=pk)
+                    assert kernels.launch_counts()["galerkin_sweep"] == 8
+                    assert torch.equal(got, want), (op.grid_shape, sweep, noise, bb is None)
+        at = torch.tensor([_noise_prefix(3, 8)], dtype=torch.int32, device=dev)
+        assert torch.equal(gs.fused_galerkin_sweep(x, b, op, 1.0, 3, 8, packed=pk, prefix_at=at),
+                           gs.fused_galerkin_sweep(x, b, op, 1.0, 3, 8, packed=pk))
+
+
+def _noise_prefix(seed, step):
+    """The Galerkin sweep's hash prefix as the int32 word a device slot holds."""
+    import numpy as np
+
+    from parmgmc_tpu_torch.kernels import _noise
+
+    return int(np.uint32(_noise.hash_prefix(seed, step, _noise.GALERKIN_DOMAIN)).view(np.int32))
+
+
+@pytest.mark.parametrize("coarsening", ["linear", "aggregate"])
+def test_replayed_sample_chain_is_the_eager_chain(dev, coarsening):
+    """sample_chain of the V(2,2) prior at 32^3 (linear: #7 and the 27-point
+    sweep; aggregate: #7 at every level), replayed from its captured CUDA
+    graphs over two calls of 10 steps: bit for bit the eager chain (states,
+    keys and QOI); the states it returned left alone; one chain_step_graph
+    a replayed step (every step but the first)."""
+    from parmgmc_tpu_torch import replay
+    from parmgmc_tpu_torch.kernels.galerkin_sweep import LAUNCHES
+
+    smp = MGMCSampler.create(shifted_laplace_fd((32, 32, 32), 1.0, device=dev), n_pre=2, n_post=2,
+                             coarsening=coarsening)
+    assert smp.keyed_words(0).replayable and not smp.deferred_eligible()
+    st = init_chain(smp, 2**35 + 9)
+    kernels.reset_launch_counts()
+    runs = []
+    for _ in range(2):
+        st, q = sample_chain(smp, st, None, 10, extract=torch.mean)
+        runs.append((st, q, st.x.clone()))
+    counts = kernels.launch_counts()
+    per = (dict(rb_gibbs_fd=4, galerkin_sweep=4 * LAUNCHES) if coarsening == "linear"
+           else dict(rb_gibbs_fd=8))
+    assert counts == dict(dict.fromkeys(counts, 0), chain_step_graph=19,
+                          **{k: 20 * v for k, v in per.items()}), counts
+    for st_g, _, copy in runs:
+        assert torch.equal(st_g.x, copy)
+    st_e = init_chain(smp, 2**35 + 9)
+    with mock.patch.object(replay, "graphs_for", lambda *a: None):
+        for st_g, q_g, _ in runs:
+            st_e, q_e = sample_chain(smp, st_e, None, 10, extract=torch.mean)
+            assert st_g.key == st_e.key
+            assert torch.equal(st_g.x, st_e.x) and torch.equal(q_g, q_e)
+    # recorded samples (extract None) are copies, not the graphs' buffers
+    _, xs_g = sample_chain(smp, runs[-1][0], None, 3)
+    with mock.patch.object(replay, "graphs_for", lambda *a: None):
+        _, xs_e = sample_chain(smp, runs[-1][0], None, 3)
+    assert torch.equal(xs_g, xs_e)
+
+
+def test_graph_hierarchy_is_not_captured(dev):
+    """The mesh's graph hierarchy (Gibbs on graph operators: their draws on
+    the host) runs sample_chain eagerly: no capture, no chain_step_graph."""
+    from parmgmc_tpu_torch import replay
+    from parmgmc_tpu_torch.models.mesh import matern_precision_mesh, unit_square_mesh
+    from parmgmc_tpu_torch.operators.graph import from_csr
+
+    pts, cells = unit_square_mesh(16)
+    smp = MGMCSampler.create(from_csr(matern_precision_mesh(pts, cells, 5.0), device=dev), coarsest_size=16)
+    assert not smp.keyed_words(0).replayable
+    kernels.reset_launch_counts()
+    st, q = sample_chain(smp, init_chain(smp, 3), None, 4, extract=torch.sum)
+    assert kernels.launch_counts()["chain_step_graph"] == 0
+    assert replay.graphs_for(smp, st.x, None, False) is None
+    assert bool(torch.isfinite(st.x).all()) and q.shape == (4,)
+
+
 def test_capture_outlives_a_dead_samplers_graphs(dev):
     """Graphs of a sampler that died in a reference cycle are collected
     before the next capture, not inside it, where destroying a graph would
@@ -614,15 +720,20 @@ def test_linear_galerkin_levels_are_exact_on_the_card(dev):
 def test_linear_hierarchy_launches_no_chain_kernel(dev):
     """Fault F3: the V(1,0) cycle shape on a linear hierarchy runs the
     general keyed cycle (one #7 a step, no #1, #2 or #3) and the deferred
-    chain refuses it; the default V(2,2) runs four #7 a step (level 0)."""
+    chain refuses it; the default V(2,2) runs four #7 a step (level 0) and
+    four 27-point sweeps (level 1); every step but the first is a replay."""
+    from parmgmc_tpu_torch.kernels.galerkin_sweep import LAUNCHES
+
     op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
-    for kw, per_step in ((dict(n_levels=2, n_pre=1, n_post=0), 1), (dict(n_pre=2, n_post=2), 4)):
+    for kw, per_step in ((dict(n_levels=2, n_pre=1, n_post=0), dict(rb_gibbs_fd=1)),
+                         (dict(n_pre=2, n_post=2), dict(rb_gibbs_fd=4, galerkin_sweep=4 * LAUNCHES))):
         smp = MGMCSampler.create(op, coarsest_size=64, **kw)
         assert not smp.deferred_eligible()
         kernels.reset_launch_counts()
         st, q = sample_chain(smp, init_chain(smp, 1), None, 5, extract=torch.mean)
         counts = kernels.launch_counts()
-        assert counts == dict(dict.fromkeys(counts, 0), rb_gibbs_fd=5 * per_step), counts
+        want = dict(dict.fromkeys(counts, 0), chain_step_graph=4, **{k: 5 * v for k, v in per_step.items()})
+        assert counts == want, counts
         assert bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all())
         with pytest.raises(NotImplementedError):
             smp.step_deferred(0, st.x, smp.deferred_init(torch.float32), None)
@@ -641,7 +752,9 @@ def test_matern_sampler_runs_the_chain_kernels(dev):
     q = ms.sample(6, burnin=2)
     qc = ms.sample_chains(5, n_chains=3)
     counts = kernels.launch_counts()
-    assert counts == dict(dict.fromkeys(counts, 0), chain_down=8 + 15, tail_down=8 + 15), counts
+    # every step a replay but the first of the sampler's first chain call
+    assert counts == dict(dict.fromkeys(counts, 0), chain_down=8 + 15, tail_down=8 + 15,
+                          chain_step_graph=7 + 15), counts
     assert q.shape == (6,) and qc.shape == (3, 5)
     assert bool(torch.isfinite(q).all()) and bool(torch.isfinite(qc).all())
     with pytest.raises(ValueError, match="lax_variant"):

@@ -39,7 +39,7 @@ from parmgmc_tpu.operators.transfer import GeometricTransfer as JaxGeometricTran
 from parmgmc_tpu.samplers.mgmc import MGMCSampler as JaxMGMCSampler
 from parmgmc_tpu.samplers.mgmc import build_hierarchy as jax_build_hierarchy
 from parmgmc_tpu_torch import convert, keys
-from parmgmc_tpu_torch.kernels import mg_sweep, mg_tail, rb_gibbs
+from parmgmc_tpu_torch.kernels import galerkin_sweep, mg_sweep, mg_tail, rb_gibbs
 from parmgmc_tpu_torch.models.obs import make_posterior_operator
 from parmgmc_tpu_torch.models.problems import gmrf_2d, gmrf_3d
 from parmgmc_tpu_torch.operators import stencil as st
@@ -254,10 +254,13 @@ def test_linear_invariance(cycle):
 @pytest.fixture
 def noise_off(monkeypatch):
     """Run the keyed paths with every draw switched off: the sweep
-    kernels' noise, the plain levels' and the coarse sample's draws, and
-    the low-rank draws of an LRC smoother."""
+    kernels' noise (the star and the 27-point ones), the plain levels' and
+    the coarse sample's draws (keyed, or on a cursor's words), and the
+    low-rank draws of an LRC smoother."""
     for name in ("fused_rb_gibbs_sweep_fd", "fused_rb_gibbs_sweep"):
         monkeypatch.setattr(gibbs, name, functools.partial(getattr(rb_gibbs, name), with_noise=False))
+    monkeypatch.setattr(gibbs, "fused_galerkin_sweep",
+                        functools.partial(galerkin_sweep.fused_galerkin_sweep, with_noise=False))
 
     def zeros(key, shapes, dtype, device):
         if isinstance(shapes, tuple):
@@ -273,7 +276,12 @@ def noise_off(monkeypatch):
     monkeypatch.setattr(gibbs, "_draw", zeros)
     monkeypatch.setattr(gibbs, "_lowrank_draw", lambda key, scale, n: torch.zeros(n, scale.shape[0],
                                                                                  dtype=scale.dtype))
+    def zero_coarse_step_from(self, cur, x, b, aux=None):
+        cur.generator(self.device)
+        return self.step_with_noise(x, b, [{"eta": torch.zeros(self.n, dtype=self.dtype)}], aux)
+
     monkeypatch.setattr(CholeskySampler, "step", zero_coarse_step)
+    monkeypatch.setattr(CholeskySampler, "step_from", zero_coarse_step_from)
 
 
 @pytest.fixture
@@ -291,7 +299,7 @@ def no_chain_kernels(monkeypatch):
 @pytest.mark.parametrize("with_b", [False, True])
 def test_keyed_linear_step_without_noise_matches_jax(noise_off, no_chain_kernels, with_b):
     """V(2,2) on (8, 8, 16): level 0 on the FD sweep's twin, the 27-point
-    level 1 on the plain keyed sweep, all draws off, against JAX's
+    level 1 on the 27-point sweep's twin, all draws off, against JAX's
     explicit cycle with zero noises (float32)."""
     kw = CYCLES["V22"]
     jsmp = JaxMGMCSampler.create(jst.shifted_laplace_fd((8, 8, 16), 1.3, dtype=jnp.float32),
@@ -299,7 +307,8 @@ def test_keyed_linear_step_without_noise_matches_jax(noise_off, no_chain_kernels
     smp = MGMCSampler.create(st.shifted_laplace_fd((8, 8, 16), 1.3, device=DEV), coarsest_size=16, **kw)
     assert [o.grid_shape for o in smp.ops] == [tuple(o.grid_shape) for o in jsmp.ops] == [
         (8, 8, 16), (4, 4, 8), (2, 2, 4)]
-    assert smp.smoothers[0].has_kernel and not smp.smoothers[1].has_kernel and not smp.deferred_eligible()
+    assert smp.smoothers[0].has_kernel and not smp.deferred_eligible()
+    assert smp.smoothers[1].has_kernel and smp.smoothers[1].route == "fused_galerkin_sweep"
     rs = np.random.RandomState(8)
     x = rs.randn(8, 8, 16).astype(np.float32)
     b = rs.randn(8, 8, 16).astype(np.float32) if with_b else None

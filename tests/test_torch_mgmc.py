@@ -205,6 +205,9 @@ def test_keyed_2d_cycle_without_noise_is_the_explicit_cycle(monkeypatch):
     monkeypatch.setattr(gibbs, "_draw", zeros)
     monkeypatch.setattr(CholeskySampler, "step", lambda self, key, x, b, aux=None: (
         key, self.step_with_noise(x, b, [{"eta": torch.zeros(self.n, dtype=self.dtype)}], aux)))
+    monkeypatch.setattr(CholeskySampler, "step_from", lambda self, cur, x, b, aux=None: (
+        cur.generator(self.L.device),
+        self.step_with_noise(x, b, [{"eta": torch.zeros(self.n, dtype=self.dtype)}], aux))[1])
     jsmp = JaxMGMCSampler.create(jax_gmrf_2d(64, dtype=jnp.float32), impl="lax", **_V22)
     ops = [convert.stencil_operator(o.offsets, [np.asarray(c) for c in o.coeffs], np.asarray(o.diag), DEV)
            for o in jsmp.ops]

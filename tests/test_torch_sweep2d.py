@@ -212,7 +212,13 @@ def noise_off(monkeypatch):
         eta = torch.zeros(self.n, dtype=self.dtype, device=self.L.device)
         return key, self.step_with_noise(x, b, [{"eta": eta}], aux)
 
+    def zero_coarse_step_from(self, cur, x, b, aux=None):
+        cur.generator(self.L.device)
+        eta = torch.zeros(self.n, dtype=self.dtype, device=self.L.device)
+        return self.step_with_noise(x, b, [{"eta": eta}], aux)
+
     monkeypatch.setattr(CholeskySampler, "step", zero_coarse_step)
+    monkeypatch.setattr(CholeskySampler, "step_from", zero_coarse_step_from)
 
 
 def _zeros(shapes):
