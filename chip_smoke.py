@@ -162,25 +162,33 @@ Phases, in order; any failure raises and exits non-zero:
               default V(2,2) chain on gmrf_3d(16) (16^3 on #7, 8^3 the exact
               coarse sample of the Galerkin operator) against its
               explicit-noise chain, 20000 steps after 200 burn-in (the
-              phase-4 gates), with exact launches (four #7 a step; none in
-              the explicit chain).  Odd extents: gmrf_3d(129) V(2,2) linear
-              (129 -> 65 -> 33 -> 17 -> 9), eight keyed steps against the
-              same steps on the twins (< 1e-4), exactly four #7 a step, a
-              finite state; gmrf_3d(33) V(2,2) aggregate (the probed 17^3 and
-              9^3 levels have coefficient fields, swept by the 27-point
-              kernel): exactly four #7 and twelve 27-point sweeps a step and
-              no other kernel, one chain_step_graph a replayed step.  Fault F3: a two-level linear V(1,0)
+              phase-4 gates), with exact launches (four #7 and two residual
+              launches a step; none in the explicit chain).  Odd extents:
+              gmrf_3d(129) V(2,2) linear (129 -> 65 -> 33 -> 17 -> 9): the
+              residual kernel (csrc/residual_restrict.cu) bit for bit its
+              twin on every level, both forms, b given and None; eight keyed
+              steps against the same steps on the twins (< 1e-4), exactly
+              four #7, twelve 27-point sweeps and five residual launches a
+              step and no other kernel, one chain_step_graph a replayed
+              step, a finite state; gmrf_3d(33) V(2,2) aggregate (the probed
+              17^3 and 9^3 levels have coefficient fields, the plain route):
+              exactly four #7 a step.  Fault F3: a two-level linear V(1,0)
               sampler is not deferred-eligible, its keyed step launches one
-              #7 and no #1, #2 or #3, and step_deferred refuses it.
+              #7, two residual launches and no #1, #2 or #3, and
+              step_deferred refuses it.
 22. 256^3 default V(2,2) path -- MGMCSampler.create(gmrf_3d(256), n_pre=2,
               n_post=2) with no device and every other argument at its
               default (the linear hierarchy 256^3 ... 8^3; levels 128^3 ...
-              16^3 are 27-point stencils on the 27-point colour-sweep kernel)
-              through sample_chain with the mean as QOI, its step replayed
+              16^3 are 27-point stencils on the 27-point colour-sweep kernel):
+              the residual kernel bit for bit its twin on every level, both
+              forms, b given and None, and a step's six calls timed (queued
+              behind a sleeping kernel) beside the twin and their bound;
+              then through sample_chain with the mean as QOI, its step replayed
               from a captured CUDA graph: ms/cycle over 64 steps after a
               warm-up, tau and ESS/sec and var(QOI) N in (0.8, 1.25) from
-              N_LINEAR_IACT steps, exactly four #7 launches and sixteen
-              27-point sweeps a step and no other kernel, the device time of
+              N_LINEAR_IACT steps, exactly four #7 launches, sixteen
+              27-point sweeps and six residual launches a step and no other
+              kernel, the device time of
               a step by kernel and the idle share, and eight keyed steps on
               the twins (state < 1e-4).
 23. unstructured mesh set-up -- MaternMeshSampler on the wrench
@@ -944,7 +952,7 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
 
     sweeps = (smp.n_pre + smp.n_post) * (smp.n_levels - 1 - plain_levels)
     per_sweep = {"galerkin_sweep": LAUNCHES}  # launches a sweep where not one
-    check(sum(v // per_sweep.get(k, 1) for k, v in per_step.items()) == sweeps
+    check(sum(v // per_sweep.get(k, 1) for k, v in per_step.items() if k != "residual_restrict") == sweeps
           and not smp.deferred_eligible(),
           f"V(2,2) over {smp.n_levels} levels does not run {per_step} sweeps a step")
     shape = tuple(smp.grid_shape)
@@ -1895,11 +1903,11 @@ def timed_hierarchy(torch, op, **kw):
 
 def twin_steps(torch, smp, st, b, n=8):
     """Relative max-norm gap between n keyed steps of smp from st on the
-    kernels and the same steps, eager, with the FD sweep's and the 27-point
-    sweep's twins in their place."""
+    kernels and the same steps, eager, with the FD sweep's, the 27-point
+    sweep's and the residual's twins in their place."""
     from parmgmc_tpu_torch import replay
     from parmgmc_tpu_torch.chain import sample_chain
-    from parmgmc_tpu_torch.kernels import galerkin_sweep, rb_gibbs
+    from parmgmc_tpu_torch.kernels import galerkin_sweep, rb_gibbs, residual_restrict
     from parmgmc_tpu_torch.samplers import gibbs
 
     sa, _ = sample_chain(smp, st, b, n)
@@ -1907,10 +1915,53 @@ def twin_steps(torch, smp, st, b, n=8):
             mock.patch.object(gibbs, "fused_galerkin_sweep",
                               lambda *a, prefix_at=None, packed=None, **k:
                               galerkin_sweep.fused_galerkin_sweep_reference(*a, **k)), \
+            mock.patch.object(residual_restrict, "residual_restrict",
+                              lambda *a, packed=None, **k: residual_restrict.residual_restrict_reference(*a, **k)), \
             mock.patch.object(replay, "graphs_for", lambda *a: None):
         sb, _ = sample_chain(smp, st, b, n)
     check(bool(torch.isfinite(sa.x).all()), "the keyed chain's state is not finite")
     return rel_err(sa.x, sb.x)[0]
+
+
+def residual_checks(torch, smp, label, timed=False):
+    """The residual kernel against its twin, bit for bit, on every smoothed
+    level of smp's linear hierarchy: both forms, b given and None.  With
+    ``timed``, the device time of a step's calls (the fine residual alone,
+    b None, then each level's residual and restriction), queued behind a
+    sleeping kernel, beside the twin's and the bound of their bytes.
+    Returns the kernel's ms a step (0.0 untimed)."""
+    from parmgmc_tpu_torch.kernels import residual_restrict as rr
+    from parmgmc_tpu_torch.operators.stencil import coarse_shape
+
+    gen = torch.Generator(device=smp.device).manual_seed(13)
+    for l in range(smp.n_levels - 1):
+        op, pack = smp.ops[l], smp.residual_packs[l]
+        check(pack is not None, f"{label}: level {l} has no residual pack")
+        x, b = (torch.randn(op.grid_shape, generator=gen, device=smp.device) for _ in range(2))
+        for restrict in (True, False):
+            for bb in (b, None):
+                want = rr.residual_restrict_reference(x, bb, op, restrict=restrict)
+                got = rr.residual_restrict(x, bb, op, restrict=restrict, packed=pack)
+                check(torch.equal(got, want), f"{label}: the residual kernel differs from its twin at level "
+                      f"{l} {op.grid_shape} (restrict {restrict}, b {bb is not None}): rel {rel_err(got, want)[0]:.3e}")
+    print(f"  {label}: the residual kernel equals its twin bit for bit on every level, both forms, b and None")
+    if not timed:
+        return 0.0
+    total = 0.0
+    for l, restrict in [(0, False)] + [(m, True) for m in range(smp.n_levels - 1)]:
+        op, pack = smp.ops[l], smp.residual_packs[l]
+        x, b = (torch.randn(op.grid_shape, generator=gen, device=smp.device) for _ in range(2))
+        bb = b if restrict else None
+        pts, out = math.prod(op.grid_shape), math.prod(coarse_shape(op.grid_shape) if restrict else op.grid_shape)
+        streams = 1 + (bb is not None) + (pack.diag is not None) + sum(f is not None for f in pack.fields)
+        t = queued_ms(torch, lambda: rr.residual_restrict(x, bb, op, restrict=restrict, packed=pack), 20)
+        tt = event_ms(torch, lambda: rr.residual_restrict_reference(x, bb, op, restrict=restrict), 5)
+        lb = bound(4 * (streams * pts + out), 0)[0]
+        total += t
+        print(f"    {op.grid_shape} {'restrict' if restrict else 'alone'}: {t * 1e3:.2f} us (bound {lb * 1e3:.2f} us, "
+              f"{100 * lb / t:.1f} %), twin {tt * 1e3:.1f} us")
+    print(f"  {label}: a step's {smp.n_levels} residual calls {total:.4f} ms")
+    return total
 
 
 def counted_steps(torch, label, smp, n, per_step):
@@ -1957,7 +2008,8 @@ def phase_linear(torch, dev):
     smp = MGMCSampler.create(gmrf_3d(16, kappa=1.0), n_pre=2, n_post=2)
     check(smp.n_levels == 2 and smp.smoothers[0].has_kernel, f"gmrf_3d(16) levels {smp.n_levels}")
     b = torch.full(smp.grid_shape, 50.0, device=dev)
-    kern = counted_moments(torch, "linear V(2,2) kernel chain", smp, b, N_POST_MOMENTS, 200, {"rb_gibbs_fd": 4})
+    kern = counted_moments(torch, "linear V(2,2) kernel chain", smp, b, N_POST_MOMENTS, 200,
+                           {"rb_gibbs_fd": 4, "residual_restrict": 2})
     plain = counted_moments(torch, "linear V(2,2) plain chain", ExplicitNoise(smp), b, N_POST_MOMENTS, 200, {})
     moments_check(torch, "linear V(2,2)", kern, plain, 0.2)
 
@@ -1966,8 +2018,9 @@ def phase_linear(torch, dev):
     odd = MGMCSampler.create(gmrf_3d(129, kappa=1.0), n_pre=2, n_post=2)
     levels = [o.grid_shape for o in odd.ops]
     check(levels == [(m,) * 3 for m in (129, 65, 33, 17, 9)], f"gmrf_3d(129) levels {levels}")
+    residual_checks(torch, odd, "129^3")
     st = counted_steps(torch, "129^3 linear V(2,2)", odd, 8,
-                       {"rb_gibbs_fd": 4, "galerkin_sweep": 12 * LAUNCHES})
+                       {"rb_gibbs_fd": 4, "galerkin_sweep": 12 * LAUNCHES, "residual_restrict": 5})
     rel = twin_steps(torch, odd, st, None)
     print(f"  129^3 linear V(2,2): 8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
     check(rel < 1e-4, "the odd-extent linear cycle on the kernels disagrees with its twins")
@@ -1981,7 +2034,7 @@ def phase_linear(torch, dev):
     f3 = MGMCSampler.create(gmrf_3d(32, kappa=1.0), n_levels=2, n_pre=1, n_post=0)
     check(f3.smoothers[0].fd_params is not None and not f3.deferred_eligible(),
           "a linear V(1,0) sampler is deferred-eligible")
-    counted_steps(torch, "32^3 two-level linear V(1,0)", f3, 8, {"rb_gibbs_fd": 1})
+    counted_steps(torch, "32^3 two-level linear V(1,0)", f3, 8, {"rb_gibbs_fd": 1, "residual_restrict": 2})
     refused = False
     try:
         f3.step_deferred(0, torch.zeros(f3.grid_shape, device=dev), f3.deferred_init(torch.float32), None)
@@ -2011,7 +2064,8 @@ def phase_linear_path(torch, dev):
           and all(s.route == "fused_galerkin_sweep" for s in smp.smoothers[1:]),
           "level 0 should take #7 and the 27-point levels the 27-point sweep kernel")
     print(f"  levels {levels}, create {time.perf_counter() - t0:.2f} s; chain of {N_LINEAR_IACT} steps for tau")
-    counts, st = phase_v22(torch, smp, {"rb_gibbs_fd": 4, "galerkin_sweep": 16 * LAUNCHES},
+    residual_checks(torch, smp, f"{N_MAIN}^3", timed=True)
+    counts, st = phase_v22(torch, smp, {"rb_gibbs_fd": 4, "galerkin_sweep": 16 * LAUNCHES, "residual_restrict": 6},
                            n_time=N_LINEAR_TIME, n_iact=N_LINEAR_IACT, n_warm=4, twin=False, n_win=2)
     rel = twin_steps(torch, smp, st, None)
     print(f"  8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")

@@ -63,13 +63,15 @@ _LIB = None
 # fused_chain_down_2d, fused_zero_gibbs_restrict_fd,
 # fused_rb_gibbs_sweep_2d_staged and fused_rb_gibbs_sweep_2d (either diagonal);
 # galerkin_sweep, the launches of fused_galerkin_sweep (kernels.galerkin_sweep);
+# residual_restrict, the launches of kernels.residual_restrict (one a call);
 # and chain_step_graph, the replays of a captured chain step
 # (parmgmc_tpu_torch.replay), each of which also counts the kernels it holds
 _LAUNCHES = {
     "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
     "patch_sweep": 0, "patch_sweep_streamed": 0, "patch_sweep_colourwise": 0,
     "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
-    "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0, "galerkin_sweep": 0, "chain_step_graph": 0,
+    "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0, "galerkin_sweep": 0, "residual_restrict": 0,
+    "chain_step_graph": 0,
 }
 
 _P = ctypes.c_void_p
@@ -101,6 +103,9 @@ _SIGNATURES = {
     # (x, out, b, fields, diag, n0, n1, n2, noff, offsets, slots, scalars,
     # omega, 1 - omega, nfac, prefix, prefix_at, backward, with_noise, stream)
     "pmg_galerkin_sweep": ([_P] * 5 + [_I] * 4 + [_P] * 3 + [_F] * 3 + [_U, _P, _I, _I, _P], _I),
+    # (x, b, out, fields, scal, scal_at, offs, noff, diag, kappa2, hinv2, n0,
+    # n1, n2, restrict, stream)
+    "pmg_residual_restrict": ([_P] * 7 + [_I, _P, _F, _F] + [_I] * 4 + [_P], _I),
     "pmg_patch_sweep": _PATCH,
     "pmg_patch_sweep_streamed": _PATCH,
     "pmg_patch_sweep_colourwise": _PATCH,

@@ -28,8 +28,12 @@ Three routes through the same sampler:
   off-diagonals and on the 27-point Galerkin levels, see
   :class:`~parmgmc_tpu_torch.samplers.gibbs.GibbsSampler`; levels whose
   planes pass ``_PLANE_LIMIT`` take the large-plane sweep kernels; other
-  levels an explicit-noise sweep in plain torch), residuals, transfers and
-  the coarse sample in plain torch, gamma coarse iterations per level.
+  levels an explicit-noise sweep in plain torch), each residual with its
+  restriction in one launch of
+  :func:`~parmgmc_tpu_torch.kernels.residual_restrict.residual_restrict`
+  on 3D float32 stencil levels under the linear transfer (plain torch
+  elsewhere), the prolongations and the coarse sample in plain torch,
+  gamma coarse iterations per level.
 
 The keyed step derives every integer it hands the device (each launch's
 seed and step, each generator's seed) from its key in
@@ -88,6 +92,7 @@ from dataclasses import dataclass
 import torch
 
 from parmgmc_tpu_torch import kernels, keys
+from parmgmc_tpu_torch.kernels import residual_restrict
 from parmgmc_tpu_torch.kernels._noise import CHAIN_DOMAIN, TAIL_DOMAIN
 from parmgmc_tpu_torch.operators.aggregation import aggregation_hierarchy
 from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
@@ -328,7 +333,9 @@ class MGMCSampler:
 
     ``lrc_aux`` holds the rank-k matrices of the LRC chain step
     (:func:`compute_lrc_aux`, :func:`attach_chain_b_response`); None on a
-    prior."""
+    prior.  ``residual_packs`` holds, for each smoothed level the residual
+    kernel takes (``kernels.residual_restrict.supported``), its view of the
+    level's operator, None elsewhere (:meth:`_residual`)."""
 
     ops: tuple
     transfers: tuple
@@ -340,6 +347,7 @@ class MGMCSampler:
     n_coarse: int = 1
     gamma: int = 1
     lrc_aux: "dict | None" = None
+    residual_packs: "tuple | None" = None
 
     @staticmethod
     def create(
@@ -377,11 +385,14 @@ class MGMCSampler:
         smoothers = tuple(smoothers)
         if len(smoothers) != len(ops) - 1:
             raise ValueError(f"{len(smoothers)} smoothers for {len(ops) - 1} smoothed levels")
+        packs = tuple(residual_restrict.pack(o) if residual_restrict.supported(o, t) else None
+                      for o, t in zip(ops, transfers))
         smp = MGMCSampler(
             ops=tuple(ops), transfers=tuple(transfers), smoothers=smoothers,
             coarse=coarse, n_pre=n_pre, n_post=n_post, n_levels=len(ops),
             n_coarse=n_coarse, gamma=gamma,
             lrc_aux=compute_lrc_aux(ops, transfers, smoothers),
+            residual_packs=packs if any(p is not None for p in packs) else None,
         )
         return attach_chain_b_response(smp)
 
@@ -614,6 +625,20 @@ class MGMCSampler:
                 x = self.coarse.step_from(cur, x, bl)
             return x
 
+    def _residual(self, l: int, x, b, restrict: bool = True):
+        """R_l (b - A_l x), or b - A_l x where not ``restrict`` (b None: a
+        zero right-hand side): one launch of the residual kernel where level
+        l has its pack and x is a float32 grid on the card with no chain
+        dims, else the same expression in plain torch (the kernel's twin)."""
+        op = self.ops[l]
+        pack = None if self.residual_packs is None else self.residual_packs[l]
+        if pack is not None and x.device.type == "cuda" and residual_restrict.takes(op, x, b):
+            return residual_restrict.residual_restrict(
+                x.contiguous(), None if b is None else b.contiguous(), op, restrict=restrict,
+                packed=pack)
+        r = (torch.zeros_like(x) if b is None else bcast(b, x)) - op.apply(x)
+        return self.transfers[l].restrict(r) if restrict else r
+
     def _cycle_general(self, l: int, bl, key):
         """Keyed cycle from zero at level l through the smoothers' keyed
         steps (``parmgmc_tpu`` ``_cycle_keyed``, general branch)."""
@@ -623,7 +648,6 @@ class MGMCSampler:
                 for _ in range(self.n_coarse):
                     key, x = self.coarse.step(key, x, bl)
             return x
-        op = self.ops[l]
         smoother = self.smoothers[l]
         with span("pmg.mgmc.smooth"):
             x = torch.zeros_like(bl)
@@ -631,7 +655,7 @@ class MGMCSampler:
                 key, x = smoother.step(key, x, bl)
         key, sub = keys.split(key)
         with span("pmg.mgmc.restrict"):
-            r = self.transfers[l].restrict(bl - op.apply(x))
+            r = self._residual(l, x, bl)
         xc = self._cycle_general(l + 1, r, sub)
         for _ in range(1, self.gamma):  # W-cycle: iterate the coarse chain
             key, sub = keys.split(key)
@@ -682,7 +706,7 @@ class MGMCSampler:
             for _ in range(self.n_pre):
                 x = smoother.step_from(cur, x, bl)
         with span("pmg.mgmc.restrict"):
-            r = self.transfers[l].restrict(bl - self.ops[l].apply(x))
+            r = self._residual(l, x, bl)
         xc = self._cycle_general_from(l + 1, r, cur)
         for _ in range(1, self.gamma):  # W-cycle: iterate the coarse chain
             with span("pmg.mgmc.restrict"):
@@ -796,7 +820,7 @@ class MGMCSampler:
         x + M_mg(b - A x)."""
         if not self.deferred_eligible():
             with span("pmg.mgmc.restrict"):
-                r = (torch.zeros_like(x) if b is None else bcast(b, x)) - self.fine_op.apply(x)
+                r = self._residual(0, x, b, restrict=False)
             y = self._cycle_general_from(0, r, cur)
             with span("pmg.mgmc.up"):
                 return torch.add(x, y, out=out)
@@ -975,7 +999,7 @@ class MGMCSampler:
             x = self.transfers[l].prolong(x)
             for _ in range(n_cycles):
                 key, sub = keys.split(key)
-                r = bs[l] - self.ops[l].apply(x)
+                r = self._residual(l, x, bs[l], restrict=False)
                 if not self.deferred_eligible():
                     x = x + self._cycle_general(l, r, sub)
                     continue
