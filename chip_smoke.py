@@ -128,8 +128,9 @@ Phases, in order; any failure raises and exits non-zero:
               sweep and exact launches.
 19. posterior gates -- bench.py's LRC selftest problem (16x16x128, three
               ball observations, sigma^2 = 0.05, radii 0.2, default_rng(5)),
-              MGMC V(1,0): the probed route engaged (Mb_pv; the union packs
-              CW_pv and FW_pv wherever every factor has a patch view); the
+              MGMC V(1,0): the probed route engaged (lrc_aux.probe; the
+              coarse and fine unions packed wherever every member has a
+              window view); the
               keyed step against its materialised form under the same keys
               (testing.lrc_chain_oracle), probed and b_eff routes, b = f and
               None (< 1e-3 relative max-norm); the deferred chain against
@@ -1636,18 +1637,19 @@ def phase_posterior_gates(torch, dev):
     from parmgmc_tpu_torch.testing import lrc_chain_oracle
 
     op, f = lrc_selftest_problem()
-    check(op.patch_vals is not None, "the selftest's observations have no patch view")
+    check(op.cols.windowed, "the selftest's observations have no window view")
     smp = MGMCSampler.create(op, **POST_V10)
-    aux = smp.lrc_aux
-    check(smp._lrc_chain_eligible() and smp.deferred_eligible() and "Mb_pv" in aux,
+    probe = smp.lrc_aux.probe
+    check(smp._lrc_chain_eligible() and smp.deferred_eligible() and probe is not None,
           "the probed posterior chain route is not engaged")
-    # a union pack needs a patch view of each of its factors (the JAX rule)
-    can = {"CW_pv": smp.ops[1].patch_vals is not None, "FW_pv": smp.smoothers[0].Bb_fw_patches is not None}
-    check(all((name in aux) == ok for name, ok in can.items()), f"union packs {sorted(aux)} against {can}")
-    print(f"  levels {[o.grid_shape for o in smp.ops]}; probed route: Mb {tuple(aux['Mb_pv'].shape)}, "
-          f"RB {tuple(aux['RB_pv'].shape)}; CW_pv {'CW_pv' in aux}, FW_pv {'FW_pv' in aux} (B_c at level 1 "
-          f"patched: {can['CW_pv']}, Bb patched: {can['FW_pv']})")
-    legacy = dataclasses.replace(smp, lrc_aux={k: aux[k] for k in ("H", "RABb", "Bb_colsum")})
+    # a union pack needs a window view of each of its stacks (the JAX rule)
+    can = {"coarse": smp.ops[1].cols.windowed, "fine": smp.smoothers[0].woodbury().windowed}
+    packed = {"coarse": probe.coarse.packed, "fine": probe.fine.packed}
+    check(packed == can, f"union packs {packed} against {can}")
+    print(f"  levels {[o.grid_shape for o in smp.ops]}; probed route: Mb {tuple(probe.Mb.vals.shape)}, "
+          f"RB {tuple(probe.RB.vals.shape)}; coarse union packed {packed['coarse']}, fine union packed "
+          f"{packed['fine']} (B_c at level 1 windowed: {can['coarse']}, Bb windowed: {can['fine']})")
+    legacy = dataclasses.replace(smp, lrc_aux=dataclasses.replace(smp.lrc_aux, probe=None))
     x0 = torch.randn(op.grid_shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
     for route, s in (("probed", smp), ("b_eff", legacy)):
         for tag, b in (("b=f", f), ("b=None", None)):
@@ -1752,21 +1754,21 @@ def phase_posterior_path(torch, dev):
     obsvals = rng.standard_normal(k)
     (op, f), t_obs = timed(lambda: make_posterior_operator(gmrf_3d(N_MAIN, kappa=1.0), 0.01, coords,
                                                            np.full(k, 0.12), obsvals))
-    check(op.device.type == "cuda" and op.patch_vals is not None, "the 256^3 posterior operator")
+    check(op.device.type == "cuda" and op.cols.windowed, "the 256^3 posterior operator")
     smp, t_create = timed(lambda: MGMCSampler.create(op, **POST_V10))
-    aux = smp.lrc_aux
-    check(smp._lrc_chain_eligible() and smp.deferred_eligible()
-          and all(name in aux for name in ("Mb_pv", "FW_pv", "CW_pv")),
-          f"the probed posterior route with both union packs is not engaged: {sorted(aux or ())}")
-    print(f"  levels {[o.grid_shape for o in smp.ops]}; B windows {tuple(op.patch_vals.shape)}; "
-          f"Mb {tuple(aux['Mb_pv'].shape)}, RB {tuple(aux['RB_pv'].shape)}, FW {tuple(aux['FW_pv'].shape)}, "
-          f"CW {tuple(aux['CW_pv'].shape)}")
+    probe = smp.lrc_aux and smp.lrc_aux.probe
+    check(smp._lrc_chain_eligible() and smp.deferred_eligible() and probe is not None
+          and probe.fine.packed and probe.coarse.packed,
+          "the probed posterior route with both union packs is not engaged")
+    print(f"  levels {[o.grid_shape for o in smp.ops]}; B windows {tuple(op.cols.vals.shape)}; "
+          f"Mb {tuple(probe.Mb.vals.shape)}, RB {tuple(probe.RB.vals.shape)}, "
+          f"FW {tuple(probe.fine.vals.shape)}, CW {tuple(probe.coarse.vals.shape)}")
     # the same set-up again, part by part
     (ops, trs), t_hier = timed(lambda: mgmc.build_hierarchy(op, coarsest_size=128, coarsening="aggregate"))
     t_bb = [timed(lambda o=o: GibbsSampler.create(o))[1] for o in ops[:-1]]
     _, t_chol = timed(lambda: CholeskySampler.create(ops[-1]))
     _, t_aux = timed(lambda: mgmc.compute_lrc_aux(smp.ops, smp.transfers, smp.smoothers))
-    bare = dataclasses.replace(smp, lrc_aux={name: aux[name] for name in ("H", "RABb", "Bb_colsum")})
+    bare = dataclasses.replace(smp, lrc_aux=dataclasses.replace(smp.lrc_aux, probe=None))
     _, t_attach = timed(lambda: mgmc.attach_chain_b_response(bare))
     x0 = torch.zeros(op.grid_shape, device=dev)
     cols = [x0] + [op.B[..., j].contiguous() for j in range(k)]

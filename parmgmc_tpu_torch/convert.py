@@ -33,7 +33,7 @@ import torch
 from parmgmc_tpu_torch import resolve_device
 from parmgmc_tpu_torch.operators import graph as _graph
 from parmgmc_tpu_torch.operators import transfer as _transfer
-from parmgmc_tpu_torch.operators.lrc import LRCOperator
+from parmgmc_tpu_torch.operators.lrc import Columns, LRCOperator
 from parmgmc_tpu_torch.operators.stencil import StencilOperator, fd_stencil
 from parmgmc_tpu_torch.operators.transfer import AggregateTransfer, GeometricTransfer
 from parmgmc_tpu_torch.samplers.cholesky import CholeskySampler
@@ -143,13 +143,12 @@ def patch_gibbs_sampler(offsets, coeffs, diag, sq_fd_params, device=None) -> Pat
 
 def lrc_operator(base, B, sigma_inv, patch_vals=None, patch_starts=None, device=None) -> LRCOperator:
     """LRC operator over the port operator ``base`` from numpy B (*grid, k),
-    Sigma^{-1} (k,) and, optionally, the patch view (values (k, *box),
-    starts (k, ndim))."""
-    if patch_vals is not None:
-        patch_vals = tensor(patch_vals, device)
-        patch_starts = tuple(tuple(int(v) for v in st) for st in np.asarray(patch_starts))
-    return LRCOperator(base=base, B=tensor(B, device), sigma_inv=tensor(sigma_inv, device),
-                       patch_vals=patch_vals, patch_starts=patch_starts)
+    Sigma^{-1} (k,) and, optionally, the JAX operator's window view
+    (values (k, *box), starts (k, ndim))."""
+    B = tensor(B, device)
+    cols = None if patch_vals is None else Columns(
+        B, tensor(patch_vals, device), tuple(tuple(int(v) for v in st) for st in np.asarray(patch_starts)))
+    return LRCOperator(base=base, B=B, sigma_inv=tensor(sigma_inv, device), cols=cols)
 
 
 def woodbury_sampler(sampler, B, sqrt_sigma_inv, G, device=None) -> WoodburySampler:

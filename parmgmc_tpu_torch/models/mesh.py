@@ -13,7 +13,6 @@ a uniform refinement chain.  ``unit_square_mesh`` serves the tests.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 __all__ = [
     "read_gmsh",
@@ -488,9 +487,7 @@ def geometric_mgmc_hierarchy(op, Ps, dtype=None):
         tr = sparse_transfer_from_csr(P_int, dtype=dtype, device=dev)
         transfers.append(tr)
         if is_lrc:
-            cur = ops[-1]
-            Bc = torch.stack([tr.restrict(cur.B[:, j]) for j in range(cur.k)], dim=-1)
-            ops.append(LRCOperator(base=coarse, B=Bc, sigma_inv=cur.sigma_inv))
+            ops.append(ops[-1].coarsened(coarse, tr))
         else:
             ops.append(coarse)
         A = Ac

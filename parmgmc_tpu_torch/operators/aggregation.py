@@ -19,7 +19,6 @@ level (the invariance tests check it to machine precision).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from parmgmc_tpu_torch import native
 from parmgmc_tpu_torch.operators.graph import GraphOperator, ell_csr, from_csr
@@ -121,9 +120,7 @@ def aggregation_hierarchy(op, n_levels=None, coarsest_size: int = 128, theta: fl
         tr = sparse_transfer_from_csr(sp.csr_matrix(P[:, pc]), dtype=dtype, device=dev)
         transfers.append(tr)
         if is_lrc:
-            cur = ops[-1]
-            Bc = torch.stack([tr.restrict(cur.B[:, j]) for j in range(cur.k)], dim=-1)
-            ops.append(LRCOperator(base=coarse, B=Bc, sigma_inv=cur.sigma_inv))
+            ops.append(ops[-1].coarsened(coarse, tr))
         else:
             ops.append(coarse)
         # go on in the COARSE level's internal ordering: the next level's P

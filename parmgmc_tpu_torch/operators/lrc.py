@@ -10,33 +10,25 @@ GraphOperator` (grid ``(n,)``, B ``(n, k)`` in its internal order); on a
 graph base x may carry the chain axis, ``(n, C)``, and the products take
 and give ``(k, C)`` coefficients.
 
-Localized columns (ball averages) carry a sparse *patch view*: column j's
-nonzeros lie in a box of a size common to all columns, starting at
-``patch_starts[j]``.  The starts are Python ints fixed at create time, so
-a window is a plain slice view of a grid tensor and a chain step never
-reads an index from the device.  B^T x then reads k small windows and
-y + B w writes them in place, instead of k full-grid passes each.
+B and every column stack derived from it (the Woodbury factor, the chain
+kernel's responses) are a :class:`Columns`, the one place that decides a
+product's form.  Localized columns (ball averages) carry a *window view*:
+column j's nonzeros lie in a box of a size common to all columns, at
+``starts[j]``, Python ints fixed at create time, so a window is a plain
+slice of a grid tensor and a chain step never reads an index from the
+device; B^T x reads k small windows and y + B w writes them in place.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
 from parmgmc_tpu_torch.operators.stencil import StencilOperator
 
-__all__ = [
-    "LRCOperator",
-    "column_patches",
-    "fused_patch_apply_add_",
-    "patch_apply_add",
-    "patch_apply_add_",
-    "patch_dot",
-    "patch_index",
-    "with_patches",
-]
+__all__ = ["ColumnUnion", "Columns", "LRCOperator", "with_patches"]
 
 
 def window(start, box) -> tuple:
@@ -60,92 +52,197 @@ def nonzero_bounds(a: torch.Tensor):
     return out
 
 
-def column_patches(cols_grid: torch.Tensor, max_fill: float = 0.25):
-    """(patch_vals (k, *box), patch_starts) of a grid-shaped column stack
-    ``(*grid, k)``, or None when a column is empty or the k boxes would
-    cover more than ``max_fill`` of the grid.
-
-    Every column's nonzero bounding box is padded to the largest extent
-    on each axis and clamped into the grid; ``patch_starts`` is a tuple of
-    k tuples of Python ints.  Works on any localized stack: B itself, and
-    the Woodbury factor Bb, whose columns have exact compact support for
-    red/black sweeps (one ring wider than B's).  Set-up only."""
-    gshape = tuple(cols_grid.shape[:-1])
-    k = cols_grid.shape[-1]
-    bounds = [nonzero_bounds(cols_grid[..., j]) for j in range(k)]
+def _box(bounds, shape, max_fill: float):
+    """(ext, starts): the per-column boxes ``bounds`` ([(lo, hi)] per axis)
+    padded to their largest extent and clamped into the grid ``shape``;
+    None when a box is missing or the k boxes cover more than ``max_fill``
+    of the grid."""
     if any(b is None for b in bounds):
         return None
-    ext = [max(b[ax][1] - b[ax][0] for b in bounds) for ax in range(len(gshape))]
-    if math.prod(ext) * k > max_fill * math.prod(gshape):
+    d = len(shape)
+    ext = [max(b[a][1] - b[a][0] for b in bounds) for a in range(d)]
+    if math.prod(ext) * len(bounds) > max_fill * math.prod(shape):
         return None
-    starts = tuple(
-        tuple(min(b[ax][0], gshape[ax] - ext[ax]) for ax in range(len(gshape))) for b in bounds
-    )
-    vals = torch.stack([cols_grid[window(st, ext) + (j,)] for j, st in enumerate(starts)])
-    return vals.contiguous(), starts
+    return ext, tuple(tuple(min(b[a][0], shape[a] - ext[a]) for a in range(d)) for b in bounds)
 
 
-def patch_index(patch_starts, box, grid_shape, device) -> torch.Tensor:
-    """(k, *box) flat grid indices of the k windows, for one gather of
-    every window of a grid tensor (``torch.take``)."""
-    flat = torch.arange(math.prod(grid_shape), device=device).reshape(grid_shape)
-    return torch.stack([flat[window(st, box)] for st in patch_starts])
+def _placed(wins, ext, starts) -> torch.Tensor:
+    """(k, *ext): the windows [(values, lows)] zero-padded into boxes of
+    extent ``ext`` at ``starts``."""
+    out = wins[0][0].new_zeros((len(wins), *ext))
+    for j, ((w, los), st) in enumerate(zip(wins, starts)):
+        out[(j, *window([lo - s for lo, s in zip(los, st)], w.shape))] = w
+    return out
 
 
-def patch_dot(patch_vals, patch_index, x):
-    """(k,) = [<column_j, x>]: the k windows of x gathered at once
-    (``patch_index``) and contracted with the columns' values."""
-    dims = tuple(range(1, patch_vals.ndim))
-    return (patch_vals * torch.take(x, patch_index)).sum(dim=dims)
+@dataclass(frozen=True, eq=False)
+class Columns:
+    """A stack of k grid-shaped columns: ``dense`` ``(*grid, k)``,
+    authoritative where held (None for a stack kept as windows only: the
+    chain kernel's responses), and, where the columns are localized, the
+    window view ``vals`` ``(k, *box)`` at ``starts``.  A product takes the
+    windows where there are some, and then equals the dense product up to
+    summation order; chain-major x ``(*grid, C)`` and w ``(k, C)`` take
+    the dense stack.  ``index`` holds the windows' indices into the flat
+    grid where :meth:`dot` reads them (:meth:`indexed`)."""
+
+    dense: "torch.Tensor | None"
+    vals: "torch.Tensor | None" = None
+    starts: "tuple | None" = None  # k tuples of ndim Python ints
+    index: "torch.Tensor | None" = None  # (k, *box)
+
+    def indexed(self) -> "Columns":
+        """This stack with ``index``, made once, so that B^T x is one
+        gather (B's stacks: :class:`LRCOperator`)."""
+        if self.vals is None or self.index is not None:
+            return self
+        flat = torch.arange(math.prod(self.dense.shape[:-1]), device=self.vals.device)
+        flat = flat.reshape(self.dense.shape[:-1])
+        return replace(self, index=torch.stack([flat[window(st, self.box)] for st in self.starts]))
+
+    @classmethod
+    def of(cls, cols: torch.Tensor, max_fill: float = 0.25) -> "Columns":
+        """The stack ``cols`` ``(*grid, k)``, with its window view when every
+        column is nonzero somewhere and the k boxes lie within ``max_fill``
+        of the grid: B, and the Woodbury factor Bb, whose columns have exact
+        compact support for red/black sweeps.  Set-up only."""
+        bounds = [nonzero_bounds(cols[..., j]) for j in range(cols.shape[-1])]
+        box = _box(bounds, cols.shape[:-1], max_fill)
+        if box is None:
+            return cls(cols)
+        ext, starts = box
+        vals = torch.stack([cols[window(st, ext) + (j,)] for j, st in enumerate(starts)])
+        return cls(cols, vals.contiguous(), starts)
+
+    @classmethod
+    def windows(cls, wins, shape, max_fill: float) -> "Columns | None":
+        """A stack kept as windows only, from k windows [(values, lows)] on
+        the grid ``shape``; None past ``max_fill`` of it.  Set-up only."""
+        box = _box([[(lo, lo + n) for lo, n in zip(los, w.shape)] for w, los in wins], shape, max_fill)
+        return None if box is None else cls(None, _placed(wins, *box), box[1])
+
+    def derive(self, cols: torch.Tensor) -> "Columns":
+        """The stack ``cols`` derived from this one (the Woodbury factor of
+        B): windowed under :meth:`of`'s default fill exactly where this
+        stack is."""
+        return Columns(cols) if self.vals is None else Columns.of(cols)
+
+    @property
+    def windowed(self) -> bool:
+        return self.vals is not None
+
+    @property
+    def box(self) -> tuple:
+        return tuple(self.vals.shape[1:])
+
+    def dot(self, x):
+        """(k,) = B^T x for a grid-shaped x; (k, C) for chain-major x."""
+        nd = self.dense.ndim - 1
+        if x.ndim > nd:
+            grid = list(range(nd))
+            return torch.tensordot(self.dense, x, dims=(grid, grid))
+        if self.vals is None:
+            return torch.tensordot(x, self.dense, dims=nd)
+        return (self.vals * torch.take(x, self.index)).sum(dim=tuple(range(1, self.vals.ndim)))
+
+    def apply(self, w):
+        """B w, grid-shaped for a (k,) w (chain-major for a (k, C) w)."""
+        if self.vals is None:
+            return self.dense @ w
+        return self.add_(w, torch.zeros(self.dense.shape[:-1], dtype=w.dtype, device=w.device))
+
+    def add_(self, w, y):
+        """y += B w in place, one window at a time (windows may overlap);
+        returns y."""
+        if self.vals is None:
+            return y.add_(self.dense @ w)
+        box = self.box
+        for j, st in enumerate(self.starts):
+            y[window(st, box)].addcmul_(self.vals[j], w[j])
+        return y
+
+    def add(self, w, y):
+        """y + B w as a new tensor."""
+        if self.vals is None:
+            return y + self.dense @ w
+        return self.add_(w, y.clone())
+
+    def sub_(self, w, y):
+        """y -= B w in place; returns y."""
+        if self.vals is None:
+            return y.sub_(self.dense @ w)
+        return self.add_(-w, y)
 
 
-def patch_apply_add_(patch_vals, patch_starts, w, y):
-    """y += sum_j w[j] column_j, in place, one window at a time (windows
-    may overlap); ``w`` is a (k,) tensor.  Returns y."""
-    box = tuple(patch_vals.shape[1:])
-    for j, st in enumerate(patch_starts):
-        y[window(st, box)].addcmul_(patch_vals[j], w[j])
-    return y
+@dataclass(frozen=True, eq=False)
+class ColumnUnion:
+    """y += sum_i s_i B_i w_i for m stacks B_i of k columns on one grid.
 
+    ``members`` holds the pairs (B_i, s_i), s_i = +1 or -1, in the order
+    of the weights :meth:`add_` takes.  Where every member has a window
+    view, ``vals`` ``(m, k, *ext)`` and ``starts`` hold them once more on
+    per-column union windows, so that one update a window applies every
+    member (zero padding is exact: every member has exact compact
+    support).  Without them the members are applied one at a time, in
+    ``order``."""
 
-def patch_apply_add(patch_vals, patch_starts, w, y):
-    """y + sum_j w[j] column_j as a new tensor."""
-    return patch_apply_add_(patch_vals, patch_starts, w, y.clone())
+    members: tuple
+    order: tuple
+    vals: "torch.Tensor | None" = None
+    starts: "tuple | None" = None
 
+    @classmethod
+    def of(cls, members, shape, views=None, order=None) -> "ColumnUnion":
+        """The union of ``members`` [(stack, sign)] on the grid ``shape``,
+        packed from ``views`` (the members' own stacks by default) and
+        applied one at a time in ``order`` (theirs by default).  Set-up
+        only."""
+        views = [st for st, _ in members] if views is None else views
+        order = tuple(range(len(members)) if order is None else order)
+        if not all(v.windowed for v in views):
+            return cls(tuple(members), order)
+        d, k = len(shape), views[0].vals.shape[0]
+        union = [[(min(v.starts[j][a] for v in views), max(v.starts[j][a] + v.box[a] for v in views))
+                  for a in range(d)] for j in range(k)]
+        ext, starts = _box(union, shape, math.inf)
+        vals = torch.stack([_placed(list(zip(v.vals, v.starts)), ext, starts) for v in views])
+        return cls(tuple(members), order, vals, starts)
 
-def fused_patch_apply_add_(pv, starts, w, y):
-    """y += sum_{i,j} w[i, j] column_{i,j}, in place, for m factor sets
-    sharing per-column windows: ``pv`` (m, k, *box), ``w`` (m, k).  The
-    sets are combined first, so each window is updated once."""
-    m, k = pv.shape[:2]
-    upd = (w.reshape(m, k, *([1] * (pv.ndim - 2))) * pv).sum(dim=0)
-    box = tuple(pv.shape[2:])
-    for j, st in enumerate(starts):
-        y[window(st, box)].add_(upd[j])
-    return y
+    @property
+    def packed(self) -> bool:
+        return self.vals is not None
+
+    def add_(self, ws, y):
+        """y += sum_i s_i B_i ws[i] in place; returns y."""
+        if self.vals is None:
+            for i in self.order:
+                stack, sign = self.members[i]
+                (stack.add_ if sign > 0 else stack.sub_)(ws[i], y)
+            return y
+        w = torch.stack([wi if sign > 0 else -wi for wi, (_, sign) in zip(ws, self.members)])
+        m, k = self.vals.shape[:2]
+        upd = (w.reshape(m, k, *([1] * (self.vals.ndim - 2))) * self.vals).sum(dim=0)
+        box = tuple(self.vals.shape[2:])
+        for j, st in enumerate(self.starts):
+            y[window(st, box)].add_(upd[j])
+        return y
 
 
 @dataclass(frozen=True, eq=False)
 class LRCOperator:
     """A + B diag(sigma_inv) B^T with a stencil or graph base operator A.
 
-    ``patch_vals``/``patch_starts`` (optional, from :func:`with_patches`)
-    are the sparse view of B; the dense B stays authoritative and the
-    patch products equal the dense ones up to summation order."""
+    ``cols`` is B as a :class:`Columns` (with the window view of
+    :func:`with_patches`; B alone when not given), and every product
+    with B goes through it."""
 
     base: StencilOperator  # or a GraphOperator
     B: torch.Tensor  # (*grid, k)
     sigma_inv: torch.Tensor  # (k,)
-    patch_vals: "torch.Tensor | None" = None  # (k, *box)
-    patch_starts: "tuple | None" = None  # k tuples of ndim ints
+    cols: "Columns | None" = None
 
     def __post_init__(self):
-        # the windows' flat indices, made once: B^T x is one gather
-        index = None
-        if self.patch_vals is not None:
-            index = patch_index(self.patch_starts, tuple(self.patch_vals.shape[1:]),
-                                self.grid_shape, self.patch_vals.device)
-        object.__setattr__(self, "patch_index", index)
+        object.__setattr__(self, "cols", (Columns(self.B) if self.cols is None else self.cols).indexed())
 
     @property
     def grid_shape(self):
@@ -173,39 +270,30 @@ class LRCOperator:
 
     def bt_apply(self, x):
         """(k,) = B^T x for a grid-shaped x; (k, C) for chain-major x."""
-        if x.ndim > self.ndim:
-            grid = list(range(self.ndim))
-            return torch.tensordot(self.B, x, dims=(grid, grid))
-        if self.patch_vals is not None:
-            return patch_dot(self.patch_vals, self.patch_index, x)
-        return torch.tensordot(x, self.B, dims=self.ndim)
+        return self.cols.dot(x)
 
     def b_apply(self, w):
         """Grid-shaped B w for a (k,) w (chain-major for a (k, C) w)."""
-        if self.patch_vals is not None:
-            y = torch.zeros(self.grid_shape, dtype=w.dtype, device=w.device)
-            return patch_apply_add_(self.patch_vals, self.patch_starts, w, y)
-        return self.B @ w
+        return self.cols.apply(w)
 
     def b_apply_add(self, w, y):
-        """y + B w as a new tensor (windows only, with patches)."""
-        if self.patch_vals is None:
-            return y + self.B @ w
-        return patch_apply_add(self.patch_vals, self.patch_starts, w, y)
+        """y + B w as a new tensor."""
+        return self.cols.add(w, y)
 
     def b_apply_add_(self, w, y):
         """y += B w in place; returns y."""
-        if self.patch_vals is None:
-            return y.add_(self.B @ w)
-        return patch_apply_add_(self.patch_vals, self.patch_starts, w, y)
+        return self.cols.add_(w, y)
 
     def apply(self, x):
         bt = self.bt_apply(x)
-        ax = self.base.apply(x)
-        if self.patch_vals is None:
-            si = self.sigma_inv if bt.ndim == 1 else self.sigma_inv[:, None]
-            return ax + self.B @ (si * bt)
-        return patch_apply_add_(self.patch_vals, self.patch_starts, self.sigma_inv * bt, ax)
+        si = self.sigma_inv if bt.ndim == 1 else self.sigma_inv[:, None]
+        return self.cols.add_(si * bt, self.base.apply(x))
+
+    def coarsened(self, base, transfer) -> "LRCOperator":
+        """The LRC operator over the coarse ``base`` whose columns are
+        restricted, B_c = P^T B, one column at a time."""
+        Bc = torch.stack([transfer.restrict(self.B[..., j]) for j in range(self.k)], dim=-1)
+        return LRCOperator(base=base, B=Bc, sigma_inv=self.sigma_inv)
 
     def to_dense(self) -> torch.Tensor:
         Bf = self.B.reshape(self.n, self.k)
@@ -213,13 +301,9 @@ class LRCOperator:
 
 
 def with_patches(op: LRCOperator, max_fill: float = 0.25) -> LRCOperator:
-    """``op`` with the patch view of B attached when its columns are
-    localized (:func:`column_patches`); unchanged when they are not or a
-    column is empty.  Set-up only."""
-    if op.patch_vals is not None:
+    """``op`` with the window view of B (:meth:`Columns.of`) when its
+    columns are localized; without one when they are not or a column is
+    empty.  Set-up only."""
+    if op.cols.windowed:
         return op
-    p = column_patches(op.B, max_fill)
-    if p is None:
-        return op
-    return LRCOperator(base=op.base, B=op.B, sigma_inv=op.sigma_inv,
-                       patch_vals=p[0], patch_starts=p[1])
+    return LRCOperator(base=op.base, B=op.B, sigma_inv=op.sigma_inv, cols=Columns.of(op.B, max_fill))

@@ -184,20 +184,24 @@ def _tail_shapes(sampler, l: int):
     }
 
 
-def _to_device(obj, device):
+def _to_device(obj, device, moved=None):
     """A copy of a sampler's tree (dataclasses, tuples, lists, dicts of
     tensors) with every tensor on ``device``; tensors already there are
-    shared."""
+    shared, and a tensor the tree holds twice (B and its column stack)
+    is copied once."""
+    moved = {} if moved is None else moved
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        if id(obj) not in moved:
+            moved[id(obj)] = obj.to(device)
+        return moved[id(obj)]
     if isinstance(obj, FDStencilOperator):
         return FDStencilOperator(obj.kappa2, obj.hinv2, obj.grid_shape, obj.dtype, device)
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_device(v, device) for v in obj)
+        return type(obj)(_to_device(v, device, moved) for v in obj)
     if isinstance(obj, dict):
-        return {k: _to_device(v, device) for k, v in obj.items()}
+        return {k: _to_device(v, device, moved) for k, v in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return dataclasses.replace(obj, **{f.name: _to_device(getattr(obj, f.name), device)
+        return dataclasses.replace(obj, **{f.name: _to_device(getattr(obj, f.name), device, moved)
                                            for f in dataclasses.fields(obj) if f.init})
     return obj
 
@@ -268,13 +272,12 @@ def make_sharded_mgmc_step(sampler: MGMCSampler, mesh: Mesh, axis_name: str = "x
 
     if is_lrc:
         op0, s0 = sampler.ops[0], sampler.smoothers[0]
-        Bb0 = s0.Bb_fw if s0.sweep == "forward" else s0.Bb_bw
         # the (*grid, k) factors in blocks, the k-sized ones on each slot
         B_l = shard_array(op0.B, mesh, axis_name=axis_name)
-        Bb_l = shard_array(Bb0, mesh, axis_name=axis_name)
-        RABb_l = shard_array(sampler.lrc_aux["RABb"], mesh, axis_name=axis_name)
+        Bb_l = shard_array(s0.woodbury().dense, mesh, axis_name=axis_name)
+        RABb_l = shard_array(sampler.lrc_aux.RABb, mesh, axis_name=axis_name)
         Bc_l = shard_array(sampler.ops[1].B, mesh, axis_name=axis_name)
-        rep = {d: (op0.sigma_inv.to(d), sampler.lrc_aux["H"].to(d)) for d in devices}
+        rep = {d: (op0.sigma_inv.to(d), sampler.lrc_aux.H.to(d)) for d in devices}
         sqrt_sig = s0.sqrt_sigma_inv.to(slots[0])
     ax3 = ([0, 1, 2], [0, 1, 2])
 

@@ -455,16 +455,14 @@ def make_sharded_graph_mgmc_step(sampler, mesh: Mesh, coords=None, axis_name: st
     nsc = [nf * torch.sqrt(sl.diag) for sl in spec.slots]
     batch = (n_chains,) if n_chains else ()
     L = spec.n_local
+    dirs = ["forward", "backward"] if sweep == "symmetric" else [sweep]
 
     if is_lrc:
-        if not (s0.is_lrc and (s0.Bb_fw is not None or s0.Bb_bw is not None)):
+        if not s0.is_lrc:
             raise ValueError("the level-0 smoother of an LRC hierarchy lacks its Woodbury factors")
-        # the sampler builds only the direction(s) its sweep uses
-        bb_fw = s0.Bb_fw if s0.Bb_fw is not None else s0.Bb_bw
-        bb_bw = s0.Bb_bw if s0.Bb_bw is not None else s0.Bb_fw
         k_lr = op0.k
         B_l = rows_to_local(spec, op0.B)
-        Bb_l = {"forward": rows_to_local(spec, bb_fw), "backward": rows_to_local(spec, bb_bw)}
+        Bb_l = {d: rows_to_local(spec, s0.woodbury(d).dense) for d in dirs}
         sig = [op0.sigma_inv.to(d) for d in slots]
         sq_sig = [s0.sqrt_sigma_inv.to(d) for d in slots]
 
@@ -499,7 +497,6 @@ def make_sharded_graph_mgmc_step(sampler, mesh: Mesh, coords=None, axis_name: st
         pc.append(torch.as_tensor(c, device=d))
 
     n_pre, n_post = sampler.n_pre, sampler.n_post
-    dirs = ["forward", "backward"] if sweep == "symmetric" else [sweep]
 
     def bt_x(xs):
         """B^T x on every slot: slot-local rank-k products and one psum."""

@@ -63,7 +63,7 @@ from parmgmc_tpu_torch.kernels._twin import f32, noise_factor
 from parmgmc_tpu_torch.kernels.galerkin_sweep import fused_galerkin_sweep
 from parmgmc_tpu_torch.kernels.rb_gibbs import fused_rb_gibbs_sweep, fused_rb_gibbs_sweep_fd
 from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
-from parmgmc_tpu_torch.operators.lrc import LRCOperator, column_patches, patch_apply_add_
+from parmgmc_tpu_torch.operators.lrc import Columns, LRCOperator
 from parmgmc_tpu_torch.operators.stencil import (
     FDStencilOperator,
     StencilOperator,
@@ -113,11 +113,12 @@ class GibbsSampler:
     """Multicolour SOR-Gibbs sampler for N(A^{-1} b, A^{-1}).
 
     On an :class:`~parmgmc_tpu_torch.operators.lrc.LRCOperator` ``lrc``
-    holds the operator (with its patch view of B), ``sqrt_sigma_inv`` its
-    sqrt(Sigma^{-1}), and ``Bb_fw``/``Bb_bw`` the Woodbury factors of the
-    sweep directions in use, each with the patch view of its exactly
-    compact columns (``Bb_*_patches``) when they are localized; all None
-    on a stencil operator."""
+    holds the operator (with the window view of B), ``sqrt_sigma_inv``
+    its sqrt(Sigma^{-1}), and ``Bb`` the Woodbury factor of each sweep
+    direction in use (:meth:`woodbury`), a
+    :class:`~parmgmc_tpu_torch.operators.lrc.Columns` with a window view
+    of its exactly compact columns where B has one; all None on a stencil
+    operator."""
 
     base: StencilOperator
     omega: float
@@ -129,10 +130,7 @@ class GibbsSampler:
     coeff6: "tuple | None" = None
     lrc: "LRCOperator | None" = None
     sqrt_sigma_inv: "torch.Tensor | None" = None
-    Bb_fw: "torch.Tensor | None" = None
-    Bb_bw: "torch.Tensor | None" = None
-    Bb_fw_patches: "tuple | None" = None  # (vals (k, *box), starts)
-    Bb_bw_patches: "tuple | None" = None
+    Bb: "dict | None" = None  # {direction: Columns}
     # "kernel": the keyed step runs the sweep kernels where they apply;
     # "torch": always the explicit-noise step (registry.lax_variant)
     impl: str = "kernel"
@@ -173,13 +171,11 @@ class GibbsSampler:
         lr = {}
         if lrc is not None:
             lr["lrc"], lr["sqrt_sigma_inv"] = lrc, torch.sqrt(lrc.sigma_inv)
-            # only the factors the sweep uses: each is a dense (*grid, k) stack
-            for d, name in (("forward", "fw"), ("backward", "bw")):
-                if sweep in (d, "symmetric"):
-                    Bb = build_lrc_correction(base, lrc.B, lrc.sigma_inv, om, d)
-                    lr[f"Bb_{name}"] = Bb
-                    if lrc.patch_vals is not None:
-                        lr[f"Bb_{name}_patches"] = column_patches(Bb)
+            # only the factors the sweep uses
+            lr["Bb"] = {
+                d: lrc.cols.derive(build_lrc_correction(base, lrc.B, lrc.sigma_inv, om, d))
+                for d in ("forward", "backward") if sweep in (d, "symmetric")
+            }
         return GibbsSampler(
             base=base, omega=om, sweep=sweep, noise_scale=noise_scale,
             fd_params=fd_params, coeff6=coeff6, **lr, **gk,
@@ -209,16 +205,10 @@ class GibbsSampler:
             per_half["eta_lr"] = (self.lrc.k,)
         return [dict(per_half) for _ in range(halves)]
 
-    def _bb_apply_sub_(self, direction, x, c):
-        """x -= Bb_direction c, in place: k windows with the factor's patch
-        view, a dense product without."""
-        if direction == "forward":
-            Bb, patches = self.Bb_fw, self.Bb_fw_patches
-        else:
-            Bb, patches = self.Bb_bw, self.Bb_bw_patches
-        if patches is not None:
-            return patch_apply_add_(patches[0], patches[1], -c, x)
-        return x.sub_(Bb @ c)
+    def woodbury(self, direction: "str | None" = None) -> Columns:
+        """The Woodbury factor Bb of the sweep ``direction``, by default the
+        sampler's own (forward or backward)."""
+        return self.Bb[direction or self.sweep]
 
     def _half_step(self, x, b, noise, direction):
         if b is None:  # zero-RHS (prior) convention
@@ -236,7 +226,7 @@ class GibbsSampler:
         if self.is_lrc:
             with span("pmg.lrc"):
                 bty = torch.tensordot(x, self.lrc.B, dims=x.ndim) if x.ndim == self.base.ndim else self.lrc.bt_apply(x)
-                x = self._bb_apply_sub_(direction, x, bty)
+                x = self.woodbury(direction).sub_(bty, x)
         return x
 
     def step_with_noise(self, x, b, noises):
@@ -343,7 +333,7 @@ class GibbsSampler:
                 )
             if self.is_lrc:
                 with span("pmg.lrc"):
-                    x = self._bb_apply_sub_(d, x, self.lrc.bt_apply(x))
+                    x = self.woodbury(d).sub_(self.lrc.bt_apply(x), x)
         return x
 
     def step(self, key: int, x, b, aux=None):

@@ -97,12 +97,10 @@ from parmgmc_tpu_torch.kernels._noise import CHAIN_DOMAIN, TAIL_DOMAIN
 from parmgmc_tpu_torch.operators.aggregation import aggregation_hierarchy
 from parmgmc_tpu_torch.operators.graph import GraphOperator, bcast
 from parmgmc_tpu_torch.operators.lrc import (
+    ColumnUnion,
+    Columns,
     LRCOperator,
-    column_patches,
-    fused_patch_apply_add_,
     nonzero_bounds,
-    patch_apply_add_,
-    window,
     with_patches,
 )
 from parmgmc_tpu_torch.operators.stencil import (
@@ -133,7 +131,7 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
     AggregateTransfer; link-count FD levels of even extents coarsen in
     closed form, the others (odd extents, non-FD stencils) by the probe.
     On an LRC operator the base is coarsened so and each column of B
-    restricted, B_c = P^T B, every level keeping the patch view of its
+    restricted, B_c = P^T B, every level keeping the window view of its
     localized columns."""
     if coarsening not in ("linear", "aggregate"):
         raise ValueError(f"unknown coarsening {coarsening!r} (linear or aggregate)")
@@ -172,16 +170,31 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
             coarse = compress_stencil(galerkin_coarse_operator(cur, tr))
         transfers.append(tr)
         if is_lrc:
-            B = ops[-1].B
-            Bc = torch.stack([tr.restrict(B[..., j]) for j in range(B.shape[-1])], dim=-1)
-            coarse = with_patches(LRCOperator(base=coarse, B=Bc, sigma_inv=ops[-1].sigma_inv))
+            coarse = with_patches(ops[-1].coarsened(coarse, tr))
         ops.append(coarse)
     return ops, tuple(transfers)
 
 
-def compute_lrc_aux(ops, transfers, smoothers):
+@dataclass(frozen=True, eq=False)
+class ChainProbe:
+    """The level-0 chain kernel's responses to the columns of B
+    (:func:`attach_chain_b_response`): ``Mb`` on the fine grid and ``RB``
+    on the coarse one, kept as windows only, with ``BtMb`` = B^T Mb
+    (k, k) and ``Mb_colsum`` (k,); and the stacks the chain step updates
+    together, ``coarse`` = [R A Bb, RB, B_c] and ``fine`` = [Mb, Bb]."""
+
+    Mb: Columns
+    RB: Columns
+    BtMb: torch.Tensor
+    Mb_colsum: torch.Tensor
+    coarse: ColumnUnion
+    fine: ColumnUnion
+
+
+@dataclass(frozen=True, eq=False)
+class LRCAux:
     """The rank-k matrices that keep the level-0 chain kernel on an LRC
-    fine operator, or None when its smoother does not run it:
+    fine operator (:func:`compute_lrc_aux`):
 
         RABb = R (A_base Bb)   (coarse grid, k)
         H    = B^T Bb          (k, k)
@@ -189,7 +202,19 @@ def compute_lrc_aux(ops, transfers, smoothers):
 
     with Bb the level-0 smoother's Woodbury factor of its sweep direction
     (the deferred chain recovers the correction's part of each sample's
-    sum from Bb_colsum)."""
+    sum from Bb_colsum).  ``probe`` holds the kernel's responses to B, or
+    None where the chain step forms b_eff = b + B wv on the grid."""
+
+    RABb: torch.Tensor
+    H: torch.Tensor
+    Bb_colsum: torch.Tensor
+    probe: "ChainProbe | None" = None
+
+
+def compute_lrc_aux(ops, transfers, smoothers):
+    """The :class:`LRCAux` of the level-0 chain kernel on an LRC fine
+    operator, without a probe, or None when its smoother does not run
+    it."""
     s0 = smoothers[0] if smoothers else None
     if not (
         isinstance(s0, GibbsSampler) and s0.is_lrc and s0.fd_params is not None and s0.has_kernel
@@ -197,57 +222,21 @@ def compute_lrc_aux(ops, transfers, smoothers):
     ):
         return None
     base0 = ops[0].base
-    Bb = s0.Bb_fw if s0.sweep == "forward" else s0.Bb_bw
+    Bb = s0.woodbury().dense
     grid = list(range(base0.ndim))
     # one column at a time: no (k, *grid) temporaries at the fine size
     RABb = torch.stack(
         [transfers[0].restrict(base0.apply(Bb[..., j])) for j in range(Bb.shape[-1])], dim=-1
     )
     H = torch.tensordot(ops[0].B, Bb, dims=(grid, grid))
-    return {"RABb": RABb, "H": H, "Bb_colsum": Bb.sum(dim=grid)}
-
-
-def _pack(wins, shape, fill):
-    """(vals (k, *ext), starts) of k windows [(values, lows)] padded to one
-    extent and clamped into ``shape``, or None past ``fill`` of it."""
-    d = len(shape)
-    ext = [max(w.shape[ax] for w, _ in wins) for ax in range(d)]
-    if math.prod(ext) * len(wins) > fill * math.prod(shape):
-        return None
-    vals = wins[0][0].new_zeros((len(wins), *ext))
-    starts = []
-    for j, (w, los) in enumerate(wins):
-        st = tuple(min(los[ax], shape[ax] - ext[ax]) for ax in range(d))
-        vals[(j, *window([lo - s for lo, s in zip(los, st)], w.shape))] = w
-        starts.append(st)
-    return vals, tuple(starts)
-
-
-def _union_pack(sets, shape):
-    """(vals (m, k, *ext), starts): m factor sets [(vals (k, *box_i),
-    starts_i)] on per-column union windows, so that one update a window
-    applies every set (zero padding is exact: every factor has exact
-    compact support)."""
-    d = len(shape)
-    k = sets[0][0].shape[0]
-    los = [[min(st[j][a] for _, st in sets) for a in range(d)] for j in range(k)]
-    his = [[max(st[j][a] + v.shape[1 + a] for v, st in sets) for a in range(d)] for j in range(k)]
-    ext = [max(his[j][a] - los[j][a] for j in range(k)) for a in range(d)]
-    vals = sets[0][0].new_zeros((len(sets), k, *ext))
-    starts = []
-    for j in range(k):
-        st = tuple(min(los[j][a], shape[a] - ext[a]) for a in range(d))
-        starts.append(st)
-        for i, (v, sti) in enumerate(sets):
-            off = [sti[j][a] - st[a] for a in range(d)]
-            vals[(i, j, *window(off, v.shape[1:]))] = v[j]
-    return vals, tuple(starts)
+    return LRCAux(RABb=RABb, H=H, Bb_colsum=Bb.sum(dim=grid))
 
 
 def attach_chain_b_response(smp, max_fill: float = 0.5):
     """``smp`` with the level-0 chain kernel's response to each column of
-    B attached to its ``lrc_aux``, or ``smp`` itself when the posterior
-    chain does not run the kernel or B has no patch view.
+    B attached to its ``lrc_aux`` (a :class:`ChainProbe`), or ``smp``
+    itself when the posterior chain does not run the kernel or B has no
+    window view.
 
     The chain step is affine in its b stream, so the posterior's
     b_eff = b + B wv never needs to be formed: the kernel runs on the
@@ -258,11 +247,11 @@ def attach_chain_b_response(smp, max_fill: float = 0.5):
     with Mb[:, j], RB[:, j] the kernel's own responses to column j: two
     calls under the same key (x = 0 and b = 0, then b = s_j B_j) differ
     only where B_j reaches, so the difference over s_j has exact compact
-    support and is kept as windows (Mb_pv/Mb_ps, RB_pv/RB_ps), with
-    BtMb = B^T Mb and the column sums of Mb.  The factor sets that share
-    a window are packed once more on per-column union windows: the coarse
-    set [R A Bb, RB, B_c] as CW_pv/CW_ps and the fine set [Mb, Bb] as
-    FW_pv/FW_ps, where every factor has a patch view.
+    support and is kept as windows (Mb, RB), with BtMb = B^T Mb and the
+    column sums of Mb.  The stacks the step updates together are joined
+    (:class:`~parmgmc_tpu_torch.operators.lrc.ColumnUnion`): the coarse
+    [R A Bb, RB, B_c] and the fine [Mb, Bb], each packed on per-column
+    union windows where every member has a window view.
 
     A kernel failure raises.  A response with no support raises (the
     kernel would ignore its b stream); so does a column of B that is zero
@@ -270,20 +259,19 @@ def attach_chain_b_response(smp, max_fill: float = 0.5):
     keep the b_eff route with a warning."""
     op0 = smp.ops[0]
     if (
-        smp.lrc_aux is None
-        or "Mb_pv" in smp.lrc_aux
-        or not isinstance(op0, LRCOperator)
-        or not smp._lrc_chain_eligible()
-        or op0.patch_vals is None
+        not isinstance(op0, LRCOperator)
+        or not smp._lrc_chain_eligible()  # so lrc_aux is there
+        or smp.lrc_aux.probe is not None
+        or not op0.cols.windowed
     ):
         return smp
     gshape = tuple(smp.grid_shape)
     d = len(gshape)
     x0 = torch.zeros(gshape, dtype=op0.dtype, device=op0.device)
     # every probe call draws under one key (0)
-    probe = keys.Words()
-    probe.launch(*keys.draw_pair(0)[1:], (CHAIN_DOMAIN,))
-    xpy0, rc0 = smp._fused_chain_down(x0, x0, probe.cursor())
+    words = keys.Words()
+    words.launch(*keys.draw_pair(0)[1:], (CHAIN_DOMAIN,))
+    xpy0, rc0 = smp._fused_chain_down(x0, x0, words.cursor())
     cshape = tuple(rc0.shape)
     fine, coarse, btmb, colsum = [], [], [], []
     for j in range(op0.k):
@@ -292,48 +280,49 @@ def attach_chain_b_response(smp, max_fill: float = 0.5):
         if peak == 0.0:
             raise ValueError(f"column {j} of B is zero everywhere: it observes nothing")
         s_j = 1e6 / peak
-        xpyj, rcj = smp._fused_chain_down(x0, (col * s_j).contiguous(), probe.cursor())
+        xpyj, rcj = smp._fused_chain_down(x0, (col * s_j).contiguous(), words.cursor())
         dm, dr = (xpyj - xpy0) / s_j, (rcj - rc0) / s_j
         bm, br = nonzero_bounds(dm), nonzero_bounds(dr)
         if bm is None or br is None:
             raise RuntimeError(f"the chain kernel shows no response to column {j} of its b stream")
         btmb.append(op0.bt_apply(dm))
         colsum.append(dm.sum())
+        # only the windows are kept: one full-grid response alive at a time
         fine.append((dm[tuple(slice(lo, hi) for lo, hi in bm)], [lo for lo, _ in bm]))
         coarse.append((dr[tuple(slice(lo, hi) for lo, hi in br)], [lo for lo, _ in br]))
     # coarse windows are 8x smaller than the fine grid even when they cover
     # their whole level, so they are always taken
-    pf, pc = _pack(fine, gshape, max_fill), _pack(coarse, cshape, d + 8.0)
-    if pf is None or pc is None:
+    Mb, RB = Columns.windows(fine, gshape, max_fill), Columns.windows(coarse, cshape, d + 8.0)
+    if Mb is None or RB is None:
         warnings.warn(
             "the chain kernel's responses to B cover more than "
             f"{max_fill:g} of the grid: the posterior chain keeps the b_eff route",
             RuntimeWarning, stacklevel=2,
         )
         return smp
-    aux = dict(smp.lrc_aux)
-    aux.update(
-        Mb_pv=pf[0], Mb_ps=pf[1], RB_pv=pc[0], RB_ps=pc[1],
-        BtMb=torch.stack(btmb, dim=1), Mb_colsum=torch.stack(colsum),
+    aux, opc = smp.lrc_aux, smp.ops[1]
+    # each route keeps its own summation order: one stack at a time RB
+    # comes first and R A Bb is applied dense; the pack (the JAX package's)
+    # holds [R A Bb, RB, B_c], R A Bb from its own windows
+    coarse_union = ColumnUnion.of(
+        [(Columns(aux.RABb), 1), (RB, 1), (opc.cols, -1)], cshape, order=(1, 0, 2),
+        views=[Columns.of(aux.RABb, max_fill=d + 8.0), RB, opc.cols],
     )
-    opc = smp.ops[1]
-    rabb = column_patches(aux["RABb"], max_fill=d + 8.0)
-    s0 = smp.smoothers[0]
-    bb = s0.Bb_fw_patches if s0.sweep == "forward" else s0.Bb_bw_patches
-    if rabb is not None and opc.patch_vals is not None:
-        aux["CW_pv"], aux["CW_ps"] = _union_pack([rabb, pc, (opc.patch_vals, opc.patch_starts)], cshape)
-    if bb is not None:
-        aux["FW_pv"], aux["FW_ps"] = _union_pack([pf, bb], gshape)
-    return dataclasses.replace(smp, lrc_aux=aux)
+    probe = ChainProbe(
+        Mb=Mb, RB=RB, BtMb=torch.stack(btmb, dim=1), Mb_colsum=torch.stack(colsum),
+        coarse=coarse_union, fine=ColumnUnion.of([(Mb, 1), (smp.smoothers[0].woodbury(), -1)], gshape),
+    )
+    return dataclasses.replace(smp, lrc_aux=dataclasses.replace(aux, probe=probe))
 
 
 @dataclass(frozen=True, eq=False)
 class MGMCSampler:
     """Stochastic V/W(n_pre, n_post)-cycle chain sampler for N(A^{-1}b, A^{-1}).
 
-    ``lrc_aux`` holds the rank-k matrices of the LRC chain step
-    (:func:`compute_lrc_aux`, :func:`attach_chain_b_response`); None on a
-    prior.  ``residual_packs`` holds, for each smoothed level the residual
+    ``lrc_aux`` holds the rank-k matrices of the LRC chain step, an
+    :class:`LRCAux` (:func:`compute_lrc_aux`,
+    :func:`attach_chain_b_response`); None on a prior.
+    ``residual_packs`` holds, for each smoothed level the residual
     kernel takes (``kernels.residual_restrict.supported``), its view of the
     level's operator, None elsewhere (:meth:`_residual`)."""
 
@@ -346,7 +335,7 @@ class MGMCSampler:
     n_levels: int
     n_coarse: int = 1
     gamma: int = 1
-    lrc_aux: "dict | None" = None
+    lrc_aux: "LRCAux | None" = None
     residual_packs: "tuple | None" = None
 
     @staticmethod
@@ -850,8 +839,8 @@ class MGMCSampler:
         remove what the kernel's restricted residual has that the true
         one has not (the noise B w, the correction it did not see, the
         low-rank part of the smoothed residual).  On the probed route
-        (``Mb_pv`` in ``lrc_aux``) the kernel reads the static b and
-        b_eff's low-rank part enters as the responses Mb wv and RB wv.
+        (``lrc_aux.probe``) the kernel reads the static b and b_eff's
+        low-rank part enters as the responses Mb wv and RB wv.
 
         ``z`` (the deferred carry, x = xpy + P z) and ``btx`` (B^T of the
         kernel's x when known) come from :meth:`step_deferred`, which also
@@ -867,44 +856,37 @@ class MGMCSampler:
         if z is not None:
             btx = btx + self._bt_carry(z)
         wv = w - op0.sigma_inv * btx
-        H = aux["H"]
+        H, probe = aux.H, aux.probe
         sums = z is not None
-        probed = "Mb_pv" in aux
-        b_eff = b if probed else (op0.b_apply(wv) if b is None else op0.b_apply_add(wv, b))
+        b_eff = b if probe is not None else (op0.b_apply(wv) if b is None else op0.b_apply_add(wv, b))
         xpy, rc, *partials = self._fused_chain_down(
             x, b_eff, cur, z=z, with_xsum=sums, with_zsum=sums, out=out
         )
         u = op0.bt_apply(xpy)
         c = u - btx
-        if probed:
-            c = c + aux["BtMb"] @ wv
+        if probe is not None:
+            c = c + probe.BtMb @ wv
         cc = w + op0.sigma_inv * (c - H @ c)
-        if "CW_pv" in aux:
-            fused_patch_apply_add_(aux["CW_pv"], aux["CW_ps"], torch.stack([c, wv, -cc]), rc)
-        else:
-            if probed:
-                patch_apply_add_(aux["RB_pv"], aux["RB_ps"], wv, rc)
-            rc = self.ops[1].b_apply_add_(-cc, rc.add_(aux["RABb"] @ c))
-        if "FW_pv" in aux:
-            fused_patch_apply_add_(aux["FW_pv"], aux["FW_ps"], torch.stack([wv, -c]), xpy)
-        else:
-            if probed:
-                patch_apply_add_(aux["Mb_pv"], aux["Mb_ps"], wv, xpy)
-            s._bb_apply_sub_(s.sweep, xpy, c)
         btx_next = sx = zsum = None
-        if probed:  # B^T(xpy + Mb wv - Bb c), by identity
-            btx_next = torch.sub(u + aux["BtMb"] @ wv, H @ c, out=btx_out)
+        if probe is not None:
+            probe.coarse.add_((c, wv, cc), rc)
+            probe.fine.add_((wv, c), xpy)
+            # B^T(xpy + Mb wv - Bb c), by identity
+            btx_next = torch.sub(u + probe.BtMb @ wv, H @ c, out=btx_out)
+        else:
+            rc = self.ops[1].b_apply_add_(-cc, rc.add_(aux.RABb @ c))
+            s.woodbury().sub_(c, xpy)
         if sums:
             xsum, zsum = partials
-            sx = xsum.sum() - aux["Bb_colsum"] @ c
-            if probed:
-                sx = sx + aux["Mb_colsum"] @ wv
+            sx = xsum.sum() - aux.Bb_colsum @ c
+            if probe is not None:
+                sx = sx + probe.Mb_colsum @ wv
         return xpy, rc, btx_next, sx, zsum
 
     # -- deferred-prolong chain (lazy fine state) ------------------------------
     def _bt_carry(self, z):
         """B^T (P0 z) of a compact carry: B_c^T z with B_c = P^T B, the
-        hierarchy's restricted columns (their windows, when patched)."""
+        hierarchy's restricted columns (through their windows where they have them)."""
         return self.ops[1].bt_apply(z)
 
     def deferred_init(self, dtype, x=None):
@@ -914,7 +896,7 @@ class MGMCSampler:
         starting state ``x`` (zero when omitted): each step then takes the
         next B^T x from an identity instead of reading the k windows."""
         z = torch.zeros(coarse_shape(self.grid_shape), dtype=dtype, device=self.device)
-        if self.lrc_aux is None or "Mb_pv" not in self.lrc_aux:
+        if self.lrc_aux is None or self.lrc_aux.probe is None:
             return z
         if x is None:
             return z, torch.zeros(self.fine_op.k, dtype=dtype, device=self.device)

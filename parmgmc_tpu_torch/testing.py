@@ -92,7 +92,6 @@ def lrc_chain_oracle(smp, key: int, x, b):
     if b is not None:
         b_eff = b_eff + b
     xpy, _ = smp._fused_chain_down(x, b_eff, cur)
-    Bb = s.Bb_fw if s.sweep == "forward" else s.Bb_bw
-    x_sm = xpy - Bb @ op.bt_apply(xpy - x)
+    x_sm = xpy - s.woodbury().dense @ op.bt_apply(xpy - x)
     r = (0.0 if b is None else b) - op.apply(x_sm)
     return x_sm + smp.transfers[0].prolong(smp._cycle_keyed(1, smp.transfers[0].restrict(r), cur))

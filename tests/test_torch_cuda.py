@@ -679,9 +679,9 @@ def test_posterior_chain_step_matches_its_oracle(dev, route):
 
     op, f = _posterior(dev)
     smp = MGMCSampler.create(op, **V10)
-    assert smp._lrc_chain_eligible() and "Mb_pv" in smp.lrc_aux and smp.n_levels == 3
+    assert smp._lrc_chain_eligible() and smp.lrc_aux.probe is not None and smp.n_levels == 3
     if route == "b_eff":
-        smp = dataclasses.replace(smp, lrc_aux={k: smp.lrc_aux[k] for k in ("H", "RABb", "Bb_colsum")})
+        smp = dataclasses.replace(smp, lrc_aux=dataclasses.replace(smp.lrc_aux, probe=None))
     x = torch.randn(op.grid_shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
     for b in (f, None):
         kernels.reset_launch_counts()

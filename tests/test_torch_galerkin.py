@@ -189,7 +189,7 @@ def test_lrc_linear_hierarchy_matches_jax():
     assert [o.grid_shape for o in ops] == [tuple(o.grid_shape) for o in jops] == [(12, 10), (6, 5), (3, 3)]
     for o, jo in zip(ops, jops):
         assert isinstance(o, LRCOperator) and _rel(o.B, jo.B) <= 1e-12
-        assert (o.patch_vals is None) == (jo.patch_vals is None)
+        assert o.cols.windowed == (jo.patch_vals is not None)
         assert _rel(o.base.to_dense(), jo.base.to_dense()) <= 1e-12
 
 
@@ -354,7 +354,7 @@ def test_f3_linear_posterior_takes_the_general_cycle(noise_off, no_chain_kernels
     smp = MGMCSampler.create(op, **kw)
     jsmp = JaxMGMCSampler.create(jop, impl="lax", **kw)
     assert smp.smoothers[0].is_lrc and smp.smoothers[0].has_kernel
-    assert smp.lrc_aux is not None and "Mb_pv" not in smp.lrc_aux
+    assert smp.lrc_aux is not None and smp.lrc_aux.probe is None
     assert not smp.deferred_eligible() and not smp._lrc_chain_eligible()
     x = np.random.RandomState(4).randn(8, 8, 16).astype(np.float32)
     zeros = jax.tree_util.tree_map(jnp.asarray, _zeros(jsmp.noise_shapes()))

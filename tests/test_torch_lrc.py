@@ -1,10 +1,11 @@
 """The port's posterior building blocks against the JAX package (CPU).
 
 * observations (B, Sigma^{-1}, f) bit for bit in float64, 3D and 2D;
-* the patch view (``with_patches``, ``column_patches``): the same starts
+* the window view (``with_patches``, ``Columns.of``): the same starts
   and values;
-* the LRC operator's products dense and patched (1e-12 float64, 1e-6
-  float32) and the window updates;
+* the LRC operator's products dense and windowed (1e-12 float64, 1e-6
+  float32), and the column stack's window products and the union's
+  packed update against the JAX window functions;
 * Gibbs on an LRC operator: the Woodbury factor (1e-10), the
   explicit-noise step on one shared noise tree (1e-12), the exact
   invariance identity (< 1e-10), and the keyed step with its draws off
@@ -88,28 +89,32 @@ def test_observation_mats_match_jax(grid):
     assert torch.equal(B32, B.float())
 
 
+def _starts(ps):
+    return tuple(tuple(int(v) for v in st) for st in np.asarray(ps))
+
+
 def test_patches_match_jax():
     op, _, jop, _ = _posterior()
-    assert op.patch_vals is not None and jop.patch_vals is not None
-    assert op.patch_starts == tuple(tuple(int(v) for v in st) for st in np.asarray(jop.patch_starts))
-    assert np.array_equal(op.patch_vals.numpy(), np.asarray(jop.patch_vals))
+    assert op.cols.windowed and jop.patch_vals is not None and op.cols.dense is op.B
+    assert op.cols.starts == _starts(jop.patch_starts)
+    assert np.array_equal(op.cols.vals.numpy(), np.asarray(jop.patch_vals))
     # the JAX operator carried across is the same operator
     conv = convert.lrc_operator(op.base, np.asarray(jop.B), np.asarray(jop.sigma_inv),
                                 np.asarray(jop.patch_vals), np.asarray(jop.patch_starts), DEV)
-    assert conv.patch_starts == op.patch_starts and torch.equal(conv.patch_vals, op.patch_vals)
-    assert torch.equal(conv.B, op.B) and torch.equal(conv.patch_index, op.patch_index)
-    # column_patches on a wider stack (B shifted a ring outwards), on a
+    assert conv.cols.starts == op.cols.starts and torch.equal(conv.cols.vals, op.cols.vals)
+    assert torch.equal(conv.B, op.B) and torch.equal(conv.cols.index, op.cols.index)
+    # Columns.of on a wider stack (B shifted a ring outwards), on a
     # stack too wide for the fill and on one with an empty column
     wide = op.B + torch.roll(op.B, 1, dims=0) + torch.roll(op.B, 1, dims=2)
-    got, want = lrc.column_patches(wide), jax_lrc.column_patches(jnp.asarray(wide.numpy()))
-    assert got[1] == tuple(tuple(int(v) for v in st) for st in np.asarray(want[1]))
-    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
-    assert lrc.column_patches(wide, max_fill=0.05) is None
+    got, want = lrc.Columns.of(wide), jax_lrc.column_patches(jnp.asarray(wide.numpy()))
+    assert got.starts == _starts(want[1]) and got.dense is wide
+    assert np.array_equal(got.vals.numpy(), np.asarray(want[0]))
+    assert not lrc.Columns.of(wide, max_fill=0.05).windowed
     assert jax_lrc.column_patches(jnp.asarray(wide.numpy()), max_fill=0.05) is None
     empty = op.B.clone()
     empty[..., 1] = 0
-    assert lrc.column_patches(empty) is None
-    assert lrc.with_patches(lrc.LRCOperator(op.base, empty, op.sigma_inv)).patch_vals is None
+    assert not lrc.Columns.of(empty).windowed
+    assert not lrc.with_patches(lrc.LRCOperator(op.base, empty, op.sigma_inv)).cols.windowed
 
 
 @pytest.mark.parametrize("dtype", [F64, F32])
@@ -132,7 +137,7 @@ def test_lrc_products_match_jax(dtype, patched):
     y = tx.clone()
     assert op.b_apply_add_(tw, y) is y and _rel(y, jop.b_apply_add(jw, jx)) < tol
     small, _, jsmall, _ = _posterior(dtype, grid=(6, 8, 8), radii=(0.2, 0.25, 0.3))
-    assert small.patch_vals is not None
+    assert small.cols.windowed
     assert _rel(small.to_dense(), jsmall.to_dense()) < tol
 
 
@@ -142,14 +147,23 @@ def test_window_updates_match_jax():
     pv = rs.randn(m, k, *box)
     starts = np.stack([rs.randint(0, shape[a] - box[a], size=k) for a in range(3)], axis=1)
     w, y = rs.randn(m, k), rs.randn(*shape)
-    ps = tuple(tuple(int(v) for v in st) for st in starts)
-    got = lrc.fused_patch_apply_add_(torch.from_numpy(pv), ps, torch.from_numpy(w), torch.tensor(y))
+    ps = _starts(starts)
+    # m stacks on the same k windows: the union packs them as they are
+    stacks = []
+    for i in range(m):
+        dense = torch.zeros(*shape, k, dtype=F64)
+        for j, st in enumerate(ps):
+            dense[lrc.window(st, box) + (j,)] = torch.from_numpy(pv[i, j])
+        stacks.append(lrc.Columns(dense, torch.from_numpy(pv[i]), ps).indexed())
+    union = lrc.ColumnUnion.of([(st, 1) for st in stacks], shape)
+    assert union.packed and union.starts == ps and torch.equal(union.vals, torch.from_numpy(pv))
+    got = union.add_(list(torch.from_numpy(w)), torch.tensor(y))
     want = jax_lrc.fused_patch_apply_add(jnp.asarray(pv), jnp.asarray(starts), jnp.asarray(w), jnp.asarray(y))
     assert _rel(got, want) < 1e-12
-    got = lrc.patch_apply_add(torch.from_numpy(pv[0]), ps, torch.from_numpy(w[0]), torch.from_numpy(y))
+    got = stacks[0].add(torch.from_numpy(w[0]), torch.from_numpy(y))
     want = jax_lrc.patch_apply_add(jnp.asarray(pv[0]), jnp.asarray(starts), jnp.asarray(w[0]), jnp.asarray(y))
     assert _rel(got, want) < 1e-12
-    got = lrc.patch_dot(torch.from_numpy(pv[1]), lrc.patch_index(ps, box, shape, DEV), torch.from_numpy(y))
+    got = stacks[1].dot(torch.from_numpy(y))
     want = [np.sum(pv[1, j] * y[tuple(slice(s, s + e) for s, e in zip(st, box))]) for j, st in enumerate(ps)]
     assert _rel(got, want) < 1e-12
 
@@ -162,13 +176,14 @@ def test_lrc_correction_matches_jax(sweep):
     assert got.shape == (*GRID, 3) and _rel(got, want) < 1e-10
     smp = GibbsSampler.create(op, omega=1.2, sweep=sweep)
     # only the factor of the sweep in use, with the view of its windows
-    assert (smp.Bb_fw is None) == (sweep == "backward") and (smp.Bb_bw is None) == (sweep == "forward")
-    vals, starts = smp.Bb_fw_patches if sweep == "forward" else smp.Bb_bw_patches
+    assert set(smp.Bb) == {sweep} and smp.woodbury() is smp.woodbury(sweep)
+    Bb = smp.woodbury()
+    assert torch.equal(Bb.dense, got) and Bb.windowed
     jsmp = JaxGibbsSampler.create(jop, omega=1.2, sweep=sweep, impl="lax")
     jvals = jsmp.Bb_fw_pv if sweep == "forward" else jsmp.Bb_bw_pv
     jstarts = jsmp.Bb_fw_ps if sweep == "forward" else jsmp.Bb_bw_ps
-    assert starts == tuple(tuple(int(v) for v in st) for st in np.asarray(jstarts))
-    assert _rel(vals, jvals) < 1e-10
+    assert Bb.starts == _starts(jstarts)
+    assert _rel(Bb.vals, jvals) < 1e-10
 
 
 def _numpy_noises(shapes, rs):
@@ -205,7 +220,7 @@ def test_gibbs_lrc_step_with_noise_matches_jax(sweep):
 @pytest.mark.parametrize("sweep", ["forward", "symmetric"])
 def test_gibbs_lrc_invariance(sweep):
     op, f, _, _ = _posterior(grid=(6, 8, 8), radii=(0.2, 0.25, 0.3))
-    assert op.patch_vals is not None
+    assert op.cols.windowed
     dense = lrc.LRCOperator(op.base, op.B, op.sigma_inv)
     for o in (op, dense):
         smp = GibbsSampler.create(o, omega=1.0, sweep=sweep)

@@ -5,7 +5,7 @@ The JAX side runs as its own tests run it (``tests/test_lrc_fused.py``):
 stand-in ``_fake_chain_down`` where the kernel route is needed, the plain
 ``step_with_noise`` otherwise.  The port runs its kernels' twins.
 
-* the LRC hierarchy (B_c = P^T B and the patch views) and the rank-k
+* the LRC hierarchy (B_c = P^T B and the window views) and the rank-k
   matrices of the chain step (RABb, H, Bb_colsum), and the probed
   responses of the chain kernel (Mb, RB and their union packs): the
   same windows, values to 1e-4;
@@ -39,6 +39,7 @@ from parmgmc_tpu_torch import convert
 from parmgmc_tpu_torch.chain import init_chain, sample_chain, sample_chain_deferred, sample_moments
 from parmgmc_tpu_torch.kernels import mg_sweep, rb_gibbs
 from parmgmc_tpu_torch.models.obs import make_posterior_operator
+from parmgmc_tpu_torch.operators import lrc
 from parmgmc_tpu_torch.operators.lrc import LRCOperator
 from parmgmc_tpu_torch.operators.stencil import shifted_laplace_fd
 from parmgmc_tpu_torch.samplers import gibbs, mgmc
@@ -88,16 +89,22 @@ def _sampler(op, jsmp, **kw):
                                 device=DEV, **kw)
 
 
+def _unpacked(union):
+    """The same stacks without their pack: applied one at a time."""
+    return dataclasses.replace(union, vals=None, starts=None)
+
+
 def _route(smp, route):
     """``smp`` on one route of the posterior chain step: the probed
     responses with the union packs, without them, or none (b_eff)."""
     aux = smp.lrc_aux
-    assert {"Mb_pv", "CW_pv", "FW_pv"} <= set(aux)
+    probe = aux.probe
+    assert probe is not None and probe.coarse.packed and probe.fine.packed
     if route == "split":
-        aux = {k: v for k, v in aux.items() if k[:3] not in ("CW_", "FW_")}
+        probe = dataclasses.replace(probe, coarse=_unpacked(probe.coarse), fine=_unpacked(probe.fine))
     elif route == "b_eff":
-        aux = {k: aux[k] for k in ("H", "RABb", "Bb_colsum")}
-    return dataclasses.replace(smp, lrc_aux=aux)
+        probe = None
+    return dataclasses.replace(smp, lrc_aux=dataclasses.replace(aux, probe=probe))
 
 
 def test_lrc_hierarchy_matches_jax():
@@ -110,9 +117,9 @@ def test_lrc_hierarchy_matches_jax():
     for o, jo in zip(ops, jops):
         assert isinstance(o, LRCOperator) and torch.equal(o.sigma_inv, torch.tensor(np.asarray(jo.sigma_inv)))
         assert _rel(o.B, jo.B) < 1e-12
-        assert (o.patch_vals is None) == (jo.patch_vals is None)
-        if o.patch_vals is not None:
-            assert o.patch_starts == _starts(jo.patch_starts) and _rel(o.patch_vals, jo.patch_vals) < 1e-12
+        assert o.cols.windowed == (jo.patch_vals is not None)
+        if o.cols.windowed:
+            assert o.cols.starts == _starts(jo.patch_starts) and _rel(o.cols.vals, jo.patch_vals) < 1e-12
         x = np.random.RandomState(1).randn(*o.grid_shape)
         assert _rel(o.base.apply(torch.from_numpy(x)), jo.base.apply(jnp.asarray(x))) < 1e-12
 
@@ -134,16 +141,22 @@ def test_lrc_aux_and_probes_match_jax(jax_probed):
     smp = MGMCSampler.create(op, **V10)
     assert smp._lrc_chain_eligible() and smp.deferred_eligible()
     aux, jaux = smp.lrc_aux, jsmp.lrc_aux
-    assert set(aux) == set(jaux)
+    p = aux.probe
+    # the record's fields under the JAX dict's keys
+    mine = {"RABb": aux.RABb, "H": aux.H, "Bb_colsum": aux.Bb_colsum, "BtMb": p.BtMb,
+            "Mb_colsum": p.Mb_colsum}
+    for name, stack in (("Mb", p.Mb), ("RB", p.RB), ("CW", p.coarse), ("FW", p.fine)):
+        mine[f"{name}_pv"], mine[f"{name}_ps"] = stack.vals, stack.starts
+    assert set(mine) == set(jaux)
     for name in ("RABb", "H", "Bb_colsum"):
-        assert _rel(aux[name], jaux[name]) < 1e-5, name
+        assert _rel(mine[name], jaux[name]) < 1e-5, name
     # the kernel's responses: the same compact supports, so the same windows
     for name in ("Mb", "RB", "CW", "FW"):
-        assert aux[f"{name}_ps"] == _starts(jaux[f"{name}_ps"]), name
-        assert aux[f"{name}_pv"].shape == jaux[f"{name}_pv"].shape, name
-        assert _rel(aux[f"{name}_pv"], jaux[f"{name}_pv"]) < 1e-4, name
+        assert mine[f"{name}_ps"] == _starts(jaux[f"{name}_ps"]), name
+        assert mine[f"{name}_pv"].shape == jaux[f"{name}_pv"].shape, name
+        assert _rel(mine[f"{name}_pv"], jaux[f"{name}_pv"]) < 1e-4, name
     for name in ("BtMb", "Mb_colsum"):
-        assert _rel(aux[name], jaux[name]) < 1e-4, name
+        assert _rel(mine[name], jaux[name]) < 1e-4, name
 
 
 def _numpy_noises(shapes, rs, dtype=np.float64):
@@ -179,7 +192,7 @@ def test_lrc_step_with_noise_matches_jax(cycle):
 def test_lrc_mgmc_invariance(case, cycle):
     if case == "balls_3d":
         op, f = _problem(F64, grid=(4, 8, 8), coords=COORDS[:2], radius=0.3)
-        assert op.patch_vals is not None
+        assert op.cols.windowed
     else:  # random dense columns, as tests/test_sampler_exactness.py
         rs = np.random.RandomState(42)
         base = shifted_laplace_fd((6, 6), 1.5, F64, device=DEV)
@@ -285,15 +298,15 @@ def test_probe_raises_or_warns_instead_of_falling_back_silently(monkeypatch):
     ignores its b stream raise."""
     op, _ = _problem(F32)
     smp = MGMCSampler.create(op, **V10)
-    bare = dataclasses.replace(smp, lrc_aux={k: smp.lrc_aux[k] for k in ("H", "RABb", "Bb_colsum")})
+    bare = dataclasses.replace(smp, lrc_aux=dataclasses.replace(smp.lrc_aux, probe=None))
     with pytest.warns(RuntimeWarning, match="b_eff route"):
         kept = mgmc.attach_chain_b_response(bare, max_fill=1e-3)
     assert kept is bare and kept._lrc_chain_eligible()
     B = op.B.clone()
     B[..., 1] = 0
-    pv = op.patch_vals.clone()
+    pv = op.cols.vals.clone()
     pv[1] = 0
-    zero = LRCOperator(op.base, B, op.sigma_inv, patch_vals=pv, patch_starts=op.patch_starts)
+    zero = LRCOperator(op.base, B, op.sigma_inv, cols=lrc.Columns(B, pv, op.cols.starts))
     with pytest.raises(ValueError, match="column 1 of B is zero"):
         MGMCSampler.create(zero, **V10)
     monkeypatch.setattr(mg_sweep, "fused_chain_down_fd",
@@ -308,7 +321,7 @@ def test_keyed_posterior_moments():
     grid = (8, 16, 32)
     op, f = _problem(F32, grid=grid, radius=0.12)
     smp = MGMCSampler.create(op, n_pre=1, n_post=0, coarsest_size=32, coarsening="aggregate")
-    assert smp._lrc_chain_eligible() and "Mb_pv" in smp.lrc_aux
+    assert smp._lrc_chain_eligible() and smp.lrc_aux.probe is not None
     n = 3000
     _, mean, var = sample_moments(smp, init_chain(smp, 17), f, n, burnin=50)
     A = op.to_dense().double()
