@@ -37,6 +37,7 @@ __all__ = [
     "occupancy",
     "prefix_pointer",
     "reset_launch_counts",
+    "scalar_array",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,6 +53,8 @@ NVCC_FLAGS = (
 # twins' partial sums follow the launch plans built on them
 # (kernels/_march.py), so the loader checks them
 TILES = {"chain_march": (3, 32, 32), "sweep_march": (2, 32, 32)}
+
+MAX_OFF = 26  # offsets of a radius-1 3D stencil
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -100,7 +103,7 @@ _SIGNATURES = {
     "pmg_sweep_march_windowed": _MARCH_SWEEP,
     "pmg_sweep_march_fd": _MARCH_SWEEP,
     "pmg_sweep_march_diag": _MARCH_SWEEP,
-    # (x, out, b, fields, diag, n0, n1, n2, noff, offsets, slots, scalars,
+    # (x, out, b, fields, diag, n0, n1, n2, noff, offsets, slots, scalars_at,
     # omega, 1 - omega, nfac, prefix, prefix_at, backward, with_noise, stream)
     "pmg_galerkin_sweep": ([_P] * 5 + [_I] * 4 + [_P] * 3 + [_F] * 3 + [_U, _P, _I, _I, _P], _I),
     # (x, b, out, fields, scal, scal_at, offs, noff, diag, kappa2, hinv2, n0,
@@ -231,6 +234,15 @@ def prefix_pointer(prefix_at, n: int, like):
     if prefix_at.numel() != n or not prefix_at.is_contiguous():
         raise ValueError(f"prefix_at must hold {n} contiguous words, got {tuple(prefix_at.shape)}")
     return prefix_at.data_ptr()
+
+
+def scalar_array(scalars, device) -> torch.Tensor:
+    """A radius-1 3D stencil's scalar coefficients (float32 values, 0.0
+    where a field) as :data:`MAX_OFF` float32 values on ``device``, 0.0
+    past the offsets: what a 27-point kernel reads at one fixed index an
+    offset."""
+    return torch.tensor(list(scalars) + [0.0] * (MAX_OFF - len(scalars)), dtype=torch.float32,
+                        device=device)
 
 
 def check_launch(err: int, name: str, n: int = 1) -> None:

@@ -22,11 +22,15 @@ The kernel reads the coefficient fields and D colour-major (:func:`pack`,
 made once a sampler), so a colour's threads read them coalesced.  A call
 is :data:`LAUNCHES` launches, one a colour in sweep order (one cooperative
 launch with a grid barrier between colours was slower at 128^3 on the
-H100; ``csrc/galerkin_sweep.cu`` has the numbers).  Each CUDA
-call takes the hash prefix by value or, with ``prefix_at`` (an int32 CUDA
-tensor of one word), from device memory when it runs (a step replayed from
-a CUDA graph, :mod:`parmgmc_tpu_torch.replay`); the draws are the same
-either way.
+H100; ``csrc/galerkin_sweep.cu`` has the numbers).  Each launch is a
+loop of constant length over 26 offsets that issues every load of a
+point before its first product, its scalar coefficients read from the
+pack's array in device memory (``scalars_at``); a stencil of fewer
+offsets reads 0.0 there for the rest, each such term adding +-0 to the
+sum.  Each CUDA call takes the hash prefix by value or, with
+``prefix_at`` (an int32 CUDA tensor of one word), from device memory when
+it runs (a step replayed from a CUDA graph, :mod:`parmgmc_tpu_torch.replay`);
+the draws are the same either way.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def supported(op) -> bool:
     """Does the kernel take ``op``?  A 3D radius-1 stencil that is not a
     star (a star takes the red/black kernels of ``kernels.rb_gibbs``)."""
     return (isinstance(op, StencilOperator) and op.ndim == 3 and not op.is_star()
-            and op.radius == 1 and 1 <= len(op.offsets) <= 26)
+            and op.radius == 1 and 1 <= len(op.offsets) <= kernels.MAX_OFF)
 
 
 def _order(sweep: str):
@@ -78,14 +82,15 @@ def _colour_major(field) -> torch.Tensor:
 class Pack:
     """What the kernel reads of an operator: its grid-shaped coefficients
     stacked colour-major (``fields``, (f, n)), D colour-major, each offset,
-    the field of each offset (-1: a scalar) and the scalars (float32
-    values, 0.0 where a field)."""
+    the field of each offset (-1: a scalar) and the scalars in device
+    memory (``scalars_at``, ``kernels.MAX_OFF`` float32 values, 0.0 where a
+    field and past the offsets)."""
 
     fields: torch.Tensor
     diag: torch.Tensor
     offsets: tuple
     slots: tuple
-    scalars: tuple
+    scalars_at: torch.Tensor
 
 
 def pack(op: StencilOperator) -> Pack:
@@ -104,7 +109,7 @@ def pack(op: StencilOperator) -> Pack:
     stack = torch.stack(fields) if fields else op.diag.new_zeros((1, op.n))
     return Pack(fields=stack.contiguous(), diag=_colour_major(op.diag).contiguous(),
                 offsets=tuple(tuple(int(v) for v in o) for o in op.offsets), slots=tuple(slots),
-                scalars=tuple(scalars))
+                scalars_at=kernels.scalar_array(scalars, op.device))
 
 
 def fused_galerkin_sweep_reference(x, b, op, omega, seed, step, *, sweep="forward",
@@ -141,7 +146,8 @@ def fused_galerkin_sweep(x, b, op, omega, seed, step, *, sweep="forward", with_n
     if x.numel() >= 2**30:
         raise ValueError("the Galerkin sweep kernel takes grids of fewer than 2^30 points")
     p = pack(op) if packed is None else packed
-    for name, t in (("x", x), ("b", b), ("fields", p.fields), ("diag", p.diag)):
+    for name, t in (("x", x), ("b", b), ("fields", p.fields), ("diag", p.diag),
+                    ("scalars_at", p.scalars_at)):
         if t is not None:
             kernels.check_input(name, t, x)
     if b is not None and b.shape != x.shape:
@@ -150,14 +156,13 @@ def fused_galerkin_sweep(x, b, op, omega, seed, step, *, sweep="forward", with_n
     noff = len(p.offsets)
     offs = (ctypes.c_int * (3 * noff))(*(v for o in p.offsets for v in o))
     slots = (ctypes.c_int * noff)(*p.slots)
-    scal = (ctypes.c_float * noff)(*p.scalars)
     out = torch.empty_like(x)
     lib = kernels.lib()
     with torch.cuda.device(x.device):
         err = lib.pmg_galerkin_sweep(
             x.data_ptr(), out.data_ptr(), None if b is None else b.data_ptr(), p.fields.data_ptr(),
-            p.diag.data_ptr(), *x.shape, noff, offs, slots, scal, _twin.f32(omega),
-            _twin.f32(1.0 - omega), _twin.noise_factor(omega, torch.float32),
+            p.diag.data_ptr(), *x.shape, noff, offs, slots, p.scalars_at.data_ptr(),
+            _twin.f32(omega), _twin.f32(1.0 - omega), _twin.noise_factor(omega, torch.float32),
             _noise.hash_prefix(seed, step, _noise.GALERKIN_DOMAIN), at, backward,
             int(with_noise), torch.cuda.current_stream(x.device).cuda_stream,
         )

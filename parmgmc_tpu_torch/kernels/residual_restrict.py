@@ -46,7 +46,7 @@ from parmgmc_tpu_torch.operators.transfer import GeometricTransfer
 
 __all__ = ["Pack", "pack", "supported", "takes", "residual_restrict", "residual_restrict_reference"]
 
-MAX_OFF = 26
+MAX_OFF = kernels.MAX_OFF
 
 
 def _stencil(op) -> bool:
@@ -113,10 +113,8 @@ def pack(op: StencilOperator) -> Pack:
             fields.append(c.contiguous())
             scalars.append(0.0)
     fd = _fd_diag(op)
-    at = torch.zeros(MAX_OFF, dtype=torch.float32, device=op.device)
-    at[:len(scalars)] = torch.tensor(scalars, dtype=torch.float32)
     return Pack(offsets=tuple(tuple(int(v) for v in o) for o in op.offsets), fields=tuple(fields),
-                scalars=tuple(scalars), scalars_at=at,
+                scalars=tuple(scalars), scalars_at=kernels.scalar_array(scalars, op.device),
                 diag=None if fd is not None else op.diag.contiguous(),
                 fd=fd if fd is not None else (0.0, 0.0))
 

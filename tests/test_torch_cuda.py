@@ -23,7 +23,8 @@ deferred chain bit for bit and against ``sample_chain``, with its
 launches and the states it returned left alone; ``sample_chain``'s keyed
 V(2,2) step (linear and aggregate) replayed against the eager chain bit
 for bit, and the graph hierarchy left eager; the 27-point colour sweep
-against its twin bit for bit at the 256^3 hierarchy's 27-point levels;
+against its twin bit for bit at the 256^3 hierarchy's 27-point levels,
+on 17 offsets and on 26 scalars;
 the linear hierarchy's Galerkin levels against R A P (1e-5), and its
 keyed cycles' launches (fault F3: no chain kernel); the structured Matérn façade's
 launches (one #1 and one #2 a chain step) and ``chain.multi_chain`` bit
@@ -490,33 +491,64 @@ def _galerkin_levels(dev, n):
     return ops[1:-1]
 
 
-def test_galerkin_sweep_kernel_matches_twin_bitwise(dev):
-    """The 27-point colour sweep (csrc/galerkin_sweep.cu) against its twin on
-    the card, bit for bit, at every 27-point level of the 256^3 linear
-    hierarchy (128^3 ... 16^3) and on an odd extent (17^3): forward and
-    backward, noise on and off, b given and None, eight launches a call;
-    prefix_at gives the by-value draws."""
+def _sparse_galerkin_level(op, keep=17):
+    """``op`` cut to its first ``keep`` offsets (fields and scalars as they
+    were), its diagonal kept: a radius-1 stencil of fewer than 26 offsets."""
+    return StencilOperator(op.offsets[:keep], op.coeffs[:keep], op.diag)
+
+
+def _scalar_galerkin_level(op):
+    """``op``'s 26 offsets with every coefficient a scalar (each field's
+    mean), its diagonal kept."""
+    return StencilOperator(op.offsets, tuple(c if c.ndim == 0 else c.mean() for c in op.coeffs), op.diag)
+
+
+def _sweep_matches_twin(dev, op, seed):
+    """One operator through the 27-point sweep kernel against its twin, bit
+    for bit: forward and backward, noise on and off, b given and None; eight
+    launches a call; prefix_at gives the by-value draws."""
     from parmgmc_tpu_torch.kernels import galerkin_sweep as gs
 
+    pk = gs.pack(op)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, b = (torch.randn(op.grid_shape, generator=g, device=dev) for _ in range(2))
+    for sweep in ("forward", "backward"):
+        for noise in (True, False):
+            for bb in (b, None):
+                want = gs.fused_galerkin_sweep_reference(x, bb, op, 1.0, 3, 8, sweep=sweep,
+                                                         with_noise=noise)
+                kernels.reset_launch_counts()
+                got = gs.fused_galerkin_sweep(x, bb, op, 1.0, 3, 8, sweep=sweep, with_noise=noise,
+                                              packed=pk)
+                assert kernels.launch_counts()["galerkin_sweep"] == 8
+                assert torch.equal(got, want), (op.grid_shape, len(op.offsets), sweep, noise, bb is None)
+    at = torch.tensor([_noise_prefix(3, 8)], dtype=torch.int32, device=dev)
+    assert torch.equal(gs.fused_galerkin_sweep(x, b, op, 1.0, 3, 8, packed=pk, prefix_at=at),
+                       gs.fused_galerkin_sweep(x, b, op, 1.0, 3, 8, packed=pk))
+
+
+def test_galerkin_sweep_kernel_matches_twin_bitwise(dev):
+    """The 27-point colour sweep (csrc/galerkin_sweep.cu) against its twin
+    on the card, bit for bit, at every 27-point level of the 256^3 linear
+    hierarchy (128^3 ... 16^3) and on an odd extent (17^3)."""
     ops = _galerkin_levels(dev, 256) + _galerkin_levels(dev, 33)[:1]
     assert [o.grid_shape[0] for o in ops] == [128, 64, 32, 16, 17]
-    g = torch.Generator(device=dev).manual_seed(11)
+    assert all(len(o.offsets) == 26 for o in ops)
     for op in ops:
-        pk = gs.pack(op)
-        x, b = (torch.randn(op.grid_shape, generator=g, device=dev) for _ in range(2))
-        for sweep in ("forward", "backward"):
-            for noise in (True, False):
-                for bb in (b, None):
-                    want = gs.fused_galerkin_sweep_reference(x, bb, op, 1.0, 3, 8, sweep=sweep,
-                                                             with_noise=noise)
-                    kernels.reset_launch_counts()
-                    got = gs.fused_galerkin_sweep(x, bb, op, 1.0, 3, 8, sweep=sweep, with_noise=noise,
-                                                  packed=pk)
-                    assert kernels.launch_counts()["galerkin_sweep"] == 8
-                    assert torch.equal(got, want), (op.grid_shape, sweep, noise, bb is None)
-        at = torch.tensor([_noise_prefix(3, 8)], dtype=torch.int32, device=dev)
-        assert torch.equal(gs.fused_galerkin_sweep(x, b, op, 1.0, 3, 8, packed=pk, prefix_at=at),
-                           gs.fused_galerkin_sweep(x, b, op, 1.0, 3, 8, packed=pk))
+        _sweep_matches_twin(dev, op, 11)
+
+
+@pytest.mark.parametrize("kind", ["fewer-offsets", "all-scalars"])
+def test_galerkin_sweep_kernel_other_stencils_match_twin_bitwise(dev, kind):
+    """The sweep kernel beyond the Galerkin levels, bit for bit against the
+    twin at 17^3 and 16^3: a stencil of 17 offsets (padded to 26 with terms
+    of coefficient 0.0) and one of 26 offsets whose coefficients are all
+    scalars (each read at one index of the pack's scalar array)."""
+    for op in (_galerkin_levels(dev, 33)[0], _galerkin_levels(dev, 32)[0]):
+        op = _sparse_galerkin_level(op) if kind == "fewer-offsets" else _scalar_galerkin_level(op)
+        assert len(op.offsets) == (17 if kind == "fewer-offsets" else 26)
+        assert all(c.ndim == 0 for c in op.coeffs) == (kind == "all-scalars")
+        _sweep_matches_twin(dev, op, 12)
 
 
 def _noise_prefix(seed, step):

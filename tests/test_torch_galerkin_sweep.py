@@ -4,7 +4,8 @@ keyed cycle on its words (CPU, float32 unless stated).
 * the twin is the sublattice sweep of ``samplers.sor`` on
   b + sqrt((2 - omega)/omega) sqrt(D) eta_hash, bit for bit, at 8^3 and
   12^3, forward and backward, on scalar and on field coefficients; the
-  wrapper runs it for CPU tensors; the colour-major pack;
+  wrapper runs it for CPU tensors; the colour-major pack and its array
+  of 26 scalars, 0.0 past a stencil's offsets;
 * ``GibbsSampler`` routes 3D float32 27-point stencils to the kernel
   (one launch word a half-sweep, under the Galerkin noise domain) and
   keeps float64, 2D and star-with-fields operators on the plain route;
@@ -26,7 +27,7 @@ import sys
 import pytest
 import torch
 
-from parmgmc_tpu_torch import keys
+from parmgmc_tpu_torch import keys, kernels
 from parmgmc_tpu_torch.chain import init_chain, sample_chain
 from parmgmc_tpu_torch.kernels import _noise, _twin, galerkin_sweep
 from parmgmc_tpu_torch.models.problems import gmrf_2d, gmrf_3d
@@ -94,7 +95,7 @@ def test_pack_is_colour_major():
     p = galerkin_sweep.pack(op)
     assert p.offsets == op.offsets and len(p.slots) == 26
     assert p.fields.shape == (18, 7**3) and p.diag.shape == (7**3,)
-    for m, (c, slot, s) in enumerate(zip(op.coeffs, p.slots, p.scalars)):
+    for m, (c, slot, s) in enumerate(zip(op.coeffs, p.slots, p.scalars_at.tolist())):
         if c.ndim == 0:
             assert slot == -1 and s == float(c)
             continue
@@ -105,6 +106,43 @@ def test_pack_is_colour_major():
             assert torch.equal(p.fields[slot, at:at + block.numel()], block), (m, colour)
             at += block.numel()
         assert at == 7**3
+
+
+def _seventeen_offsets(n):
+    """A hand-made radius-1 stencil of 17 offsets, every third coefficient
+    a field and the others scalars."""
+    offs = tuple(o for o in itertools.product((-1, 0, 1), repeat=3) if any(o))[:17]
+    g = torch.Generator().manual_seed(17)
+    coeffs = tuple(-0.1 - 0.01 * torch.rand((n, n, n), generator=g, dtype=F32) if m % 3 == 0
+                   else torch.tensor(-0.1 - 0.01 * m, dtype=F32) for m in range(17))
+    return st.StencilOperator(offs, coeffs, torch.full((n, n, n), 12.0, dtype=F32))
+
+
+@pytest.mark.parametrize("kind", ["galerkin-33", "hand-17"])
+def test_pack_scalar_array_and_variant_rule(kind):
+    """The pack's scalar array holds 26 float32 values: each offset's scalar
+    where its slot is -1, 0.0 where a field and past the offsets, so that
+    the kernel's loop over 26 offsets adds +-0 for each offset a stencil
+    lacks (the CPU wrapper runs the twin and counts no launch)."""
+    if kind == "galerkin-33":
+        ops, _ = build_hierarchy(gmrf_3d(33, 1.0, device=DEV), n_levels=2)
+        op = ops[1]
+    else:
+        op = _seventeen_offsets(9)
+    p = galerkin_sweep.pack(op)
+    assert len(p.offsets) == (26 if kind == "galerkin-33" else 17)
+    assert p.scalars_at.shape == (26,) and p.scalars_at.dtype == F32
+    assert p.scalars_at.device == op.diag.device
+    assert -1 in p.slots and any(s >= 0 for s in p.slots)
+    for m in range(26):
+        scalar = m < len(p.slots) and p.slots[m] == -1
+        want = float(op.coeffs[m].to(F32)) if scalar else 0.0
+        assert float(p.scalars_at[m]) == want, m
+    kernels.reset_launch_counts()
+    x = torch.randn(op.grid_shape, generator=torch.Generator().manual_seed(3), dtype=F32)
+    assert torch.equal(galerkin_sweep.fused_galerkin_sweep(x, None, op, 1.0, 5, 9, packed=p),
+                       galerkin_sweep.fused_galerkin_sweep_reference(x, None, op, 1.0, 5, 9))
+    assert kernels.launch_counts()["galerkin_sweep"] == 0
 
 
 def test_routes():
