@@ -21,7 +21,9 @@ number of spans a chain step, at call boundaries only:
 ``pmg.mgmc.down0``
     the level-0 chain kernel call (``MGMCSampler._fused_chain_down``);
 ``pmg.mgmc.tail``
-    the tail and from-zero down-phase kernel calls;
+    the tail kernel's call (``MGMCSampler._fused_tail_cycle``);
+``pmg.mgmc.level``
+    a level's from-zero down-phase kernel call (``MGMCSampler._fused_down``);
 ``pmg.mgmc.coarse``
     the coarse sampler's steps;
 ``pmg.mgmc.up``

@@ -551,7 +551,7 @@ class MGMCSampler:
         from parmgmc_tpu_torch.kernels.mg_sweep import fused_zero_gibbs_restrict_fd
 
         s = self.smoothers[l]
-        with span("pmg.mgmc.tail"):
+        with span("pmg.mgmc.level"):
             seed, step, at = cur.launch()
             return fused_zero_gibbs_restrict_fd(
                 bl, s._coeff6(), s.fd_params[0], s.fd_params[1], s.omega, seed, step,

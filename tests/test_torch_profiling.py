@@ -3,8 +3,9 @@
 * spans off: ``span`` returns one shared null context and a profiler
   session over a chain step records no ``pmg.`` event;
 * spans on: the span tree of a chain step on each route -- the 16^3
-  aggregate prior and posterior through ``sample_chain_deferred`` (the
-  kernels' CPU twins) and a small LRC graph MGMC run chain-major through
+  aggregate prior and posterior and the 24^3 prior, whose levels below 0
+  the tail refuses, through ``sample_chain_deferred`` (the kernels' CPU
+  twins) and a small LRC graph MGMC run chain-major through
   ``sample_chain`` -- has the names and nesting the module documents;
 * the samples and QOI are bit for bit the same with spans on and off;
 * every span name in the port is ``pmg.<layer>...`` and holds no ``::``.
@@ -41,10 +42,15 @@ OBS2D = dict(sigma2=0.01, coords=[[0.3, 0.3], [0.7, 0.6]], radii=[0.25, 0.2], va
 
 C, D0, TAIL, COARSE, UP = ("pmg.chain.step", "pmg.mgmc.down0", "pmg.mgmc.tail", "pmg.mgmc.coarse",
                            "pmg.mgmc.up")
+LEVEL = "pmg.mgmc.level"
 SMOOTH, RESTRICT, LRC, SWEEP = "pmg.mgmc.smooth", "pmg.mgmc.restrict", "pmg.lrc", "pmg.graph.sor_sweep"
 # (depth, name) of one chain step's spans, in start order
 TREES = {
     "prior": [(0, C), (1, D0), (1, TAIL), (1, COARSE), (1, UP)],
+    # 24^3: levels 12^3 and 6^3 each on a from-zero kernel call of its own
+    # (#3), the coarse 3^3 sample, the prolong-adds onto 6^3 and 12^3 (level
+    # 0's is the deferred carry)
+    "prior-levels": [(0, C), (1, D0), (1, LEVEL), (1, LEVEL), (1, COARSE), (1, UP), (1, UP)],
     # level 0: the rank-k windows around #1; level 1: the general cycle,
     # its LRC smoother's draw, b stream and Woodbury correction around #7
     "posterior": [(0, C), (1, LRC), (2, D0), (1, SMOOTH), (2, LRC), (2, LRC), (2, LRC),
@@ -65,8 +71,8 @@ def _one_thread_spans_restored():
         profiling.enable(prev)
 
 
-def _grid(posterior):
-    op = gmrf_3d(16, 1.0, dtype=torch.float32, device=DEV)
+def _grid(posterior, n=16):
+    op = gmrf_3d(n, 1.0, dtype=torch.float32, device=DEV)
     b = None
     if posterior:
         op, b = make_posterior_operator(op, 0.01, BALLS["coords"], BALLS["radii"],
@@ -90,7 +96,8 @@ def _graph():
     return lambda: sample_chain(smp, st, b, STEPS, extract=lambda x: x.sum(dim=0))
 
 
-ROUTES = {"prior": lambda: _grid(False), "posterior": lambda: _grid(True), "graph": _graph}
+ROUTES = {"prior": lambda: _grid(False), "prior-levels": lambda: _grid(False, 24),
+          "posterior": lambda: _grid(True), "graph": _graph}
 
 
 def _spans(run):
