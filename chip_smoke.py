@@ -163,32 +163,40 @@ Phases, in order; any failure raises and exits non-zero:
               default V(2,2) chain on gmrf_3d(16) (16^3 on #7, 8^3 the exact
               coarse sample of the Galerkin operator) against its
               explicit-noise chain, 20000 steps after 200 burn-in (the
-              phase-4 gates), with exact launches (four #7 and two residual
-              launches a step; none in the explicit chain).  Odd extents:
+              phase-4 gates), with exact launches (four #7, two residual
+              launches and one prolong-add a step; none in the explicit
+              chain).  Odd extents:
               gmrf_3d(129) V(2,2) linear (129 -> 65 -> 33 -> 17 -> 9): the
               residual kernel (csrc/residual_restrict.cu) bit for bit its
-              twin on every level, both forms, b given and None; eight keyed
+              twin on every level, both forms, b given and None, and the
+              prolong-add kernel (csrc/prolong_add.cu) bit for bit its twin
+              on every level, into a new tensor, a separate buffer and y;
+              eight keyed
               steps against the same steps on the twins (< 1e-4), exactly
-              four #7, twelve 27-point sweeps and five residual launches a
+              four #7, twelve 27-point sweeps, five residual launches and
+              four prolong-adds a
               step and no other kernel, one chain_step_graph a replayed
               step, a finite state; gmrf_3d(33) V(2,2) aggregate (the probed
               17^3 and 9^3 levels have coefficient fields, the plain route):
               exactly four #7 a step.  Fault F3: a two-level linear V(1,0)
               sampler is not deferred-eligible, its keyed step launches one
-              #7, two residual launches and no #1, #2 or #3, and
-              step_deferred refuses it.
+              #7, two residual launches, one prolong-add and no #1, #2 or #3,
+              and step_deferred refuses it.
 22. 256^3 default V(2,2) path -- MGMCSampler.create(gmrf_3d(256), n_pre=2,
               n_post=2) with no device and every other argument at its
               default (the linear hierarchy 256^3 ... 8^3; levels 128^3 ...
               16^3 are 27-point stencils on the 27-point colour-sweep kernel):
               the residual kernel bit for bit its twin on every level, both
               forms, b given and None, and a step's six calls timed (queued
-              behind a sleeping kernel) beside the twin and their bound;
+              behind a sleeping kernel) beside the twin and their bound; the
+              prolong-add kernel likewise, bit for bit on every level in its
+              three out forms and a step's five calls timed;
               then through sample_chain with the mean as QOI, its step replayed
               from a captured CUDA graph: ms/cycle over 64 steps after a
               warm-up, tau and ESS/sec and var(QOI) N in (0.8, 1.25) from
               N_LINEAR_IACT steps, exactly four #7 launches, sixteen
-              27-point sweeps and six residual launches a step and no other
+              27-point sweeps, six residual launches and five prolong-adds a
+              step and no other
               kernel, the device time of
               a step by kernel and the idle share, and eight keyed steps on
               the twins (state < 1e-4).
@@ -953,7 +961,8 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
 
     sweeps = (smp.n_pre + smp.n_post) * (smp.n_levels - 1 - plain_levels)
     per_sweep = {"galerkin_sweep": LAUNCHES}  # launches a sweep where not one
-    check(sum(v // per_sweep.get(k, 1) for k, v in per_step.items() if k != "residual_restrict") == sweeps
+    check(sum(v // per_sweep.get(k, 1) for k, v in per_step.items()
+              if k not in ("residual_restrict", "prolong_add")) == sweeps
           and not smp.deferred_eligible(),
           f"V(2,2) over {smp.n_levels} levels does not run {per_step} sweeps a step")
     shape = tuple(smp.grid_shape)
@@ -1906,10 +1915,10 @@ def timed_hierarchy(torch, op, **kw):
 def twin_steps(torch, smp, st, b, n=8):
     """Relative max-norm gap between n keyed steps of smp from st on the
     kernels and the same steps, eager, with the FD sweep's, the 27-point
-    sweep's and the residual's twins in their place."""
+    sweep's, the residual's and the prolong-add's twins in their place."""
     from parmgmc_tpu_torch import replay
     from parmgmc_tpu_torch.chain import sample_chain
-    from parmgmc_tpu_torch.kernels import galerkin_sweep, rb_gibbs, residual_restrict
+    from parmgmc_tpu_torch.kernels import galerkin_sweep, prolong_add, rb_gibbs, residual_restrict
     from parmgmc_tpu_torch.samplers import gibbs
 
     sa, _ = sample_chain(smp, st, b, n)
@@ -1919,6 +1928,7 @@ def twin_steps(torch, smp, st, b, n=8):
                               galerkin_sweep.fused_galerkin_sweep_reference(*a, **k)), \
             mock.patch.object(residual_restrict, "residual_restrict",
                               lambda *a, packed=None, **k: residual_restrict.residual_restrict_reference(*a, **k)), \
+            mock.patch.object(prolong_add, "prolong_add", prolong_add.prolong_add_reference), \
             mock.patch.object(replay, "graphs_for", lambda *a: None):
         sb, _ = sample_chain(smp, st, b, n)
     check(bool(torch.isfinite(sa.x).all()), "the keyed chain's state is not finite")
@@ -1963,6 +1973,43 @@ def residual_checks(torch, smp, label, timed=False):
         print(f"    {op.grid_shape} {'restrict' if restrict else 'alone'}: {t * 1e3:.2f} us (bound {lb * 1e3:.2f} us, "
               f"{100 * lb / t:.1f} %), twin {tt * 1e3:.1f} us")
     print(f"  {label}: a step's {smp.n_levels} residual calls {total:.4f} ms")
+    return total
+
+
+def prolong_checks(torch, smp, label, timed=False):
+    """The prolong-add kernel against its twin, bit for bit, on every
+    smoothed level of smp's linear hierarchy (y on the level, z on the next),
+    into a new tensor, a separate buffer and y itself.  With ``timed``, the
+    device time of a step's calls, queued behind a sleeping kernel, beside
+    the twin's and the bound of their bytes (y and z read, the output
+    written).  Returns the kernel's ms a step (0.0 untimed)."""
+    from parmgmc_tpu_torch.kernels import prolong_add as pa
+
+    gen = torch.Generator(device=smp.device).manual_seed(14)
+    fields = []
+    for l in range(smp.n_levels - 1):
+        y, z = (torch.randn(smp.ops[m].grid_shape, generator=gen, device=smp.device) for m in (l, l + 1))
+        check(pa.takes(y, z, smp.transfers[l].fine_shape), f"{label}: the prolong-add kernel does not take level {l}")
+        want = pa.prolong_add_reference(y, z)
+        for form in ("new", "separate", "y"):
+            yy = y.clone()
+            got = pa.prolong_add(yy, z, out={"new": None, "separate": torch.empty_like(y), "y": yy}[form])
+            check(torch.equal(got, want), f"{label}: the prolong-add kernel differs from its twin at level "
+                  f"{l} {tuple(y.shape)} (out {form}): rel {rel_err(got, want)[0]:.3e}")
+        fields.append((y, z))
+    print(f"  {label}: the prolong-add kernel equals its twin bit for bit on every level, three out forms")
+    if not timed:
+        return 0.0
+    total = 0.0
+    for y, z in fields:
+        t = queued_ms(torch, lambda: pa.prolong_add(y, z), 20)
+        tg = queued_ms(torch, lambda: pa.prolong_add(y, z, out=y), 20)
+        tt = event_ms(torch, lambda: pa.prolong_add_reference(y, z), 5)
+        lb = bound(4 * (2 * y.numel() + z.numel()), 0)[0]
+        total += t
+        print(f"    {tuple(y.shape)}: {t * 1e3:.2f} us, in place {tg * 1e3:.2f} us (bound {lb * 1e3:.2f} us, "
+              f"{100 * lb / t:.1f} %), twin {tt * 1e3:.1f} us")
+    print(f"  {label}: a step's {len(fields)} prolong-add calls {total:.4f} ms")
     return total
 
 
@@ -2011,7 +2058,7 @@ def phase_linear(torch, dev):
     check(smp.n_levels == 2 and smp.smoothers[0].has_kernel, f"gmrf_3d(16) levels {smp.n_levels}")
     b = torch.full(smp.grid_shape, 50.0, device=dev)
     kern = counted_moments(torch, "linear V(2,2) kernel chain", smp, b, N_POST_MOMENTS, 200,
-                           {"rb_gibbs_fd": 4, "residual_restrict": 2})
+                           {"rb_gibbs_fd": 4, "residual_restrict": 2, "prolong_add": 1})
     plain = counted_moments(torch, "linear V(2,2) plain chain", ExplicitNoise(smp), b, N_POST_MOMENTS, 200, {})
     moments_check(torch, "linear V(2,2)", kern, plain, 0.2)
 
@@ -2021,8 +2068,10 @@ def phase_linear(torch, dev):
     levels = [o.grid_shape for o in odd.ops]
     check(levels == [(m,) * 3 for m in (129, 65, 33, 17, 9)], f"gmrf_3d(129) levels {levels}")
     residual_checks(torch, odd, "129^3")
+    prolong_checks(torch, odd, "129^3")
     st = counted_steps(torch, "129^3 linear V(2,2)", odd, 8,
-                       {"rb_gibbs_fd": 4, "galerkin_sweep": 12 * LAUNCHES, "residual_restrict": 5})
+                       {"rb_gibbs_fd": 4, "galerkin_sweep": 12 * LAUNCHES, "residual_restrict": 5,
+                        "prolong_add": 4})
     rel = twin_steps(torch, odd, st, None)
     print(f"  129^3 linear V(2,2): 8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")
     check(rel < 1e-4, "the odd-extent linear cycle on the kernels disagrees with its twins")
@@ -2036,7 +2085,8 @@ def phase_linear(torch, dev):
     f3 = MGMCSampler.create(gmrf_3d(32, kappa=1.0), n_levels=2, n_pre=1, n_post=0)
     check(f3.smoothers[0].fd_params is not None and not f3.deferred_eligible(),
           "a linear V(1,0) sampler is deferred-eligible")
-    counted_steps(torch, "32^3 two-level linear V(1,0)", f3, 8, {"rb_gibbs_fd": 1, "residual_restrict": 2})
+    counted_steps(torch, "32^3 two-level linear V(1,0)", f3, 8,
+                  {"rb_gibbs_fd": 1, "residual_restrict": 2, "prolong_add": 1})
     refused = False
     try:
         f3.step_deferred(0, torch.zeros(f3.grid_shape, device=dev), f3.deferred_init(torch.float32), None)
@@ -2067,7 +2117,9 @@ def phase_linear_path(torch, dev):
           "level 0 should take #7 and the 27-point levels the 27-point sweep kernel")
     print(f"  levels {levels}, create {time.perf_counter() - t0:.2f} s; chain of {N_LINEAR_IACT} steps for tau")
     residual_checks(torch, smp, f"{N_MAIN}^3", timed=True)
-    counts, st = phase_v22(torch, smp, {"rb_gibbs_fd": 4, "galerkin_sweep": 16 * LAUNCHES, "residual_restrict": 6},
+    prolong_checks(torch, smp, f"{N_MAIN}^3", timed=True)
+    counts, st = phase_v22(torch, smp, {"rb_gibbs_fd": 4, "galerkin_sweep": 16 * LAUNCHES, "residual_restrict": 6,
+                                        "prolong_add": 5},
                            n_time=N_LINEAR_TIME, n_iact=N_LINEAR_IACT, n_warm=4, twin=False, n_win=2)
     rel = twin_steps(torch, smp, st, None)
     print(f"  8 keyed steps on the kernels vs on the twins: state rel {rel:.3e} (gate 1e-4)")

@@ -67,6 +67,7 @@ _LIB = None
 # fused_rb_gibbs_sweep_2d_staged and fused_rb_gibbs_sweep_2d (either diagonal);
 # galerkin_sweep, the launches of fused_galerkin_sweep (kernels.galerkin_sweep);
 # residual_restrict, the launches of kernels.residual_restrict (one a call);
+# prolong_add, the launches of kernels.prolong_add (one a call);
 # and chain_step_graph, the replays of a captured chain step
 # (parmgmc_tpu_torch.replay), each of which also counts the kernels it holds
 _LAUNCHES = {
@@ -74,7 +75,7 @@ _LAUNCHES = {
     "patch_sweep": 0, "patch_sweep_streamed": 0, "patch_sweep_colourwise": 0,
     "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
     "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0, "galerkin_sweep": 0, "residual_restrict": 0,
-    "chain_step_graph": 0,
+    "prolong_add": 0, "chain_step_graph": 0,
 }
 
 _P = ctypes.c_void_p
@@ -109,6 +110,8 @@ _SIGNATURES = {
     # (x, b, out, fields, scal, scal_at, offs, noff, diag, kappa2, hinv2, n0,
     # n1, n2, restrict, stream)
     "pmg_residual_restrict": ([_P] * 7 + [_I, _P, _F, _F] + [_I] * 4 + [_P], _I),
+    # (y, z, out, n0, n1, n2, stream)
+    "pmg_prolong_add": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "pmg_patch_sweep": _PATCH,
     "pmg_patch_sweep_streamed": _PATCH,
     "pmg_patch_sweep_colourwise": _PATCH,

@@ -8,9 +8,11 @@ restrict = prolong^T and ``prolong_add(y, xc, out=None) = y + prolong(xc)``
 
 :class:`GeometricTransfer` is the linear interpolation and full weighting
 of :mod:`parmgmc_tpu_torch.operators.stencil` (``coarsening="linear"``,
-the default hierarchy).  In :class:`AggregateTransfer` P injects each
-coarse value into its 2^d fine block (an odd extent's last coarse cell
-covers one fine node); R = P^T sums the block.  Sums
+the default hierarchy); on the card its ``prolong_add`` of a 3D float32
+grid is one launch of :mod:`parmgmc_tpu_torch.kernels.prolong_add`.  In
+:class:`AggregateTransfer` P injects each coarse value into its 2^d fine
+block (an odd extent's last coarse cell covers one fine node); R = P^T
+sums the block.  Sums
 take the axis-0 pair first, then axis 1, then axis 2 -- the order the
 CUDA kernels use for their fused restriction.
 
@@ -38,9 +40,13 @@ __all__ = ["AggregateTransfer", "GeometricTransfer", "SparseTransfer", "sparse_t
 @dataclass(frozen=True)
 class GeometricTransfer:
     """Vertex-style linear interpolation from ceil(n/2) points an axis
-    and its exact transpose."""
+    and its exact transpose.  ``impl`` ``"kernel"`` lets
+    :meth:`prolong_add` launch the prolong-add kernel where it takes the
+    call; ``"torch"`` keeps the plain expression
+    (``samplers.registry.lax_variant``)."""
 
     fine_shape: tuple
+    impl: str = "kernel"
 
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         return _st.prolong(xc, self.fine_shape)
@@ -49,6 +55,17 @@ class GeometricTransfer:
         return _st.restrict(xf, len(self.fine_shape))
 
     def prolong_add(self, y: torch.Tensor, xc: torch.Tensor, out=None) -> torch.Tensor:
+        """y + prolong(xc), into ``out`` when given: one launch of the
+        prolong-add kernel where y is on the card and
+        ``kernels.prolong_add.takes`` the call (a 3D float32 grid with no
+        chain dims), else the same expression in plain torch (its twin)."""
+        if self.impl == "kernel" and y.device.type == "cuda":
+            # the kernel modules import the operators (kernels.residual_restrict
+            # imports this one), never the reverse at import time
+            from parmgmc_tpu_torch.kernels import prolong_add as pa
+
+            if pa.takes(y, xc, self.fine_shape, out):
+                return pa.prolong_add(y.contiguous(), xc.contiguous(), out=out)
         return torch.add(y, self.prolong(xc), out=out)
 
 

@@ -52,7 +52,8 @@ def lax_variant(sampler):
     keyed steps draw their noise from ``keys.generator``, as the
     explicit-noise route does, and launch no kernel.  An MGMC sampler also
     drops the rank-k matrices of its level-0 chain kernel and the packs of
-    its residual kernel.  Take it for
+    its residual kernel, and its linear transfers add the prolonged
+    correction in plain torch.  Take it for
     trailing chain dims on a structured sampler (the kernels take one
     chain), or to run a configuration without a GPU kernel."""
 
@@ -60,7 +61,8 @@ def lax_variant(sampler):
         if getattr(obj, "impl", "torch") != "torch":
             obj = dataclasses.replace(obj, impl="torch")
         if hasattr(obj, "smoothers"):
-            obj = dataclasses.replace(obj, smoothers=tuple(fix(s) for s in obj.smoothers), lrc_aux=None,
+            obj = dataclasses.replace(obj, smoothers=tuple(fix(s) for s in obj.smoothers),
+                                      transfers=tuple(fix(t) for t in obj.transfers), lrc_aux=None,
                                       residual_packs=None)
         if hasattr(obj, "sampler"):  # Woodbury's inner sampler
             obj = dataclasses.replace(obj, sampler=fix(obj.sampler))

@@ -563,7 +563,8 @@ def _noise_prefix(seed, step):
 @pytest.mark.parametrize("coarsening", ["linear", "aggregate"])
 def test_replayed_sample_chain_is_the_eager_chain(dev, coarsening):
     """sample_chain of the V(2,2) prior at 32^3 (linear: #7, the 27-point
-    sweep and three residual launches a step; aggregate: #7 at every level),
+    sweep, three residual and two prolong-add launches a step; aggregate: #7
+    at every level),
     replayed from its captured CUDA
     graphs over two calls of 10 steps: bit for bit the eager chain (states,
     keys and QOI); the states it returned left alone; one chain_step_graph
@@ -581,7 +582,8 @@ def test_replayed_sample_chain_is_the_eager_chain(dev, coarsening):
         st, q = sample_chain(smp, st, None, 10, extract=torch.mean)
         runs.append((st, q, st.x.clone()))
     counts = kernels.launch_counts()
-    per = (dict(rb_gibbs_fd=4, galerkin_sweep=4 * LAUNCHES, residual_restrict=3) if coarsening == "linear"
+    per = (dict(rb_gibbs_fd=4, galerkin_sweep=4 * LAUNCHES, residual_restrict=3, prolong_add=2)
+           if coarsening == "linear"
            else dict(rb_gibbs_fd=8))
     assert counts == dict(dict.fromkeys(counts, 0), chain_step_graph=19,
                           **{k: 20 * v for k, v in per.items()}), counts
@@ -755,13 +757,16 @@ def test_linear_hierarchy_launches_no_chain_kernel(dev):
     general keyed cycle (one #7 a step, no #1, #2 or #3) and the deferred
     chain refuses it; the default V(2,2) runs four #7 a step (level 0) and
     four 27-point sweeps (level 1); a residual launch a step for the fine
-    residual and one a smoothed level; every step but the first is a replay."""
+    residual and one a smoothed level, and a prolong-add launch a smoothed
+    level; every step but the first is a replay."""
     from parmgmc_tpu_torch.kernels.galerkin_sweep import LAUNCHES
 
     op = shifted_laplace_fd((16, 16, 32), 1.0, device=dev)
-    for kw, per_step in ((dict(n_levels=2, n_pre=1, n_post=0), dict(rb_gibbs_fd=1, residual_restrict=2)),
+    for kw, per_step in ((dict(n_levels=2, n_pre=1, n_post=0),
+                          dict(rb_gibbs_fd=1, residual_restrict=2, prolong_add=1)),
                          (dict(n_pre=2, n_post=2),
-                          dict(rb_gibbs_fd=4, galerkin_sweep=4 * LAUNCHES, residual_restrict=3))):
+                          dict(rb_gibbs_fd=4, galerkin_sweep=4 * LAUNCHES, residual_restrict=3,
+                               prolong_add=2))):
         smp = MGMCSampler.create(op, coarsest_size=64, **kw)
         assert not smp.deferred_eligible()
         kernels.reset_launch_counts()
