@@ -842,7 +842,7 @@ def phase_main(torch, dev, smp, n=N_MAIN, n_time=N_TIME, n_iact=N_IACT, want=Non
     st, q = sample_chain_deferred(smp, st, None, n_iact)
     q = q.double().cpu()
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     print(f"  launches during the main path ({n_time + n_iact} steps): {counts}")
     if want is None:
         check(counts["chain_down"] > 0 and counts["tail_down"] > 0,
@@ -978,7 +978,7 @@ def phase_v22(torch, smp, per_step, n_time=N_TIME, n_iact=N_IACT, n_warm=32, twi
     st, q = sample_chain(smp, st, None, n_iact, extract=torch.mean)
     q = q.double().cpu()
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     steps = n_time + n_iact
     print(f"  launches during the V(2,2) path: {counts} over {steps} steps")
     expect = dict.fromkeys(counts, 0)
@@ -1042,7 +1042,7 @@ def phase_gibbs(torch, op, cases, n_steps):
     shape = tuple(op.grid_shape)
     ops = {"FD": op, "streamed": field_operator(torch, op)}
     kernels.reset_launch_counts()
-    want = kernels.launch_counts()
+    want = kernels.launch_counts(plain=False)
     for mode, sweep, counter in cases:
         smp = GibbsSampler.create(ops[mode], sweep=sweep)
         halves = 2 if sweep == "symmetric" else 1
@@ -1057,7 +1057,7 @@ def phase_gibbs(torch, op, cases, n_steps):
               f"Gibbs {mode} {sweep} chain is not finite")
         print(f"  Gibbs {mode} {sweep} at {shape}: {dt * 1e3:.4f} ms/sweep ({n_steps} steps, "
               f"{halves} {counter} launch(es) a step)")
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     print(f"  launches during the Gibbs chains: {counts}")
     check(counts == want, f"Gibbs chains launched {counts}, expected {want}")
     return counts
@@ -1163,7 +1163,7 @@ def phase_patch_path(torch, smps):
         st, q = sample_chain(smp, st, None, N_PATCH_TIME, extract=torch.mean)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / N_PATCH_TIME
-        c = kernels.launch_counts()
+        c = kernels.launch_counts(plain=False)
         print(f"  {shape}: launches {c} over {N_PATCH_TIME} sweeps")
         check(c[route] == N_PATCH_TIME and sum(c.values()) == N_PATCH_TIME,
               f"the {shape} patch chain should make exactly one {route} call a sweep: {c}")
@@ -1407,7 +1407,7 @@ def phase_moments_2d(torch, dev):
           "the large-plane chain does not take the large-plane kernels")
     kernels.reset_launch_counts()
     kern = chain_moments(torch, "large-plane kernel chain", smp, b, N_MOMENTS_2D, burnin=100)
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     steps = N_MOMENTS_2D + 100
     want = dict.fromkeys(counts, 0)
     want.update(chain_2d=steps, zero_restrict=(len(levels) - 2) * steps)
@@ -1576,7 +1576,7 @@ def phase_sweep2d_moments(torch, dev, b, gates):
         kernels.reset_launch_counts()
         with mock.patch.object(rg, "_PLANE_LIMIT", limit):
             kern = chain_moments(torch, f"{label} large-plane kernel chain", smp, bb, n)
-        counts = kernels.launch_counts()
+        counts = kernels.launch_counts(plain=False)
         expect = dict.fromkeys(counts, 0)
         expect.update({k: v * steps for k, v in per.items()})
         print(f"  launches: {counts} ({per} a step over {steps} steps)")
@@ -1630,7 +1630,7 @@ def counted_moments(torch, label, smp, b, n, burnin, per_step):
 
     kernels.reset_launch_counts()
     out = chain_moments(torch, label, smp, b, n, burnin)
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     expect = dict.fromkeys(counts, 0)
     expect.update({k: v * (n + burnin) for k, v in per_step.items()})
     check(counts == expect, f"{label}: launched {counts}, expected {per_step} a step")
@@ -1802,7 +1802,7 @@ def phase_posterior_path(torch, dev):
     st, q = sample_chain_deferred(smp, st, f, N_IACT)
     q = q.double().cpu()
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     steps = N_TIME + N_IACT
     print(f"  launches during the posterior path ({steps} steps): {counts}")
     expect = dict(dict.fromkeys(counts, 0), chain_down=steps, rb_gibbs_fd=(smp.n_levels - 2) * steps,
@@ -2026,7 +2026,7 @@ def counted_steps(torch, label, smp, n, per_step):
     kernels.reset_launch_counts()
     st, _ = sample_chain(smp, st, None, n)
     torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     expect = dict(dict.fromkeys(counts, 0), **{k: v * n for k, v in per_step.items()})
     expect["chain_step_graph"] = n - 1 if smp.keyed_words(0).replayable else 0
     check(counts == expect, f"{label}: launched {counts}, expected {per_step} a step")
@@ -2448,7 +2448,7 @@ def phase_mesh_path(torch, post, prior32, prior4, w):
     print(f"  refine-4 prior, 1 chain ({prior4.n} DOFs, {prior4.sampler.n_levels} levels): "
           f"{dt * 1e3:.4f} ms/cycle over {N_MESH4_TIME} steps")
     mesh_device_report(torch, "refine-4 prior, 1 chain", lambda: prior4.sample(4), 4, dt)
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     check(not any(counts.values()), f"the mesh path launched a port kernel: {counts}")
     print("  the mesh path launched no port kernel (no TPU kernel on this path)")
 
@@ -2491,7 +2491,7 @@ def phase_matern(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = N_MATERN + N_MATERN_BURNIN
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     check(counts == expect_v10(counts, steps, steps - 1),
           f"the façade's sample run launched {counts} in {steps} steps")
     q = q.double().cpu()
@@ -2581,7 +2581,7 @@ def phase_ex7(torch, ms):
         overdispersion=1e3, max_steps=N_EX7_MAX)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     check(counts == expect_v10(counts, N_EX7_CHAINS * steps, N_EX7_CHAINS * steps - 1),
           f"the ex7 flow launched {counts} in {N_EX7_CHAINS} x {steps} steps")
     check(rhat < 1.05 and trace.shape == (N_EX7_CHAINS, steps) and np.isfinite(trace).all(),
@@ -2604,7 +2604,7 @@ def phase_ex7(torch, ms):
     q = ms.sample_chains(N_FACADE_STEPS, n_chains=N_FACADE_CHAINS, burnin=N_MATERN_BURNIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    c2 = kernels.launch_counts()
+    c2 = kernels.launch_counts(plain=False)
     n_steps = N_FACADE_CHAINS * (N_FACADE_STEPS + N_MATERN_BURNIN)
     check(c2 == expect_v10(c2, n_steps, n_steps - 1), f"sample_chains launched {c2} in {n_steps} steps")
     check(tuple(q.shape) == (N_FACADE_CHAINS, N_FACADE_STEPS) and bool(torch.isfinite(q).all()),
@@ -2821,7 +2821,7 @@ def phase_sharded_path(torch, dev, smi):
             key, xs = 5, shard_array(x0, mesh)
             for _ in range(3):
                 key, xs = step(key, xs, None)
-            c = kernels.launch_counts()
+            c = kernels.launch_counts(plain=False)
             want = dict(dict.fromkeys(c, 0), chain_down=3 * S, zero_restrict=3 * S)
             check(c == want, f"{S} shards: 3 steps launched {c}, expected {want}")
             out = unshard(xs, device=dev)
@@ -2848,7 +2848,7 @@ def phase_sharded_path(torch, dev, smi):
             if S == SHARDS_MAX:
                 kernels.reset_launch_counts()
                 xs, q = sharded_qoi_chain(torch, step, shard_array(x0, mesh), None, 16, N_SHARD_QOI)
-                counts = kernels.launch_counts()
+                counts = kernels.launch_counts(plain=False)
                 steps = 16 + N_SHARD_QOI
                 want = dict(dict.fromkeys(counts, 0), chain_down=S * steps, zero_restrict=S * steps)
                 check(counts == want, f"the {S}-shard chain launched {counts}, expected {want}")
@@ -2887,7 +2887,7 @@ def phase_sharded_path(torch, dev, smi):
         xs, q = sharded_qoi_chain(torch, step, shard_array(x0, mesh), fs, 16, N_SHARD_QOI)
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / (16 + N_SHARD_QOI) * 1e3
-        c = kernels.launch_counts()
+        c = kernels.launch_counts(plain=False)
     steps = 16 + N_SHARD_QOI
     want = dict(dict.fromkeys(c, 0), chain_down=SHARDS_MAX * steps)
     check(c == want, f"the sharded posterior launched {c}, expected {want}")
@@ -3026,7 +3026,7 @@ def phase_graph_sharded(torch, dev, smi, post, prior32, prior4, w, mu_q, var_q):
         check(all(bool(torch.isfinite(v).all()) for v in carry[0]), f"{S} slots: the chains are not finite")
         print(f"  refine-3 posterior, {C} chains, {S} slot(s): {ms:.4f} ms a step ({ms / ms_plain:.3f} x the "
               f"unsharded step), {busy_text(busy, ms)}")
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     check(not any(counts.values()), f"the sharded wrench launched a port kernel: {counts}")
     print(f"  phase 30 wall {time.perf_counter() - t_start:.1f} s")
 
@@ -3105,7 +3105,7 @@ def phase_shard_sampler(torch, dev, smi):
     parity(f"README quick start {N_MAIN}^3 V(2,2)", smp, SHARDS_MAX, windows=0)
     del smp
     torch.cuda.empty_cache()
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     check(not any(counts.values()), f"shard_sampler launched a port kernel: {counts}")
     print(f"  phase 31 wall {time.perf_counter() - t_start:.1f} s")
 
@@ -3135,7 +3135,7 @@ def phase_examples(torch):
     from parmgmc_tpu_torch.examples import ex2_matern_iact
 
     t_start = time.perf_counter()
-    before = kernels.launch_counts()
+    before = kernels.launch_counts(plain=False)
     with tempfile.TemporaryDirectory() as tmp, mock.patch.object(ex2_matern_iact, "N_MEAN_VAR", N_EX2_MEAN_VAR):
         for label, name, argv, cut in EXAMPLE_RUNS:
             argv = [a.replace("{tmp}", tmp) for a in argv]
@@ -3150,7 +3150,7 @@ def phase_examples(torch):
                         check(a.read() == b.read(), f"make_meshes wrote {geo}.msh unlike data/{geo}.msh")
                 print("  make_meshes: all four files byte for byte data/*.msh")
             print(f"  {label} passed its assert in {time.perf_counter() - t0:.2f} s")
-    after = kernels.launch_counts()
+    after = kernels.launch_counts(plain=False)
     check(after == before, f"the examples launched port kernels: {before} -> {after}")
     print(f"  launch counters unchanged across the phase; phase 33 wall {time.perf_counter() - t_start:.1f} s")
 
@@ -3221,7 +3221,7 @@ def main():
     check(all(main_smp._tail_fused_eligible(l) for l in range(1, main_smp.n_levels - 1)),
           "the 256^3 hierarchy's levels below 0 do not all take the tail kernel")
     counts = phase_main(torch, dev, main_smp,
-                        want=lambda steps: expect_v10(kernels.launch_counts(), steps, steps))
+                        want=lambda steps: expect_v10(kernels.launch_counts(plain=False), steps, steps))
     phase("7. moments gates: V(2,2) and Gibbs")
     gates = phase_moments_general(torch, dev, b)
     phase("8. V(2,2) path")
@@ -3266,7 +3266,7 @@ def main():
     n_smooth = len(big_levels) - 2  # smoothed levels below 0
 
     def want_big(steps):
-        w = dict.fromkeys(kernels.launch_counts(), 0)
+        w = dict.fromkeys(kernels.launch_counts(plain=False), 0)
         w.update(chain_2d_staged=steps, zero_restrict=n_smooth * steps, chain_step_graph=steps)
         return w
 

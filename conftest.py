@@ -16,3 +16,4 @@ def pytest_collectstart(collector):
     if cells is not None and str(collector.path).startswith(BENCH_TESTS):
         # drive -> (the small configuration's name, the key that sizes it)
         cells.SMALL.setdefault("grid_slabs", ("gmrf3d-slabs-small-test", "n"))
+        cells.SMALL.setdefault("grid_cycle_slabs", ("gmrf3d-cycle-slabs-small-test", "n"))

@@ -68,15 +68,21 @@ _LIB = None
 # galerkin_sweep, the launches of fused_galerkin_sweep (kernels.galerkin_sweep);
 # residual_restrict, the launches of kernels.residual_restrict (one a call);
 # prolong_add, the launches of kernels.prolong_add (one a call);
-# and chain_step_graph, the replays of a captured chain step
-# (parmgmc_tpu_torch.replay), each of which also counts the kernels it holds
+# chain_step_graph, the replays of a captured chain step
+# (parmgmc_tpu_torch.replay), each of which also counts the kernels it holds;
+# and the plain-torch calls of the general cycle that no kernel takes
+# (PLAIN, no launch of this library): residual_torch, each call of
+# MGMCSampler._residual on its plain-torch branch, and prolong_add_torch,
+# each plain-torch prolong-add of AggregateTransfer.prolong_add and of
+# GeometricTransfer.prolong_add's fallback
 _LAUNCHES = {
     "chain_down": 0, "tail_down": 0, "rb_gibbs_fd": 0, "rb_gibbs": 0,
     "patch_sweep": 0, "patch_sweep_streamed": 0, "patch_sweep_colourwise": 0,
     "chain_2d_staged": 0, "chain_2d": 0, "zero_restrict": 0,
     "rb_gibbs_2d_staged": 0, "rb_gibbs_2d": 0, "galerkin_sweep": 0, "residual_restrict": 0,
-    "prolong_add": 0, "chain_step_graph": 0,
+    "prolong_add": 0, "chain_step_graph": 0, "residual_torch": 0, "prolong_add_torch": 0,
 }
+PLAIN = ("residual_torch", "prolong_add_torch")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -263,8 +269,10 @@ def count_launches(counts: dict) -> None:
         _LAUNCHES[name] += n
 
 
-def launch_counts() -> dict:
-    return dict(_LAUNCHES)
+def launch_counts(plain: bool = True) -> dict:
+    """Every counter; without the plain-torch calls (:data:`PLAIN`) where
+    not ``plain``: the kernels' launches and the replays alone."""
+    return {k: v for k, v in _LAUNCHES.items() if plain or k not in PLAIN}
 
 
 def reset_launch_counts() -> None:

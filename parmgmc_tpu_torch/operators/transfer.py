@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from parmgmc_tpu_torch import resolve_device
+from parmgmc_tpu_torch import kernels, resolve_device
 
 from parmgmc_tpu_torch.operators import stencil as _st
 
@@ -58,7 +58,8 @@ class GeometricTransfer:
         """y + prolong(xc), into ``out`` when given: one launch of the
         prolong-add kernel where y is on the card and
         ``kernels.prolong_add.takes`` the call (a 3D float32 grid with no
-        chain dims), else the same expression in plain torch (its twin)."""
+        chain dims), else the same expression in plain torch (its twin),
+        counted as ``prolong_add_torch``."""
         if self.impl == "kernel" and y.device.type == "cuda":
             # the kernel modules import the operators (kernels.residual_restrict
             # imports this one), never the reverse at import time
@@ -66,6 +67,7 @@ class GeometricTransfer:
 
             if pa.takes(y, xc, self.fine_shape, out):
                 return pa.prolong_add(y.contiguous(), xc.contiguous(), out=out)
+        kernels.count_launches({"prolong_add_torch": 1})
         return torch.add(y, self.prolong(xc), out=out)
 
 
@@ -120,7 +122,9 @@ class AggregateTransfer:
     def prolong_add(self, y: torch.Tensor, xc: torch.Tensor, out=None) -> torch.Tensor:
         """y + P xc in one broadcast pass on even grids (the same single
         add per element as ``y + prolong(xc)``, so the same bits), into
-        ``out`` (contiguous) when given."""
+        ``out`` (contiguous) when given; plain torch, counted as
+        ``prolong_add_torch``."""
+        kernels.count_launches({"prolong_add_torch": 1})
         if not self._even() or y.ndim != len(self.fine_shape):
             return torch.add(y, self.prolong(xc), out=out)
         split = tuple(itertools.chain.from_iterable((s // 2, 2) for s in self.fine_shape))

@@ -618,13 +618,15 @@ class MGMCSampler:
         """R_l (b - A_l x), or b - A_l x where not ``restrict`` (b None: a
         zero right-hand side): one launch of the residual kernel where level
         l has its pack and x is a float32 grid on the card with no chain
-        dims, else the same expression in plain torch (the kernel's twin)."""
+        dims, else the same expression in plain torch (the kernel's twin),
+        counted as ``residual_torch``."""
         op = self.ops[l]
         pack = None if self.residual_packs is None else self.residual_packs[l]
         if pack is not None and x.device.type == "cuda" and residual_restrict.takes(op, x, b):
             return residual_restrict.residual_restrict(
                 x.contiguous(), None if b is None else b.contiguous(), op, restrict=restrict,
                 packed=pack)
+        kernels.count_launches({"residual_torch": 1})
         r = (torch.zeros_like(x) if b is None else bcast(b, x)) - op.apply(x)
         return self.transfers[l].restrict(r) if restrict else r
 

@@ -462,7 +462,7 @@ def test_replayed_deferred_chain_is_the_eager_chain(dev, n, posterior):
     for _ in range(3):
         st, q = sample_chain_deferred(smp, st, b, 20)
         runs.append((st, q, st.x.clone()))
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     per = dict(rb_gibbs_fd=smp.n_levels - 2) if posterior else dict(tail_down=1)
     want = dict(dict.fromkeys(counts, 0), chain_down=60, chain_step_graph=59,
                 **{k: 60 * v for k, v in per.items()})
@@ -564,7 +564,7 @@ def _noise_prefix(seed, step):
 def test_replayed_sample_chain_is_the_eager_chain(dev, coarsening):
     """sample_chain of the V(2,2) prior at 32^3 (linear: #7, the 27-point
     sweep, three residual and two prolong-add launches a step; aggregate: #7
-    at every level),
+    at every level, three plain-torch residuals and two prolong-adds),
     replayed from its captured CUDA
     graphs over two calls of 10 steps: bit for bit the eager chain (states,
     keys and QOI); the states it returned left alone; one chain_step_graph
@@ -582,9 +582,11 @@ def test_replayed_sample_chain_is_the_eager_chain(dev, coarsening):
         st, q = sample_chain(smp, st, None, 10, extract=torch.mean)
         runs.append((st, q, st.x.clone()))
     counts = kernels.launch_counts()
+    # aggregate: the fine residual and two levels' in plain torch, two
+    # plain prolong-adds (the counters of the plain-torch calls)
     per = (dict(rb_gibbs_fd=4, galerkin_sweep=4 * LAUNCHES, residual_restrict=3, prolong_add=2)
            if coarsening == "linear"
-           else dict(rb_gibbs_fd=8))
+           else dict(rb_gibbs_fd=8, residual_torch=3, prolong_add_torch=2))
     assert counts == dict(dict.fromkeys(counts, 0), chain_step_graph=19,
                           **{k: 20 * v for k, v in per.items()}), counts
     for st_g, _, copy in runs:
@@ -600,6 +602,24 @@ def test_replayed_sample_chain_is_the_eager_chain(dev, coarsening):
     with mock.patch.object(replay, "graphs_for", lambda *a: None):
         _, xs_e = sample_chain(smp, runs[-1][0], None, 3)
     assert torch.equal(xs_g, xs_e)
+
+
+def test_replayed_aggregate_v22_step_counts_its_plain_torch_calls(dev, monkeypatch):
+    """The 768^3 aggregate V(2,2) route in miniature: at 64^3 with the plane
+    limit below 64^2, level 0's four sweeps take #9 and 32^3, 16^3 #7; each
+    replay credits the step's plain-torch calls, the fine residual and one a
+    smoothed level (4) and a prolong-add a smoothed level (3)."""
+    monkeypatch.setattr(rb_gibbs, "_PLANE_LIMIT", 64 * 64 - 1)
+    smp = MGMCSampler.create(shifted_laplace_fd((64, 64, 64), 1.0, device=dev), n_pre=2,
+                             n_post=2, coarsest_size=128, coarsening="aggregate")
+    assert smp.n_levels == 4 and smp.keyed_words(0).replayable
+    st, _ = sample_chain(smp, init_chain(smp, 2**33 + 5), None, 2, extract=torch.mean)
+    kernels.reset_launch_counts()
+    st, q = sample_chain(smp, st, None, 6, extract=torch.mean)
+    counts = kernels.launch_counts()
+    assert counts == dict(dict.fromkeys(counts, 0), chain_step_graph=6, rb_gibbs_2d_staged=4 * 6,
+                          rb_gibbs_fd=8 * 6, residual_torch=4 * 6, prolong_add_torch=3 * 6), counts
+    assert bool(torch.isfinite(q).all())
 
 
 def test_graph_hierarchy_is_not_captured(dev):
@@ -720,7 +740,7 @@ def test_posterior_chain_step_matches_its_oracle(dev, route):
     for b in (f, None):
         kernels.reset_launch_counts()
         _, got = smp.step(3, x, b)
-        counts = kernels.launch_counts()
+        counts = kernels.launch_counts(plain=False)
         assert counts == dict(dict.fromkeys(counts, 0), chain_down=1, rb_gibbs_fd=1), counts
         assert _rel(got, lrc_chain_oracle(smp, 3, x, b)) < 1e-3, (route, b is None)
 
@@ -771,7 +791,7 @@ def test_linear_hierarchy_launches_no_chain_kernel(dev):
         assert not smp.deferred_eligible()
         kernels.reset_launch_counts()
         st, q = sample_chain(smp, init_chain(smp, 1), None, 5, extract=torch.mean)
-        counts = kernels.launch_counts()
+        counts = kernels.launch_counts(plain=False)
         want = dict(dict.fromkeys(counts, 0), chain_step_graph=4, **{k: 5 * v for k, v in per_step.items()})
         assert counts == want, counts
         assert bool(torch.isfinite(st.x).all()) and bool(torch.isfinite(q).all())
@@ -791,7 +811,7 @@ def test_matern_sampler_runs_the_chain_kernels(dev):
     kernels.reset_launch_counts()
     q = ms.sample(6, burnin=2)
     qc = ms.sample_chains(5, n_chains=3)
-    counts = kernels.launch_counts()
+    counts = kernels.launch_counts(plain=False)
     # every step a replay but the first of the sampler's first chain call
     assert counts == dict(dict.fromkeys(counts, 0), chain_down=8 + 15, tail_down=8 + 15,
                           chain_step_graph=7 + 15), counts
@@ -897,7 +917,7 @@ def test_sharded_step_launches_on_two_slots(dev):
         key, xs = 5, shard_array(x, mesh)
         for _ in range(3):
             key, xs = step(key, xs, None)
-        counts = kernels.launch_counts()
+        counts = kernels.launch_counts(plain=False)
         assert counts == dict(dict.fromkeys(counts, 0), chain_down=3 * n, zero_restrict=3 * n), counts
         outs.append(unshard(xs))
     assert torch.equal(outs[0], outs[1])
